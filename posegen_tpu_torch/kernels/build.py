@@ -1,0 +1,98 @@
+"""Build and bind the CUDA kernels: nvcc into a shared library with a plain C
+interface, loaded with ctypes.
+
+The library is built from this package's `csrc/` sources at first CUDA use
+into `build/posegen_tpu_torch/` at the repository root, named by a hash of
+the sources and flags, so an edited source rebuilds and an unchanged one
+loads at once. Nothing here runs at import: the module imports on a host
+without nvcc or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "posegen_tpu_torch"
+SOURCES = ("field.cu",)
+HEADERS = ("field.cuh",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LIB: Optional[ctypes.CDLL] = None
+BUILD_LOG = {"seconds": None, "ptxas": ""}  # filled by the build that ran
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None:
+        cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+        path = str(cand) if cand.exists() else None
+    if path is None:
+        raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+                           "the posegen_tpu_torch kernels build from source")
+    return path
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libposegen_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless the hashed library exists -> its path."""
+    out = library_path()
+    if out.exists():
+        return out
+    nvcc = _nvcc()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+        )
+    os.replace(tmp, out)
+    BUILD_LOG["seconds"] = time.perf_counter() - t0
+    BUILD_LOG["ptxas"] = proc.stderr
+    return out
+
+
+def load() -> ctypes.CDLL:
+    """Build if needed, load once, declare the C signatures."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    lib = ctypes.CDLL(str(build()))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    IA = ctypes.POINTER(ctypes.c_int)
+    lib.posegen_field.argtypes = [P, P, I, I, P, IA, I, P, P, P, I, P]
+    lib.posegen_field.restype = I
+    lib.posegen_dual.argtypes = [P, P, I, I, P, IA, I, P, P, P, P, P, P, P]
+    lib.posegen_dual.restype = I
+    lib.posegen_error_string.argtypes = [I]
+    lib.posegen_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib
+
+
+def check(lib: ctypes.CDLL, rc: int, name: str) -> None:
+    """Raise if a launch returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.posegen_error_string(rc).decode()
+        raise RuntimeError(f"posegen_tpu_torch {name} kernel launch failed: {msg} ({rc})")

@@ -1,0 +1,648 @@
+"""Fused skeleton-encode + NeRF MLP field evaluation: gate, operands, plain
+versions, kernel wrappers and host glue
+(port of posegen_tpu/kernels/field.py).
+
+Two CUDA kernels (csrc/field.cu) replace the two Pallas kernels of the
+render path:
+
+  fused_field  <- posegen_tpu/kernels/field.py::_field_kernel (full raw, or
+                  density_only: the alpha head alone, rgb rows zero)
+  fused_dual   <- posegen_tpu/kernels/field.py::_dual_kernel (one encode,
+                  coarse density + fine full raw)
+
+Each point's encodings are built in the kernel and never reach device
+memory: per point only (3,) of position, the ray's (3,) direction and the
+(4,) raw output cross it. Channels are joint-major, the order of
+`render.raycast.encode_inputs`, so the JAX weights load without a row
+permutation.
+
+Operands. `prepare_net` packs one net for the kernel: every matrix
+transposed to (out, in) and flattened into one bf16 buffer, every bias into
+one f32 buffer, at the offsets of a `NetLayout`. Two per-call quantities
+are folded into these operands on the host: the pose group's framecode (its
+view-head product becomes part of the view bias) and the BARF octave
+weights (appended to the pose operand of `pack_pose`; the encode scales
+each sin/cos octave by its weight, as the JAX kernel does). The view head's
+input rows are zero-padded to a multiple of 16 for the tensor-core tiles.
+
+Beside each wrapper, a plain PyTorch version (`field_plain`, `dual_plain`)
+computes the same function from the same operands; `mm_dtype` rounds each
+matmul's activation operand (bf16 reproduces the kernel's tensor-core
+inputs; float32 keeps the activations exact, as the JAX package's
+interpret-mode tests do with MM_DTYPE = float32). A wrapper runs its plain
+version, at float32, only for tensors on the CPU; for a CUDA tensor it
+launches its kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+import warnings
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from posegen_tpu_torch.models.nerf import framecode_lookup
+
+N_JOINTS = 24
+WIDTH = 256  # trunk width the kernels are built for
+VIEW_WIDTH = WIDTH // 2
+POSE_FLOATS = N_JOINTS * 9 + N_JOINTS * 3 + N_JOINTS + 1  # rot | trn | cut | tau
+MAX_OCTAVES = 64  # nf_kp + nf_view, csrc/field.cuh kMaxOctaves
+
+# launches per kernel since the last reset_launches(); "field" counts the
+# full and the density-only instantiation of the field kernel together
+LAUNCHES: Dict[str, int] = {"field": 0, "dual": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def kp_ch(nf_kp: int) -> int:
+    return N_JOINTS * (1 + 2 * nf_kp)  # 360 at multires 7
+
+
+def pts_ch(nf_kp: int) -> int:
+    return kp_ch(nf_kp) + 3 * N_JOINTS  # 432 at multires 7
+
+
+def view_ch(nf_view: int) -> int:
+    return 3 * N_JOINTS * (1 + 2 * nf_view)  # 648 at multires_views 4; 72 at 0
+
+
+# ---------------------------------------------------------------------------
+# The gate: the config / pose subset the kernels handle
+# (posegen_tpu/kernels/field.py:75-189)
+# ---------------------------------------------------------------------------
+
+
+def fused_config_disqualification(cfg) -> Optional[str]:
+    """First config flag that disqualifies the fused kernels, or None."""
+    checks = (
+        (cfg.kp_dist_type == "reldist",
+         f"kp_dist_type={cfg.kp_dist_type!r} (kernel needs 'reldist')"),
+        (getattr(cfg, "i_embed", 0) == 0,
+         f"i_embed={getattr(cfg, 'i_embed', 0)} (kernel needs 0)"),
+        (cfg.view_type == "relray",
+         f"view_type={cfg.view_type!r} (kernel needs 'relray')"),
+        (cfg.bone_type == "reldir",
+         f"bone_type={cfg.bone_type!r} (kernel needs 'reldir')"),
+        (cfg.multires_bones == 0,
+         f"multires_bones={cfg.multires_bones} (kernel needs 0)"),
+        (cfg.use_cutoff, "use_cutoff=False"),
+        (cfg.cutoff_viewdir, "cutoff_viewdir=False"),
+        (cfg.cutoff_inputs, "cutoff_inputs=False"),
+        (not cfg.cutoff_bones, "cutoff_bones=True"),
+        (cfg.use_viewdirs, "use_viewdirs=False"),
+        (cfg.n_joints == N_JOINTS,
+         f"n_joints={cfg.n_joints} (kernel needs {N_JOINTS})"),
+        (not cfg.cut_to_dist, "cut_to_dist=True"),
+        (not cfg.cutoff_shift, "cutoff_shift=True"),
+        (not cfg.normalize_cutoff, "normalize_cutoff=True"),
+        (cfg.netwidth == WIDTH, f"netwidth={cfg.netwidth} (kernel needs {WIDTH})"),
+        ((cfg.netwidth_fine or cfg.netwidth) == cfg.netwidth,
+         f"netwidth_fine={cfg.netwidth_fine} != netwidth"),
+        ((cfg.netdepth_fine or cfg.netdepth) == cfg.netdepth,
+         f"netdepth_fine={cfg.netdepth_fine} != netdepth"),
+    )
+    for ok, reason in checks:
+        if not ok:
+            return reason
+    return None
+
+
+def fused_disqualification(cfg, ctx, net_params: Dict) -> Optional[str]:
+    """First reason this config/pose cannot run the inference kernels.
+    Framecode models qualify with or without ctx.cam_idxs (a missing index
+    means the mean code)."""
+    reason = fused_config_disqualification(cfg)
+    if reason is not None:
+        return reason
+    if len(net_params.get("views_linears", [0])) != 1:
+        return (
+            f"{len(net_params['views_linears'])} view layers "
+            "(kernel needs exactly 1)"
+        )
+    if ctx.kps.shape[0] != 1:
+        return (
+            f"{ctx.kps.shape[0]} pose groups in ctx "
+            "(inference kernel needs a single pose)"
+        )
+    return None
+
+
+def supports_fused(cfg, ctx, net_params: Dict) -> bool:
+    """The config/pose subset the inference kernels handle (single pose)."""
+    return fused_disqualification(cfg, ctx, net_params) is None
+
+
+_WARNED_FALLBACKS: set = set()
+
+
+def warn_fused_fallback(where: str, reason: str, extra: str = "") -> None:
+    """One warning per (site, reason) per process when a render surface
+    drops from the fused kernels to the plain PyTorch pipeline."""
+    key = (where, reason)
+    if key in _WARNED_FALLBACKS:
+        return
+    _WARNED_FALLBACKS.add(key)
+    warnings.warn(
+        f"posegen_tpu_torch[{where}]: fused field kernel disabled — {reason}; "
+        f"using the plain PyTorch pipeline (encodings materialized in "
+        f"device memory).{extra}",
+        stacklevel=3,
+    )
+
+
+def supports_dual_eval(cfg, ctx, net_params: Dict) -> bool:
+    """Whether the dual-net coarse pass applies: fused eval support, a
+    two-pass render (N_importance > 0 with a separate fine net), and a
+    single pose group."""
+    return (
+        supports_fused(cfg, ctx, net_params)
+        and cfg.N_importance > 0
+        and not cfg.single_net
+        and ctx.skts.shape[0] == 1
+    )
+
+
+# ---------------------------------------------------------------------------
+# Kernel operands
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class NetLayout:
+    """Dimensions of one packed net and the offsets of its matrices (in
+    elements of the weight buffer) and biases (in floats of the bias
+    buffer). Matrices are (out, in) row-major; every weight offset is a
+    multiple of 16 elements (32 bytes, the tensor-core load alignment)."""
+
+    depth: int
+    skip: int  # layer whose output is concatenated with x_pts; -1: none
+    nf_kp: int
+    nf_view: int
+    pc: int  # x_pts channels
+    vc: int  # x_views channels
+    vcp: int  # vc padded to a multiple of 16
+    w_alpha: int
+    b_alpha: int
+    w_feat: int
+    b_feat: int
+    w_view: int
+    b_view: int
+    w_rgb: int
+    b_rgb: int
+    w_layers: Tuple[int, ...]
+    b_layers: Tuple[int, ...]
+    n_w: int
+    n_b: int
+
+    def layer_in(self, i: int) -> int:
+        """Input width of trunk layer i."""
+        return _layer_in(i, self.pc, self.skip)
+
+    def as_ints(self) -> Tuple[int, ...]:
+        """The integer record csrc/field.cu reads (see its `Layout`)."""
+        head = (self.depth, self.skip, self.nf_kp, self.nf_view, self.pc,
+                self.vc, self.vcp, self.w_alpha, self.b_alpha, self.w_feat,
+                self.b_feat, self.w_view, self.b_view, self.w_rgb, self.b_rgb)
+        return head + tuple(v for wb in zip(self.w_layers, self.b_layers) for v in wb)
+
+
+MAX_DEPTH = 16  # csrc/field.cuh kMaxDepth
+
+
+def _layer_in(i: int, pc: int, skip: int) -> int:
+    """Trunk layer i reads x_pts (i = 0), [x_pts | h] (i = skip + 1) or h."""
+    if i == 0:
+        return pc
+    return pc + WIDTH if i - 1 == skip else WIDTH
+
+
+def net_layout(depth: int, nf_kp: int, nf_view: int) -> NetLayout:
+    """Layout of a depth-layer, 256-wide net with the skip into layer 5
+    (NeRFConfig.skips = (4,), present when depth > 5)."""
+    if not 1 <= depth <= MAX_DEPTH:
+        raise ValueError(f"netdepth={depth}: the kernels take 1..{MAX_DEPTH} layers")
+    skip = 4 if depth > 4 else -1
+    if skip == depth - 1:
+        raise ValueError(
+            f"netdepth={depth}: a skip after the last layer has no consuming "
+            "layer (the heads take the trunk width)"
+        )
+    pc, vc = pts_ch(nf_kp), view_ch(nf_view)
+    vcp = -(-vc // 16) * 16
+    w_off = b_off = 0
+    w_layers, b_layers = [], []
+    for i in range(depth):
+        w_layers.append(w_off)
+        b_layers.append(b_off)
+        w_off += WIDTH * _layer_in(i, pc, skip)
+        b_off += WIDTH
+    w_alpha, b_alpha = w_off, b_off
+    w_off += WIDTH
+    b_off += 1
+    w_feat, b_feat = w_off, b_off
+    w_off += WIDTH * WIDTH
+    b_off += WIDTH
+    w_view, b_view = w_off, b_off
+    w_off += VIEW_WIDTH * (WIDTH + vcp)
+    b_off += VIEW_WIDTH
+    w_rgb, b_rgb = w_off, b_off
+    w_off += 3 * VIEW_WIDTH
+    b_off += 3
+    return NetLayout(
+        depth=depth, skip=skip, nf_kp=nf_kp, nf_view=nf_view, pc=pc, vc=vc,
+        vcp=vcp, w_alpha=w_alpha, b_alpha=b_alpha, w_feat=w_feat,
+        b_feat=b_feat, w_view=w_view, b_view=b_view, w_rgb=w_rgb,
+        b_rgb=b_rgb, w_layers=tuple(w_layers), b_layers=tuple(b_layers),
+        n_w=w_off, n_b=b_off,
+    )
+
+
+class FieldNet(NamedTuple):
+    """One net packed for the kernels (see `prepare_net`)."""
+
+    w: torch.Tensor  # (layout.n_w,) bf16
+    b: torch.Tensor  # (layout.n_b,) f32
+    layout: NetLayout
+
+
+def barf_octave_weights(alpha: torch.Tensor, nf: int) -> torch.Tensor:
+    """BARF window weight per sin/cos octave (reference get_schedule_w,
+    core/cutoff_embedder.py:192-198; posegen_tpu/kernels/field.py:821-836)."""
+    k = torch.arange(nf, dtype=torch.float32, device=alpha.device)
+    return 0.5 * (1.0 - torch.cos(math.pi * torch.clamp(alpha - k, 0.0, 1.0)))
+
+
+def prepare_net(net: Dict, layout: NetLayout,
+                code: Optional[torch.Tensor] = None) -> FieldNet:
+    """Pack a NeRF params dict (JAX layout, w (in, out)) for the kernels,
+    weights in bf16 (the JAX kernels' `prepare_params` rounds them alike).
+
+    code: this pose group's framecode (code_ch,); its product with the
+      (bf16-rounded) framecode rows of the view head is folded into the view
+      bias. Required when the view head has framecode rows.
+    """
+    L = layout
+    mats, biases = [], []
+    if len(net["pts_linears"]) != L.depth:
+        raise ValueError(f"net has {len(net['pts_linears'])} layers, layout {L.depth}")
+    for i, lay in enumerate(net["pts_linears"]):
+        w = lay["w"]
+        if w.shape != (L.layer_in(i), WIDTH):
+            raise ValueError(f"layer {i} weight {tuple(w.shape)} != {(L.layer_in(i), WIDTH)}")
+        mats.append(w.T)
+        biases.append(lay["b"])
+    mats.append(net["alpha_linear"]["w"].T)
+    biases.append(net["alpha_linear"]["b"])
+    mats.append(net["feature_linear"]["w"].T)
+    biases.append(net["feature_linear"]["b"])
+
+    (view,) = net["views_linears"]
+    wv, bv = view["w"], view["b"]  # (256 + vc + code_ch, 128)
+    n_code = wv.shape[0] - WIDTH - L.vc
+    if n_code:
+        if code is None or code.numel() != n_code:
+            raise ValueError(f"view head has {n_code} framecode rows; pass the code")
+        w_code = wv[WIDTH + L.vc:].to(torch.bfloat16).float()
+        bv = bv + code.reshape(1, n_code).float() @ w_code
+    pad = wv.new_zeros(L.vcp - L.vc, VIEW_WIDTH)
+    mats.append(torch.cat([wv[:WIDTH + L.vc], pad]).T)
+    biases.append(bv)
+    mats.append(net["rgb_linear"]["w"].T)
+    biases.append(net["rgb_linear"]["b"])
+
+    w = torch.cat([m.reshape(-1) for m in mats]).to(torch.bfloat16).contiguous()
+    b = torch.cat([x.reshape(-1) for x in biases]).float().contiguous()
+    if w.numel() != L.n_w or b.numel() != L.n_b:
+        raise ValueError("packed net does not match its layout")
+    return FieldNet(w, b, L)
+
+
+def pack_pose(skts: torch.Tensor, embed_state: Dict, nf_kp: int, nf_view: int,
+              sched: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """(24, 4, 4) world-to-joint transforms + the kp embed state + the BARF
+    octave weights (kp (nf_kp,), view (nf_view,); None = unscheduled, all 1)
+    -> (POSE_FLOATS + nf_kp + nf_view,) f32:
+    [rot (24, 9) | trn (24, 3) | cutoff (24) | tau | kp octaves | view octaves]."""
+    if nf_kp + nf_view > MAX_OCTAVES:
+        raise ValueError(f"multires + multires_views > {MAX_OCTAVES}")
+    if sched is None:
+        sched = (skts.new_ones(nf_kp), skts.new_ones(nf_view))
+    return torch.cat([
+        skts[:, :3, :3].reshape(-1),
+        skts[:, :3, 3].reshape(-1),
+        embed_state["cutoff_dist"].reshape(-1),
+        embed_state["tau"].reshape(1),
+        sched[0].reshape(nf_kp).to(skts.dtype),
+        sched[1].reshape(nf_view).to(skts.dtype),
+    ]).float().contiguous()
+
+
+def _unpack(net: FieldNet):
+    """Views of the packed matrices: (layers [(W, b)], (Wa, ba), (Wf, bf),
+    (Wv, bv), (Wr, br)), each W (out, in)."""
+    L, w, b = net.layout, net.w, net.b
+
+    def mat(off, n_out, n_in):
+        return w[off:off + n_out * n_in].view(n_out, n_in)
+
+    layers = [
+        (mat(L.w_layers[i], WIDTH, L.layer_in(i)), b[L.b_layers[i]:L.b_layers[i] + WIDTH])
+        for i in range(L.depth)
+    ]
+    return (
+        layers,
+        (mat(L.w_alpha, 1, WIDTH), b[L.b_alpha:L.b_alpha + 1]),
+        (mat(L.w_feat, WIDTH, WIDTH), b[L.b_feat:L.b_feat + WIDTH]),
+        (mat(L.w_view, VIEW_WIDTH, WIDTH + L.vcp), b[L.b_view:L.b_view + VIEW_WIDTH]),
+        (mat(L.w_rgb, 3, VIEW_WIDTH), b[L.b_rgb:L.b_rgb + 3]),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Plain versions: the kernels' function in PyTorch
+# ---------------------------------------------------------------------------
+
+
+def encode_plain(pts: torch.Tensor, dirs: torch.Tensor, spr: int,
+                 pose: torch.Tensor, nf_kp: int, nf_view: int,
+                 with_view: bool = True):
+    """(P, 3) points, (P / spr, 3) ray dirs -> (e_pts (P, pc), e_view (P, vc)
+    or None), joint-major: e_pts = [v*w | per octave sin*w, cos*w | reldir],
+    each kp block 24 wide and reldir (j, xyz); e_view = [dn*w | per octave
+    sin*w, cos*w], each block (j, xyz). Octaves use one sin/cos pair and the
+    double-angle recurrence, as the kernels do."""
+    R = pose[:216].view(N_JOINTS, 9)
+    t = pose[216:288].view(N_JOINTS, 3)
+    cut = pose[288:312]
+    tau = pose[312]
+    sw_kp = pose[POSE_FLOATS:POSE_FLOATS + nf_kp]
+    sw_view = pose[POSE_FLOATS + nf_kp:POSE_FLOATS + nf_kp + nf_view]
+    P = pts.shape[0]
+
+    x, y, z = pts[:, 0:1], pts[:, 1:2], pts[:, 2:3]
+    X = R[:, 0] * x + R[:, 1] * y + R[:, 2] * z + t[:, 0]  # (P, 24)
+    Y = R[:, 3] * x + R[:, 4] * y + R[:, 5] * z + t[:, 1]
+    Z = R[:, 6] * x + R[:, 7] * y + R[:, 8] * z + t[:, 2]
+    v = torch.sqrt(X * X + Y * Y + Z * Z)
+    w = 1.0 - torch.sigmoid(tau * (v - cut))
+    inv_v = 1.0 / torch.clamp(v, min=1e-12)
+
+    rows = [v * w]
+    s, c = torch.sin(v), torch.cos(v)
+    for f in range(nf_kp):
+        wf = w * sw_kp[f]
+        rows += [s * wf, c * wf]
+        if f + 1 < nf_kp:
+            s, c = 2.0 * s * c, 1.0 - 2.0 * s * s
+    rows.append(torch.stack([X * inv_v, Y * inv_v, Z * inv_v], -1).reshape(P, -1))
+    e_pts = torch.cat(rows, -1)
+    if not with_view:
+        return e_pts, None
+
+    d = dirs.repeat_interleave(spr, dim=0)
+    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
+    DX = R[:, 0] * dx + R[:, 1] * dy + R[:, 2] * dz
+    DY = R[:, 3] * dx + R[:, 4] * dy + R[:, 5] * dz
+    DZ = R[:, 6] * dx + R[:, 7] * dy + R[:, 8] * dz
+    dn_inv = torch.rsqrt(torch.clamp(DX * DX + DY * DY + DZ * DZ, min=1e-24))
+    q = torch.stack([DX * dn_inv, DY * dn_inv, DZ * dn_inv], -1)  # (P, 24, 3)
+    wq = w[..., None]
+    vrows = [q * wq]
+    s, c = torch.sin(q), torch.cos(q)
+    for f in range(nf_view):
+        wf = wq * sw_view[f]
+        vrows += [s * wf, c * wf]
+        if f + 1 < nf_view:
+            s, c = 2.0 * s * c, 1.0 - 2.0 * s * s
+    e_view = torch.stack(vrows, 1).reshape(P, -1)
+    return e_pts, e_view
+
+
+def _mm(a: torch.Tensor, w: torch.Tensor, mm_dtype: torch.dtype) -> torch.Tensor:
+    """a (P, K) @ w (N, K)^T, the activations rounded to mm_dtype, the bf16
+    weights exact, the products summed in float32 (a product of two bf16
+    values is exact in float32)."""
+    return a.to(mm_dtype).float() @ w.float().T
+
+
+def mlp_plain(net: FieldNet, e_pts: torch.Tensor, e_view: Optional[torch.Tensor],
+              density_only: bool, mm_dtype: torch.dtype) -> torch.Tensor:
+    """Trunk + heads on prebuilt encodings -> (P, 4) raw [r, g, b, sigma]
+    (rgb zero when density_only)."""
+    L = net.layout
+    layers, (wa, ba), (wf, bf), (wv, bv), (wr, br) = _unpack(net)
+    h = e_pts
+    for i, (w, b) in enumerate(layers):
+        if i > 0 and i - 1 == L.skip:
+            acc = _mm(e_pts, w[:, :L.pc], mm_dtype) + _mm(h, w[:, L.pc:], mm_dtype)
+        else:
+            acc = _mm(h, w, mm_dtype)
+        h = torch.relu(acc + b)
+    alpha = _mm(h, wa, mm_dtype) + ba
+    if density_only:
+        return torch.cat([alpha.new_zeros(alpha.shape[0], 3), alpha], -1)
+    feat = _mm(h, wf, mm_dtype) + bf
+    hv = torch.relu(
+        _mm(feat, wv[:, :WIDTH], mm_dtype)
+        + _mm(e_view, wv[:, WIDTH:WIDTH + L.vc], mm_dtype) + bv
+    )
+    rgb = _mm(hv, wr, mm_dtype) + br
+    return torch.cat([rgb, alpha], -1)
+
+
+def field_plain(pts, dirs, spr: int, pose, net: FieldNet,
+                density_only: bool = False,
+                mm_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of the field kernel -> (P, 4) raw."""
+    L = net.layout
+    e_pts, e_view = encode_plain(pts, dirs, spr, pose, L.nf_kp, L.nf_view,
+                                 with_view=not density_only)
+    return mlp_plain(net, e_pts, e_view, density_only, mm_dtype)
+
+
+def dual_plain(pts, dirs, spr: int, pose, net_c: FieldNet, net_f: FieldNet,
+               mm_dtype: torch.dtype = torch.float32):
+    """Plain version of the dual kernel -> (raw_c (P, 4) [rgb zero], raw_f)."""
+    L = net_f.layout
+    e_pts, e_view = encode_plain(pts, dirs, spr, pose, L.nf_kp, L.nf_view)
+    return (mlp_plain(net_c, e_pts, None, True, mm_dtype),
+            mlp_plain(net_f, e_pts, e_view, False, mm_dtype))
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_operands(pts, dirs, spr, pose, nets):
+    if pts.dim() != 2 or pts.shape[1] != 3 or dirs.dim() != 2 or dirs.shape[1] != 3:
+        raise ValueError(f"pts {tuple(pts.shape)} / dirs {tuple(dirs.shape)} must be (*, 3)")
+    if spr < 1 or pts.shape[0] != dirs.shape[0] * spr:
+        raise ValueError(f"{pts.shape[0]} points != {dirs.shape[0]} rays x {spr} samples")
+    for net in nets:
+        if net.layout != nets[0].layout:
+            raise ValueError("the nets of one launch must share a layout")
+    n_pose = POSE_FLOATS + nets[0].layout.nf_kp + nets[0].layout.nf_view
+    if pose.shape != (n_pose,):
+        raise ValueError(f"pose {tuple(pose.shape)} != ({n_pose},)")
+    if not pts.is_cuda:
+        return
+    dev = pts.device
+    for name, t, dt in (("pts", pts, torch.float32), ("dirs", dirs, torch.float32),
+                        ("pose", pose, torch.float32)):
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            raise ValueError(f"{name}: need a contiguous {dt} tensor on {dev}")
+    for net in nets:
+        if (net.w.device != dev or net.w.dtype != torch.bfloat16
+                or not net.w.is_contiguous()):
+            raise ValueError(f"packed weights: need contiguous bf16 on {dev}")
+        if (net.b.device != dev or net.b.dtype != torch.float32
+                or not net.b.is_contiguous()):
+            raise ValueError(f"packed biases: need contiguous float32 on {dev}")
+
+
+def _layout_arg(layout: NetLayout):
+    ints = layout.as_ints()
+    return (ctypes.c_int * len(ints))(*ints), len(ints)
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def fused_field(pts: torch.Tensor, dirs: torch.Tensor, spr: int,
+                pose: torch.Tensor, net: FieldNet,
+                density_only: bool = False) -> torch.Tensor:
+    """Fused encode + MLP field -> (P, 4) raw [r, g, b, sigma] (rgb zero when
+    density_only). pts (P, 3) f32; dirs (P / spr, 3) f32, one per ray of spr
+    consecutive points; pose from `pack_pose`; net from `prepare_net`."""
+    _check_operands(pts, dirs, spr, pose, (net,))
+    if not pts.is_cuda:
+        return field_plain(pts, dirs, spr, pose, net, density_only)
+    from posegen_tpu_torch.kernels import build
+
+    lib = build.load()
+    out = torch.empty((pts.shape[0], 4), dtype=torch.float32, device=pts.device)
+    if pts.shape[0] == 0:
+        return out
+    layout, n_layout = _layout_arg(net.layout)
+    with torch.cuda.device(pts.device):
+        rc = lib.posegen_field(
+            _ptr(pts), _ptr(dirs), pts.shape[0], spr, _ptr(pose), layout,
+            n_layout, _ptr(net.w), _ptr(net.b), _ptr(out), int(density_only),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    build.check(lib, rc, "field")
+    LAUNCHES["field"] += 1
+    return out
+
+
+def fused_dual(pts: torch.Tensor, dirs: torch.Tensor, spr: int,
+               pose: torch.Tensor, net_c: FieldNet, net_f: FieldNet):
+    """One encode, two nets -> (raw_c (P, 4) [rgb zero], raw_f (P, 4)):
+    coarse density and fine full raw on the same points."""
+    _check_operands(pts, dirs, spr, pose, (net_c, net_f))
+    if not pts.is_cuda:
+        return dual_plain(pts, dirs, spr, pose, net_c, net_f)
+    from posegen_tpu_torch.kernels import build
+
+    lib = build.load()
+    out_c = torch.empty((pts.shape[0], 4), dtype=torch.float32, device=pts.device)
+    out_f = torch.empty_like(out_c)
+    if pts.shape[0] == 0:
+        return out_c, out_f
+    layout, n_layout = _layout_arg(net_f.layout)
+    with torch.cuda.device(pts.device):
+        rc = lib.posegen_dual(
+            _ptr(pts), _ptr(dirs), pts.shape[0], spr, _ptr(pose), layout,
+            n_layout, _ptr(net_c.w), _ptr(net_c.b), _ptr(net_f.w),
+            _ptr(net_f.b), _ptr(out_c), _ptr(out_f),
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+        )
+    build.check(lib, rc, "dual")
+    LAUNCHES["dual"] += 1
+    return out_c, out_f
+
+
+# ---------------------------------------------------------------------------
+# Host glue (posegen_tpu/kernels/field.py:863-1062, eval + dual branches)
+# ---------------------------------------------------------------------------
+
+
+def _barf_sched(cfg, embed_state: Dict, view_embed_state: Optional[Dict]):
+    """(kp, view) octave weights when the config anneals frequencies, else
+    None; the view ladder uses the view embedder's alpha."""
+    if not cfg.embed_kp_cfg.freq_schedule:
+        return None
+    a_view = (view_embed_state or embed_state)["alpha"]
+    return (barf_octave_weights(embed_state["alpha"], cfg.multires),
+            barf_octave_weights(a_view, cfg.multires_views))
+
+
+def _group_code(net_params: Dict, ctx, code_ch: int,
+                eval_mean_code: bool) -> Optional[torch.Tensor]:
+    """The single pose group's framecode (reference Optcodes): the first
+    row's frame index, or the mean code when ctx carries none."""
+    if code_ch <= 0:
+        return None
+    idxs = ctx.cam_idxs
+    if idxs is None:
+        idxs = torch.zeros((1, 1), dtype=torch.long,
+                           device=net_params["framecodes"].device)
+        eval_mean_code = True
+    return framecode_lookup(
+        net_params["framecodes"], idxs[:1], eval_mean=eval_mean_code
+    ).reshape(code_ch)
+
+
+def fused_run_net(
+    cfg,
+    net_params: Dict,
+    embed_state: Dict,
+    pts: torch.Tensor,  # (N, S, 3)
+    rays_d: torch.Tensor,  # (N, 3)
+    ctx,
+    eval_mean_code: bool = False,
+    density_only: bool = False,
+    view_embed_state: Optional[Dict] = None,  # for the view ladder's BARF alpha
+    dual_params: Optional[Dict] = None,  # fine net: dual-net coarse pass
+):
+    """Drop-in replacement for raycast._run_net on the supported subset:
+    -> raw (N, S, 4), or with dual_params (the fine net; requires
+    density_only) -> (raw_coarse [rgb zero], raw_fine).
+
+    On the host the wrappers run their plain versions (bf16 weights,
+    float32 activations)."""
+    N, S = pts.shape[:2]
+    if ctx.skts.shape[0] != 1:
+        raise NotImplementedError(
+            f"{ctx.skts.shape[0]} pose groups: the ported kernels take a "
+            "single pose group"
+        )
+    if dual_params is not None and not density_only:
+        raise ValueError("dual_params needs the density-only, "
+                         "single-group eval pass")
+    layout = net_layout(cfg.netdepth, cfg.multires, cfg.multires_views)
+    code_ch = cfg.framecode_ch if cfg.opt_framecode else 0
+    pose = pack_pose(ctx.skts[0], embed_state, cfg.multires, cfg.multires_views,
+                     _barf_sched(cfg, embed_state, view_embed_state))
+    pts_f = pts.reshape(N * S, 3).float().contiguous()
+    dirs = rays_d.float().contiguous()
+
+    def prep(net):
+        return prepare_net(net, layout, _group_code(net, ctx, code_ch, eval_mean_code))
+
+    if dual_params is not None:
+        raw_c, raw_f = fused_dual(pts_f, dirs, S, pose, prep(net_params),
+                                  prep(dual_params))
+        return raw_c.view(N, S, 4), raw_f.view(N, S, 4)
+    raw = fused_field(pts_f, dirs, S, pose, prep(net_params), density_only)
+    return raw.view(N, S, 4)
