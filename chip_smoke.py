@@ -22,7 +22,24 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               between the kernel and the float32 net for each of them;
   4. timing   CUDA-event times of both render variants (30 iterations after
               warm-up) and of each kernel and plain version, beside the
-              kernel's bound and the card's name and power limit.
+              kernel's bound and the card's name and power limit;
+  5. training kernels  at the flagship train step's shapes (128 pose groups
+              x 16 rays x 64 and x 80 samples) and at one ragged size (3
+              groups, a last tile of 16 points, a view bias per group),
+              fused_field_stash against field_stash_plain (raw and both
+              stashes, the elementwise rule of phase 2; its raw equal to
+              fused_field's bit for bit on one group) and field_backward
+              against field_bwd_plain, bf16 operands on both sides, each
+              gradient tensor to ||kernel - plain||_2 <= GRAD_TOL ||plain||_2,
+              and two backward launches bit-identical;
+  6. train    make_train_step on a flagship batch (N_rand 2048 = 128 groups x
+              16 rays, with backgrounds) at perturb 0: the launch counters
+              read field_stash 2, field_bwd 2 and no eval kernel, the losses
+              are finite, and the step's NeRF gradients hold against the
+              same step through the plain float32 pipeline; then 5 steps of
+              the config's perturbed, noisy training, every loss finite; the
+              eval kernels refuse weights that require grad; and the times
+              of a train step and of each training kernel and plain version.
 
 The last two lines of standard output are one JSON object of per-kernel
 numbers and one JSON object naming the device. Without a CUDA device, or
@@ -32,6 +49,7 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -45,6 +63,13 @@ MAX_FLIP_FRAC = 0.01  # rays allowed to flip opacity at a knife edge (see phase 
 N_RAYS = 8192
 N_RAGGED = 1001  # rays of the ragged case: 1001 x 16 points = 250 tiles of 64 + 16
 N_ITERS = 30
+N_GROUPS, RAYS_PER_GROUP = 128, 16  # the flagship train batch: N_rand 2048
+RAGGED_GROUPS, RAGGED_RPG = 3, 7  # 3 x 7 rays x 80 samples = 26 tiles of 64 + 16
+GRAD_TOL = 1e-2  # training kernel vs plain: relative L2 per gradient tensor
+STEP_GRAD_TOL = 5e-2  # train step, kernels vs plain f32 pipeline: relative L2, all gradients
+TRAIN_ITERS = 20
+TRAIN_STEPS = 5
+DEVICE = "cuda"
 # weight seed: with seed 1 the random nets give the 8192-ray render partial
 # opacity (mean fine acc ~0.3, coarse ~1), so the render comparison is not
 # vacuous (some seeds give zero density everywhere)
@@ -97,10 +122,47 @@ def field_flops(L, density_only: bool) -> int:
     return 2 * macs
 
 
+def profile_calls(torch, fn, n: int):
+    """torch.profiler over n calls of fn -> (wall ms per call, device kernel
+    ms per call, the 8 kernels with the most device time as (name, ms per
+    call, launches per call))."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3 / n
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    return wall, busy, [(e.key, e.self_device_time_total / 1e3 / n, e.count / n) for e in top]
+
+
+def bwd_flops(L) -> int:
+    """FLOP per point of the weights-only backward, as the JAX kernel's cost
+    estimate counts it (posegen_tpu/kernels/field_grad.py:673-676): three
+    products (recompute, input cotangents, weight gradients) of the trunk,
+    feature and view layers."""
+    from posegen_tpu_torch.kernels.field import VIEW_WIDTH, WIDTH
+
+    macs = (sum(L.layer_in(i) * WIDTH for i in range(L.depth)) + WIDTH * WIDTH
+            + (WIDTH + L.vc) * VIEW_WIDTH)
+    return 3 * 2 * macs
+
+
 def bound(flops: float, nbytes: float):
     """(ms, 'operations' | 'bytes'): the least time the card could take."""
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rel_l2(got, ref) -> float:
+    return float((got - ref).norm() / ref.norm().clamp_min(1e-30))
 
 
 def compare(name: str, got, ref) -> float:
@@ -161,7 +223,7 @@ def run(torch) -> int:
     # 2. kernels against their plain versions, at the render's shapes -------
     cfg = RaycastConfig()
     cfg, params, ctx, rays_o, rays_d = make_problem(cfg, n_rays=N_RAYS, seed=SEED,
-                                                    device="cuda")
+                                                    device=DEVICE)
     with torch.no_grad():
         near, far = samp.get_near_far_in_cylinder(
             rays_o, rays_d, ctx.cyls.expand(N_RAYS, 5), near=cfg.near, far=cfg.far)
@@ -210,7 +272,8 @@ def run(torch) -> int:
                   f"full {e_full:.3e}, density_only {e_den:.3e}")
 
     # 3. the main path, through the launch counters -------------------------
-    expected = {False: {"dual": 1, "field": 1}, True: {"dual": 0, "field": 2}}
+    expected = {False: {"dual": 1, "field": 1, "field_stash": 0, "field_bwd": 0},
+                True: {"dual": 0, "field": 2, "field_stash": 0, "field_bwd": 0}}
     launches = {"dual": 0, "field": 0}
     with torch.no_grad():
         # The last sample's interval is 1e10 long, so a ray is opaque iff the
@@ -298,6 +361,8 @@ def run(torch) -> int:
             print(f"timing kernel {name} {tag} ({P} points): {k_ms:.3f} ms, bound {b_ms:.3f} ms "
                   f"({b_by}, {b_ms / k_ms:.1%} of it), plain {p_ms:.3f} ms [{card}]")
 
+    train_rows, train_err, train_launches = train_phases(torch, card)
+
     by_name = {(r[0], r[1]): r for r in rows}
     kernels = []
     for name, key, src, replaces, err in (
@@ -312,12 +377,223 @@ def run(torch) -> int:
             "launches": launches[name], "max_abs_err": err, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
+    for name, replaces in (("field_stash", "posegen_tpu/kernels/field_grad.py:252"),
+                           ("field_bwd", "posegen_tpu/kernels/field_grad.py:340")):
+        _, _, _, k_ms, p_ms, b_ms, b_by = train_rows[(name, "coarse")]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "posegen_tpu_torch/kernels/csrc/field_grad.cu", "replaces": replaces,
+            "launches": train_launches[name], "max_abs_err": train_err[name], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def train_batch(torch, n_groups: int, rpg: int, seed: int):
+    """A flagship-style batch: n_groups pose rows, rpg rays per group
+    (contiguous), random targets and backgrounds."""
+    from posegen_tpu_torch.utils.fixtures import make_pose_ctx, make_rays
+
+    ctx = make_pose_ctx(seed, n_poses=n_groups, device=DEVICE)
+    rays_o, rays_d = make_rays(n_groups * rpg, seed + 1, device=DEVICE)
+    gen = torch.Generator().manual_seed(seed)
+    n = n_groups * rpg
+    return {
+        "rays_o": rays_o, "rays_d": rays_d,
+        "target_s": torch.rand((n, 3), generator=gen).to(DEVICE),
+        "bgs": torch.rand((n, 3), generator=gen).to(DEVICE),
+        "kp3d": ctx.kps, "skts": ctx.skts, "bones": ctx.bones, "cyls": ctx.cyls,
+    }
+
+
+def grad_tensors(F, d_w, d_b, d_bview, L):
+    """(name, tensor) of every gradient: trunk and head weights and biases,
+    the view bias per group."""
+    layers, (wa, ba), (wf, bf), (wv, _), (wr, br) = F._unpack(F.FieldNet(d_w, d_b, L))
+    out = []
+    for i, (w, b) in enumerate(layers):
+        out += [(f"layer{i}.w", w), (f"layer{i}.b", b)]
+    return out + [("alpha.w", wa), ("alpha.b", ba), ("feature.w", wf), ("feature.b", bf),
+                  ("view.w", wv), ("view.b", d_bview), ("rgb.w", wr), ("rgb.b", br)]
+
+
+def train_phases(torch, card: str):
+    """Phases 5 (training kernels vs plain) and 6 (the train step) ->
+    (timing rows by (kernel, shape), max|diff| by kernel, launches by kernel
+    in one flagship train step)."""
+    import dataclasses
+
+    from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.kernels import field_grad as FG
+    from posegen_tpu_torch.ops import sampling as samp
+    from posegen_tpu_torch.render.raycast import RaycastConfig, init_raycaster
+    from posegen_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state, make_train_step, param_leaves,
+    )
+
+    bf16 = torch.bfloat16
+    cfg = RaycastConfig(perturb=0.0, raw_noise_std=0.0)
+    L = F.net_layout(cfg.netdepth, cfg.multires, cfg.multires_views)
+    variables = init_raycaster(cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
+    batch = train_batch(torch, N_GROUPS, RAYS_PER_GROUP, SEED)
+    rpg = RAYS_PER_GROUP
+
+    # 5. training kernels against their plain versions ---------------------
+    err = {"field_stash": 0.0, "field_bwd": 0.0}
+    cases = {}
+    with torch.no_grad():
+        ro, rd = batch["rays_o"], batch["rays_d"]
+        near, far = samp.get_near_far_in_cylinder(
+            ro, rd, batch["cyls"].repeat_interleave(rpg, 0), near=cfg.near, far=cfg.far)
+        poses = F.pack_poses(batch["skts"], variables["embed_kp"], cfg.multires,
+                             cfg.multires_views)
+        net = F.pack_net_f32(variables["fine"], L)
+        bview = F.group_view_bias(variables["fine"], L)
+        gen = torch.Generator().manual_seed(SEED)
+        for tag, n_s in (("coarse", cfg.N_samples), ("fine", cfg.N_samples + cfg.N_importance)):
+            z = samp.sample_from_lineseg(near, far, n_s)
+            pts = (ro[:, None] + rd[:, None] * z[..., None]).reshape(-1, 3).contiguous()
+            g = torch.randn((pts.shape[0], 4), generator=gen).to(DEVICE)
+            cases[tag] = (pts, rd, n_s, poses, bview, g)
+        pts, _, n_s, _, _, _ = cases["fine"]
+        n_r = RAGGED_GROUPS * RAGGED_RPG
+        bview_r = bview + 0.1 * torch.randn((RAGGED_GROUPS, F.VIEW_WIDTH), generator=gen).to(DEVICE)
+        g_r = torch.randn((n_r * n_s, 4), generator=gen).to(DEVICE)
+        cases["ragged"] = (pts[:n_r * n_s].contiguous(), rd[:n_r].contiguous(), n_s,
+                           poses[:RAGGED_GROUPS].contiguous(), bview_r.contiguous(), g_r)
+
+        stashes = {}
+        for tag, (pts, dirs, n_s, poses_t, bview_t, g) in cases.items():
+            raw, e_pts, e_view = FG.fused_field_stash(pts, dirs, n_s, poses_t, net, bview_t)
+            p_raw, p_ep, p_ev = FG.field_stash_plain(pts, dirs, n_s, poses_t, net, bview_t,
+                                                     mm_dtype=bf16)
+            torch.cuda.synchronize()
+            e = max(compare(f"field_stash raw {tag}", raw, p_raw),
+                    compare(f"field_stash e_pts {tag}", e_pts.float(), p_ep.float()),
+                    compare(f"field_stash e_view {tag}", e_view.float(), p_ev.float()))
+            err["field_stash"] = max(err["field_stash"], e)
+            stashes[tag] = (e_pts, e_view)
+            d = [FG.field_backward(g, e_pts, e_view, net, bview_t) for _ in range(2)]
+            p = FG.field_bwd_plain(e_pts, e_view, g, net, bview_t, mm_dtype=bf16)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(*d)),
+                  f"field_bwd {tag}: two launches differ")
+            worst = (0.0, "")
+            for (name, k), (_, r) in zip(grad_tensors(F, *d[0], L), grad_tensors(F, *p, L)):
+                check(bool(torch.isfinite(k).all()), f"field_bwd {tag} {name}: not finite")
+                e_l2 = rel_l2(k, r)
+                check(e_l2 <= GRAD_TOL, f"field_bwd {tag} {name}: relative L2 {e_l2:.3e} "
+                                        f"> {GRAD_TOL}")
+                worst = max(worst, (e_l2, name))
+                err["field_bwd"] = max(err["field_bwd"], float((k - r).abs().max()))
+            print(f"kernel field_stash vs plain, {pts.shape[0]} points, {poses_t.shape[0]} "
+                  f"groups: max|diff| {e:.3e}; field_bwd vs plain: worst relative L2 "
+                  f"{worst[0]:.3e} ({worst[1]}), two launches bit-identical")
+
+        # one group: the stash kernel's raw is the field kernel's, bit for bit
+        pts, dirs, n_s, poses_t, bview_t, _ = cases["coarse"]
+        n1 = rpg * n_s
+        raw1, _, _ = FG.fused_field_stash(pts[:n1], dirs[:rpg], n_s, poses_t[:1], net, bview_t)
+        ref1 = F.fused_field(pts[:n1], dirs[:rpg], n_s, poses_t[0],
+                             F.FieldNet(net.w.to(bf16), net.b, L))
+        torch.cuda.synchronize()
+        check(torch.equal(raw1, ref1), "field_stash raw differs from fused_field's on one group")
+        print("kernel field_stash raw == fused_field raw bit for bit on one group")
+
+    # 6. the train step -----------------------------------------------------
+    tcfg = TrainConfig(rays_per_image=rpg, use_background=True)
+    tcfg_plain = dataclasses.replace(tcfg, fused_train=False)
+    state_k = create_train_state(variables, tcfg)
+    state_p = create_train_state(variables, tcfg_plain)
+    F.reset_launches()
+    state_k, stats_k = make_train_step(cfg, tcfg)(state_k, batch)
+    torch.cuda.synchronize()
+    launches = dict(F.LAUNCHES)
+    want = {"field": 0, "dual": 0, "field_stash": 2, "field_bwd": 2}
+    check(launches == want, f"train step: launches {launches} != {want}")
+    state_p, stats_p = make_train_step(cfg, tcfg_plain)(state_p, batch)
+    torch.cuda.synchronize()
+    for k in ("total_loss", "rgb_loss", "rgb0_loss", "grad_norm"):
+        check(bool(torch.isfinite(stats_k[k])), f"train step: {k} not finite")
+    gk = [p.grad for p in param_leaves(state_k.params)]
+    gp = [p.grad for p in param_leaves(state_p.params)]
+    all_l2 = rel_l2(torch.cat([a.reshape(-1) for a in gk]), torch.cat([b.reshape(-1) for b in gp]))
+    per = sorted(rel_l2(a, b) for a, b in zip(gk, gp))
+    check(all_l2 <= STEP_GRAD_TOL, f"train step gradients vs plain f32 pipeline: relative L2 "
+                                   f"{all_l2:.3e} > {STEP_GRAD_TOL}")
+    print(f"train step: launches {launches}; total_loss {float(stats_k['total_loss']):.6f} "
+          f"(plain f32 {float(stats_p['total_loss']):.6f}), grad_norm "
+          f"{float(stats_k['grad_norm']):.6e} (plain {float(stats_p['grad_norm']):.6e}); "
+          f"gradients vs plain: relative L2 {all_l2:.3e} over all, per tensor median "
+          f"{per[len(per) // 2]:.3e}, max {per[-1]:.3e}")
+
+    leaves = state_k.params["fine"]
+    try:
+        F.fused_field(cases["coarse"][0], cases["coarse"][1], cases["coarse"][2], poses[0],
+                      F.prepare_net(leaves, L))
+    except RuntimeError as e:
+        check("trainable" in str(e), f"fused_field under grad: unexpected error {e}")
+    else:
+        raise SmokeFailure("fused_field accepted weights that require grad")
+    print("fused_field refuses weights that require grad under autograd")
+
+    cfg_t = RaycastConfig(raw_noise_std=1.0)
+    state_t = create_train_state(variables, tcfg)
+    step_t = make_train_step(cfg_t, tcfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state_t, st = step_t(state_t, batch, gen)
+        losses.append(float(st["total_loss"]))
+    check(all(map(math.isfinite, losses)), f"training: losses {losses}")
+    print(f"training, perturb {cfg_t.perturb}, raw_noise_std {cfg_t.raw_noise_std}: "
+          f"total_loss per step {losses}")
+
+    n_rays = N_GROUPS * rpg
+    ms = cuda_ms(lambda: step_t(state_t, batch, gen), TRAIN_ITERS)
+    print(f"timing train step: {ms:.3f} ms per {n_rays} rays, {n_rays / ms * 1e3:.1f} trained "
+          f"rays/s [{card}]")
+    wall, busy, top = profile_calls(torch, lambda: step_t(state_t, batch, gen), 3)
+    if busy > 0.0:
+        print(f"profile train step (torch.profiler, 3 steps): {wall:.3f} ms per step, device "
+              f"kernels {busy:.3f} ms, idle share {1.0 - busy / wall:.1%} [{card}]")
+        for name, k_ms, n in top:
+            print(f"  {k_ms:8.3f} ms  x{n:g}  {name[:90]}")
+    else:
+        print("profile train step: torch.profiler recorded no device time")
+
+    rows = {}
+    w_bytes = 2 * L.n_w + 4 * L.n_b
+    with torch.no_grad():
+        for tag in ("coarse", "fine"):
+            pts, dirs, n_s, poses_t, bview_t, g = cases[tag]
+            P = pts.shape[0]
+            e_pts, e_view = stashes[tag]
+            io = 12 * P + 12 * dirs.shape[0] + poses_t.numel() * 4 + w_bytes + bview_t.numel() * 4
+            stash_b = (L.pc + L.vc) * 2 * P
+            for name, flops, nbytes, kern, plain in (
+                ("field_stash", field_flops(L, False) * P, io + 16 * P + stash_b,
+                 lambda: FG.fused_field_stash(pts, dirs, n_s, poses_t, net, bview_t),
+                 lambda: FG.field_stash_plain(pts, dirs, n_s, poses_t, net, bview_t,
+                                              mm_dtype=bf16)),
+                ("field_bwd", bwd_flops(L) * P,
+                 16 * P + stash_b + w_bytes + bview_t.numel() * 4 + 4 * (L.n_w + L.n_b),
+                 lambda: FG.field_backward(g, e_pts, e_view, net, bview_t),
+                 lambda: FG.field_bwd_plain(e_pts, e_view, g, net, bview_t, mm_dtype=bf16)),
+            ):
+                k_ms = cuda_ms(kern, 10)
+                p_ms = cuda_ms(plain, 3, warmup=1)
+                rows[(name, tag)] = (name, tag, P, k_ms, p_ms, *bound(flops, nbytes))
+    for name, tag, P, k_ms, p_ms, b_ms, b_by in rows.values():
+        print(f"timing kernel {name} {tag} ({P} points, 2 launches per step): {k_ms:.3f} ms, "
+              f"bound {b_ms:.3f} ms ({b_by}, {b_ms / k_ms:.1%} of it), plain {p_ms:.3f} ms "
+              f"[{card}]")
+    return rows, err, launches
 
 
 if __name__ == "__main__":

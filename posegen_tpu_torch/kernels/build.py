@@ -4,8 +4,9 @@ interface, loaded with ctypes.
 The library is built from this package's `csrc/` sources at first CUDA use
 into `build/posegen_tpu_torch/` at the repository root, named by a hash of
 the sources and flags, so an edited source rebuilds and an unchanged one
-loads at once. Nothing here runs at import: the module imports on a host
-without nvcc or a card.
+loads at once. Each source compiles in its own nvcc process, all started
+together, and one link joins the objects. Nothing here runs at import: the
+module imports on a host without nvcc or a card.
 """
 
 from __future__ import annotations
@@ -21,11 +22,11 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "posegen_tpu_torch"
-SOURCES = ("field.cu",)
+SOURCES = ("field.cu", "field_grad.cu")
 HEADERS = ("field.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -59,17 +60,30 @@ def build() -> Path:
         return out
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.parent / f"{tag}.{Path(src).stem}.o" for src in SOURCES]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+            for src, obj in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outs = [p.communicate() for p in procs]
+    ptxas = "".join(err for _, err in outs)
+    for cmd, p, (so, se) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{so}{se}")
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)]
+    proc = subprocess.run(link, capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
+            f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, out)
     BUILD_LOG["seconds"] = time.perf_counter() - t0
-    BUILD_LOG["ptxas"] = proc.stderr
+    BUILD_LOG["ptxas"] = ptxas
     return out
 
 
@@ -85,6 +99,13 @@ def load() -> ctypes.CDLL:
     lib.posegen_field.restype = I
     lib.posegen_dual.argtypes = [P, P, I, I, P, IA, I, P, P, P, P, P, P, P]
     lib.posegen_dual.restype = I
+    lib.posegen_field_stash.argtypes = [P, P, I, I, P, I, I, IA, I, P, P, P, I, I, P, P, P, P]
+    lib.posegen_field_stash.restype = I
+    lib.posegen_field_bwd_workspace.argtypes = [I, IA, I, I, I]
+    lib.posegen_field_bwd_workspace.restype = ctypes.c_longlong
+    lib.posegen_field_bwd.argtypes = [I, IA, I, P, P, P, I, I, P, P, P, P, ctypes.c_longlong,
+                                      P, P, P, P]
+    lib.posegen_field_bwd.restype = I
     lib.posegen_error_string.argtypes = [I]
     lib.posegen_error_string.restype = ctypes.c_char_p
     _LIB = lib

@@ -86,37 +86,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (store) out[4 * gp + q] = v;
 }
 
-static bool read_layout(const int* v, int n, Layout* L) {
-  if (v == nullptr || n < kLayoutHead) return false;
-  *L = Layout{};
-  L->depth = v[0];
-  L->skip = v[1];
-  L->nf_kp = v[2];
-  L->nf_view = v[3];
-  L->pc = v[4];
-  L->vc = v[5];
-  L->vcp = v[6];
-  L->w_alpha = v[7];
-  L->b_alpha = v[8];
-  L->w_feat = v[9];
-  L->b_feat = v[10];
-  L->w_view = v[11];
-  L->b_view = v[12];
-  L->w_rgb = v[13];
-  L->b_rgb = v[14];
-  if (L->depth < 1 || L->depth > kMaxDepth || n != kLayoutHead + 2 * L->depth) return false;
-  if (L->nf_kp < 0 || L->nf_view < 0 || L->nf_kp + L->nf_view > kMaxOctaves) return false;
-  if (L->pc != kJoints * (1 + 2 * L->nf_kp) + 3 * kJoints) return false;
-  if (L->vc != 3 * kJoints * (1 + 2 * L->nf_view) || L->vcp % 16 != 0 || L->vcp < L->vc) {
-    return false;
-  }
-  for (int i = 0; i < L->depth; ++i) {
-    L->w_layer[i] = v[kLayoutHead + 2 * i];
-    L->b_layer[i] = v[kLayoutHead + 2 * i + 1];
-  }
-  return true;
-}
-
 template <int MODE>
 static int launch(const float* pts, const float* dirs, int n_pts, int spr, const float* pose,
                   const int* layout, int n_layout, const void* w0, const float* b0,
@@ -127,15 +96,7 @@ static int launch(const float* pts, const float* dirs, int n_pts, int spr, const
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = smem_bytes(L, MODE != kDensity);
-  int dev = 0, max_smem = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) {
-    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  if (e != cudaSuccess) return static_cast<int>(e);
-  if (smem > static_cast<size_t>(max_smem)) return static_cast<int>(cudaErrorInvalidConfiguration);
-  e = cudaFuncSetAttribute(field_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           static_cast<int>(smem));
+  const cudaError_t e = set_smem(field_kernel<MODE>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int grid = (n_pts + kTile - 1) / kTile;
   field_kernel<MODE><<<grid, kThreads, smem, stream>>>(

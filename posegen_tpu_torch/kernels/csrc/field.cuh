@@ -55,6 +55,11 @@ struct Layout {
   int depth, skip, nf_kp, nf_view, pc, vc, vcp;
   int w_alpha, b_alpha, w_feat, b_feat, w_view, b_view, w_rgb, b_rgb;
   int w_layer[kMaxDepth], b_layer[kMaxDepth];
+
+  // input width of trunk layer i
+  __host__ __device__ int layer_in_of(int i) const {
+    return i == 0 ? pc : (i - 1 == skip ? pc + kWidth : kWidth);
+  }
 };
 constexpr int kLayoutHead = 15;  // ints before the per-layer (w, b) pairs
 
@@ -78,19 +83,24 @@ __host__ __device__ inline size_t smem_bytes(const Layout& L, bool with_view) {
 // with v = |p_local|, w = 1 - sigmoid(tau (v - cut_j)), dn the normalised
 // local ray direction; each octave's gate also carries its BARF weight
 // (1 when unscheduled). Rows past the last point repeat it (never stored).
+// With pose_ld > 0, `pose` is a table of pose rows pose_ld floats apart and
+// point gp reads row gp / ppg (its pose group); else every point reads the
+// one pose.
 // ---------------------------------------------------------------------------
 template <bool kView>
 __device__ void encode_tile(const float* __restrict__ pts, const float* __restrict__ dirs,
-                            int n_pts, int spr, int p0, const float* s_pose,
-                            const Layout& L, bf16* e_pts, bf16* e_view) {
+                            int n_pts, int spr, int p0, const float* pose_in,
+                            const Layout& L, bf16* e_pts, bf16* e_view, int pose_ld = 0,
+                            int ppg = 1) {
   const int ldp = pts_ld(L), ldv = view_ld(L);
   const int kc = kJoints * (1 + 2 * L.nf_kp);
-  const float tau = s_pose[kJoints * 13];
-  const float* sw = s_pose + kPoseFloats;  // kp octaves, then view octaves
   for (int t = threadIdx.x; t < kTile * kJoints; t += kThreads) {
     const int p = t / kJoints;
     const int j = t - p * kJoints;
     const int gp = min(p0 + p, n_pts - 1);
+    const float* s_pose = pose_in + (pose_ld ? static_cast<size_t>(gp / ppg) * pose_ld : 0);
+    const float tau = s_pose[kJoints * 13];
+    const float* sw = s_pose + kPoseFloats;  // kp octaves, then view octaves
     const float* R = s_pose + 9 * j;
     const float* T = s_pose + kJoints * 9 + 3 * j;
     const float cut = s_pose[kJoints * 12 + j];
@@ -193,12 +203,20 @@ __device__ __forceinline__ void gemm_segment(FragC (&acc)[kMTiles][NT], const bf
   }
 }
 
+// Per-row bias rows (the training kernels' per-pose-group view bias): row r
+// of the block at p0 adds bias row min(p0 + r, n_pts - 1) / ppg, rows ld
+// floats apart. ld == 0: one bias row for every point.
+struct RowBias {
+  int ld = 0, p0 = 0, ppg = 1, n_pts = 1;
+};
+
 // acc + bias (+ ReLU) -> bf16 rows of `out` (row stride kHLd), through the
 // warp's f32 scratch tile (the accumulator's register layout is opaque).
 template <int NT>
 __device__ __forceinline__ void store_tile(FragC (&acc)[kMTiles][NT],
                                            const float* __restrict__ bias, bool relu,
-                                           bf16* out, int n0, float* scratch) {
+                                           bf16* out, int n0, float* scratch,
+                                           const RowBias rb = RowBias{}) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int im = 0; im < kMTiles; ++im) {
@@ -208,7 +226,11 @@ __device__ __forceinline__ void store_tile(FragC (&acc)[kMTiles][NT],
       __syncwarp();
       for (int e = lane; e < 256; e += 32) {
         const int n = n0 + 16 * jn + (e & 15);
-        float v = scratch[e] + bias[n];
+        const float* brow =
+            rb.ld ? bias + static_cast<size_t>(min(rb.p0 + 16 * im + (e >> 4), rb.n_pts - 1) /
+                                               rb.ppg) * rb.ld
+                  : bias;
+        float v = scratch[e] + brow[n];
         if (relu) v = fmaxf(v, 0.f);
         out[(16 * im + (e >> 4)) * kHLd + n] = __float2bfloat16(v);
       }
@@ -222,7 +244,7 @@ __device__ __forceinline__ void store_tile(FragC (&acc)[kMTiles][NT],
 template <int NT>
 __device__ void dense(const bf16* A1, int lda1, int K1, const bf16* A2, int lda2, int K2,
                       const bf16* __restrict__ W, const float* __restrict__ bias, bool relu,
-                      bf16* out, float* scratch) {
+                      bf16* out, float* scratch, const RowBias rb = RowBias{}) {
   const int warp = threadIdx.x >> 5;
   const int n0 = warp * NT * 16;
   FragC acc[kMTiles][NT];
@@ -235,7 +257,7 @@ __device__ void dense(const bf16* A1, int lda1, int K1, const bf16* A2, int lda2
   gemm_segment<NT>(acc, A1, lda1, K1, W, ldw, n0);
   gemm_segment<NT>(acc, A2, lda2, K2, W + K1, ldw, n0);
   __syncthreads();
-  store_tile<NT>(acc, bias, relu, out, n0, scratch + warp * kScratch);
+  store_tile<NT>(acc, bias, relu, out, n0, scratch + warp * kScratch, rb);
   __syncthreads();
 }
 
@@ -263,6 +285,54 @@ __device__ __forceinline__ float row_dot4(const bf16* row, const bf16* __restric
   s += __shfl_xor_sync(0xffffffffu, s, 1);
   s += __shfl_xor_sync(0xffffffffu, s, 2);
   return s;
+}
+
+// The integer record -> Layout; false when it is not a layout the kernels
+// take.
+static inline bool read_layout(const int* v, int n, Layout* L) {
+  if (v == nullptr || n < kLayoutHead) return false;
+  *L = Layout{};
+  L->depth = v[0];
+  L->skip = v[1];
+  L->nf_kp = v[2];
+  L->nf_view = v[3];
+  L->pc = v[4];
+  L->vc = v[5];
+  L->vcp = v[6];
+  L->w_alpha = v[7];
+  L->b_alpha = v[8];
+  L->w_feat = v[9];
+  L->b_feat = v[10];
+  L->w_view = v[11];
+  L->b_view = v[12];
+  L->w_rgb = v[13];
+  L->b_rgb = v[14];
+  if (L->depth < 1 || L->depth > kMaxDepth || n != kLayoutHead + 2 * L->depth) return false;
+  if (L->nf_kp < 0 || L->nf_view < 0 || L->nf_kp + L->nf_view > kMaxOctaves) return false;
+  if (L->pc != kJoints * (1 + 2 * L->nf_kp) + 3 * kJoints) return false;
+  if (L->vc != 3 * kJoints * (1 + 2 * L->nf_view) || L->vcp % 16 != 0 || L->vcp < L->vc) {
+    return false;
+  }
+  for (int i = 0; i < L->depth; ++i) {
+    L->w_layer[i] = v[kLayoutHead + 2 * i];
+    L->b_layer[i] = v[kLayoutHead + 2 * i + 1];
+  }
+  return true;
+}
+
+// Opt a kernel in to `smem` bytes of dynamic shared memory; an error when
+// the card offers less.
+template <typename Kernel>
+static inline cudaError_t set_smem(Kernel kernel, size_t smem) {
+  int dev = 0, max_smem = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&max_smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (e != cudaSuccess) return e;
+  if (smem > static_cast<size_t>(max_smem)) return cudaErrorInvalidConfiguration;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 }  // namespace posegen

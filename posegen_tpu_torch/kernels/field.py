@@ -16,9 +16,15 @@ memory: per point only (3,) of position, the ray's (3,) direction and the
 `render.raycast.encode_inputs`, so the JAX weights load without a row
 permutation.
 
-Operands. `prepare_net` packs one net for the kernel: every matrix
+The trainable pair (kernels/field_grad.py, csrc/field_grad.cu) shares this
+module's gate, operands and plain versions; `fused_run_net(trainable=True)`
+routes to it.
+
+Operands. `prepare_net` packs one net for the eval kernels: every matrix
 transposed to (out, in) and flattened into one bf16 buffer, every bias into
-one f32 buffer, at the offsets of a `NetLayout`. Two per-call quantities
+one f32 buffer, at the offsets of a `NetLayout` (`pack_net_f32` is the same
+packing in float32 under autograd, for training; `pack_poses` stacks one
+pose row per pose group). Two per-call quantities
 are folded into these operands on the host: the pose group's framecode (its
 view-head product becomes part of the view bias) and the BARF octave
 weights (appended to the pose operand of `pack_pose`; the encode scales
@@ -53,8 +59,9 @@ POSE_FLOATS = N_JOINTS * 9 + N_JOINTS * 3 + N_JOINTS + 1  # rot | trn | cut | ta
 MAX_OCTAVES = 64  # nf_kp + nf_view, csrc/field.cuh kMaxOctaves
 
 # launches per kernel since the last reset_launches(); "field" counts the
-# full and the density-only instantiation of the field kernel together
-LAUNCHES: Dict[str, int] = {"field": 0, "dual": 0}
+# full and the density-only instantiation of the field kernel together;
+# "field_stash" and "field_bwd" are the training pair (kernels/field_grad.py)
+LAUNCHES: Dict[str, int] = {"field": 0, "dual": 0, "field_stash": 0, "field_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -280,49 +287,76 @@ def barf_octave_weights(alpha: torch.Tensor, nf: int) -> torch.Tensor:
     return 0.5 * (1.0 - torch.cos(math.pi * torch.clamp(alpha - k, 0.0, 1.0)))
 
 
+def pack_net_f32(net: Dict, layout: NetLayout) -> FieldNet:
+    """Pack a NeRF params dict (JAX layout, w (in, out)) at the offsets of
+    `layout`: every matrix transposed to (out, in) in one float32 buffer,
+    every bias in another, differentiable back to the leaves. The training
+    kernels take it as it is (a bf16 cast here would round the gradients
+    too; the kernels round the weights to bf16 as they load them). The view
+    bias slot holds the plain view bias; framecodes enter through
+    `group_view_bias` (training) or `prepare_net` (eval)."""
+    L = layout
+    mats, biases = [], []
+    if len(net["pts_linears"]) != L.depth:
+        raise ValueError(f"net has {len(net['pts_linears'])} layers, layout {L.depth}")
+    for i, lay in enumerate(net["pts_linears"]):
+        if lay["w"].shape != (L.layer_in(i), WIDTH):
+            raise ValueError(f"layer {i} weight {tuple(lay['w'].shape)} != "
+                             f"{(L.layer_in(i), WIDTH)}")
+        mats.append(lay["w"].T)
+        biases.append(lay["b"])
+    for name in ("alpha_linear", "feature_linear"):
+        mats.append(net[name]["w"].T)
+        biases.append(net[name]["b"])
+    (view,) = net["views_linears"]
+    wv = view["w"]
+    pad = wv.new_zeros(L.vcp - L.vc, VIEW_WIDTH)
+    mats.append(torch.cat([wv[:WIDTH + L.vc], pad]).T)
+    biases.append(view["b"])
+    mats.append(net["rgb_linear"]["w"].T)
+    biases.append(net["rgb_linear"]["b"])
+    w = torch.cat([m.reshape(-1) for m in mats]).float()
+    b = torch.cat([x.reshape(-1) for x in biases]).float()
+    if w.numel() != L.n_w or b.numel() != L.n_b:
+        raise ValueError("packed net does not match its layout")
+    return FieldNet(w, b, L)
+
+
 def prepare_net(net: Dict, layout: NetLayout,
                 code: Optional[torch.Tensor] = None) -> FieldNet:
-    """Pack a NeRF params dict (JAX layout, w (in, out)) for the kernels,
-    weights in bf16 (the JAX kernels' `prepare_params` rounds them alike).
+    """Pack a NeRF params dict (JAX layout, w (in, out)) for the eval
+    kernels: `pack_net_f32`'s layout with the weights in bf16 (the JAX
+    kernels' `prepare_params` rounds them alike).
 
     code: this pose group's framecode (code_ch,); its product with the
       (bf16-rounded) framecode rows of the view head is folded into the view
       bias. Required when the view head has framecode rows.
     """
     L = layout
-    mats, biases = [], []
-    if len(net["pts_linears"]) != L.depth:
-        raise ValueError(f"net has {len(net['pts_linears'])} layers, layout {L.depth}")
-    for i, lay in enumerate(net["pts_linears"]):
-        w = lay["w"]
-        if w.shape != (L.layer_in(i), WIDTH):
-            raise ValueError(f"layer {i} weight {tuple(w.shape)} != {(L.layer_in(i), WIDTH)}")
-        mats.append(w.T)
-        biases.append(lay["b"])
-    mats.append(net["alpha_linear"]["w"].T)
-    biases.append(net["alpha_linear"]["b"])
-    mats.append(net["feature_linear"]["w"].T)
-    biases.append(net["feature_linear"]["b"])
-
-    (view,) = net["views_linears"]
-    wv, bv = view["w"], view["b"]  # (256 + vc + code_ch, 128)
+    w, b, _ = pack_net_f32(net, L)
+    wv = net["views_linears"][0]["w"]
     n_code = wv.shape[0] - WIDTH - L.vc
     if n_code:
         if code is None or code.numel() != n_code:
             raise ValueError(f"view head has {n_code} framecode rows; pass the code")
         w_code = wv[WIDTH + L.vc:].to(torch.bfloat16).float()
-        bv = bv + code.reshape(1, n_code).float() @ w_code
-    pad = wv.new_zeros(L.vcp - L.vc, VIEW_WIDTH)
-    mats.append(torch.cat([wv[:WIDTH + L.vc], pad]).T)
-    biases.append(bv)
-    mats.append(net["rgb_linear"]["w"].T)
-    biases.append(net["rgb_linear"]["b"])
+        b = b.clone()
+        b[L.b_view:L.b_view + VIEW_WIDTH] += (code.reshape(1, n_code).float() @ w_code)[0]
+    return FieldNet(w.to(torch.bfloat16).contiguous(), b.contiguous(), L)
 
-    w = torch.cat([m.reshape(-1) for m in mats]).to(torch.bfloat16).contiguous()
-    b = torch.cat([x.reshape(-1) for x in biases]).float().contiguous()
-    if w.numel() != L.n_w or b.numel() != L.n_b:
-        raise ValueError("packed net does not match its layout")
-    return FieldNet(w, b, L)
+
+def group_view_bias(net: Dict, layout: NetLayout,
+                    codes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The view layer's bias per pose group, under autograd: (1, 128) the
+    plain bias, or with framecodes (G, code_ch) -> (G, 128) bias + code_g @
+    W_code in float32 (the JAX kernel's per-group code column, folded)."""
+    wv, bv = net["views_linears"][0]["w"], net["views_linears"][0]["b"]
+    n_code = wv.shape[0] - WIDTH - layout.vc
+    if n_code == 0:
+        return bv.float().reshape(1, VIEW_WIDTH)
+    if codes is None or codes.shape[-1] != n_code:
+        raise ValueError(f"view head has {n_code} framecode rows; pass (G, {n_code}) codes")
+    return bv.float() + codes.float() @ wv[WIDTH + layout.vc:].float()
 
 
 def pack_pose(skts: torch.Tensor, embed_state: Dict, nf_kp: int, nf_view: int,
@@ -331,18 +365,29 @@ def pack_pose(skts: torch.Tensor, embed_state: Dict, nf_kp: int, nf_view: int,
     octave weights (kp (nf_kp,), view (nf_view,); None = unscheduled, all 1)
     -> (POSE_FLOATS + nf_kp + nf_view,) f32:
     [rot (24, 9) | trn (24, 3) | cutoff (24) | tau | kp octaves | view octaves]."""
+    return pack_poses(skts[None], embed_state, nf_kp, nf_view, sched)[0]
+
+
+def pack_poses(skts: torch.Tensor, embed_state: Dict, nf_kp: int, nf_view: int,
+               sched: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """(G, 24, 4, 4) per-group transforms -> (G, n_pose) f32: one
+    `pack_pose` row per pose group."""
+    G = skts.shape[0]
     if nf_kp + nf_view > MAX_OCTAVES:
         raise ValueError(f"multires + multires_views > {MAX_OCTAVES}")
     if sched is None:
         sched = (skts.new_ones(nf_kp), skts.new_ones(nf_view))
-    return torch.cat([
-        skts[:, :3, :3].reshape(-1),
-        skts[:, :3, 3].reshape(-1),
-        embed_state["cutoff_dist"].reshape(-1),
-        embed_state["tau"].reshape(1),
+    shared = torch.cat([
+        embed_state["cutoff_dist"].reshape(-1).to(skts.dtype),
+        embed_state["tau"].reshape(1).to(skts.dtype),
         sched[0].reshape(nf_kp).to(skts.dtype),
         sched[1].reshape(nf_view).to(skts.dtype),
-    ]).float().contiguous()
+    ])
+    return torch.cat([
+        skts[:, :, :3, :3].reshape(G, -1),
+        skts[:, :, :3, 3].reshape(G, -1),
+        shared.expand(G, -1),
+    ], 1).float().contiguous()
 
 
 def _unpack(net: FieldNet):
@@ -427,18 +472,23 @@ def encode_plain(pts: torch.Tensor, dirs: torch.Tensor, spr: int,
 
 
 def _mm(a: torch.Tensor, w: torch.Tensor, mm_dtype: torch.dtype) -> torch.Tensor:
-    """a (P, K) @ w (N, K)^T, the activations rounded to mm_dtype, the bf16
-    weights exact, the products summed in float32 (a product of two bf16
-    values is exact in float32)."""
-    return a.to(mm_dtype).float() @ w.float().T
+    """a (P, K) @ w (N, K)^T, both operands rounded to mm_dtype (bf16 weights
+    are exact either way; the training path's float32 weights round as the
+    kernels round them), the products summed in float32 (a product of two
+    bf16 values is exact in float32)."""
+    return a.to(mm_dtype).float() @ w.to(mm_dtype).float().T
 
 
 def mlp_plain(net: FieldNet, e_pts: torch.Tensor, e_view: Optional[torch.Tensor],
-              density_only: bool, mm_dtype: torch.dtype) -> torch.Tensor:
+              density_only: bool, mm_dtype: torch.dtype,
+              bview: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Trunk + heads on prebuilt encodings -> (P, 4) raw [r, g, b, sigma]
-    (rgb zero when density_only)."""
+    (rgb zero when density_only). bview: a view bias (128,) or per point
+    (P, 128) in place of the packed one."""
     L = net.layout
     layers, (wa, ba), (wf, bf), (wv, bv), (wr, br) = _unpack(net)
+    if bview is not None:
+        bv = bview
     h = e_pts
     for i, (w, b) in enumerate(layers):
         if i > 0 and i - 1 == L.skip:
@@ -509,6 +559,17 @@ def _check_operands(pts, dirs, spr, pose, nets):
             raise ValueError(f"packed biases: need contiguous float32 on {dev}")
 
 
+def _no_grad_operands(where: str, *tensors) -> None:
+    """The eval kernels fill fresh outputs outside autograd: refuse operands
+    that would need a gradient rather than drop it."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{where}: an operand requires grad, and this eval kernel has no "
+            "backward; train through fused_run_net(..., trainable=True) "
+            "(kernels/field_grad.py), or run under torch.no_grad()"
+        )
+
+
 def _layout_arg(layout: NetLayout):
     ints = layout.as_ints()
     return (ctypes.c_int * len(ints))(*ints), len(ints)
@@ -525,6 +586,7 @@ def fused_field(pts: torch.Tensor, dirs: torch.Tensor, spr: int,
     density_only). pts (P, 3) f32; dirs (P / spr, 3) f32, one per ray of spr
     consecutive points; pose from `pack_pose`; net from `prepare_net`."""
     _check_operands(pts, dirs, spr, pose, (net,))
+    _no_grad_operands("fused_field", pts, dirs, pose, net.w, net.b)
     if not pts.is_cuda:
         return field_plain(pts, dirs, spr, pose, net, density_only)
     from posegen_tpu_torch.kernels import build
@@ -550,6 +612,7 @@ def fused_dual(pts: torch.Tensor, dirs: torch.Tensor, spr: int,
     """One encode, two nets -> (raw_c (P, 4) [rgb zero], raw_f (P, 4)):
     coarse density and fine full raw on the same points."""
     _check_operands(pts, dirs, spr, pose, (net_c, net_f))
+    _no_grad_operands("fused_dual", pts, dirs, pose, net_c.w, net_c.b, net_f.w, net_f.b)
     if not pts.is_cuda:
         return dual_plain(pts, dirs, spr, pose, net_c, net_f)
     from posegen_tpu_torch.kernels import build
@@ -587,20 +650,24 @@ def _barf_sched(cfg, embed_state: Dict, view_embed_state: Optional[Dict]):
             barf_octave_weights(a_view, cfg.multires_views))
 
 
-def _group_code(net_params: Dict, ctx, code_ch: int,
-                eval_mean_code: bool) -> Optional[torch.Tensor]:
-    """The single pose group's framecode (reference Optcodes): the first
-    row's frame index, or the mean code when ctx carries none."""
+def _group_codes(net_params: Dict, ctx, G: int, N: int, code_ch: int,
+                 eval_mean_code: bool) -> Optional[torch.Tensor]:
+    """(G, code_ch) framecode rows, one per pose group (reference Optcodes):
+    cam idxs are constant within a group's rays, so a per-ray index table
+    gives its first row per group; without indices, the mean code. None when
+    the model has no framecodes."""
     if code_ch <= 0:
         return None
     idxs = ctx.cam_idxs
     if idxs is None:
-        idxs = torch.zeros((1, 1), dtype=torch.long,
+        idxs = torch.zeros((G, 1), dtype=torch.long,
                            device=net_params["framecodes"].device)
         eval_mean_code = True
+    if idxs.shape[0] == N and G != N:
+        idxs = idxs.reshape(G, N // G, -1)[:, 0]
     return framecode_lookup(
-        net_params["framecodes"], idxs[:1], eval_mean=eval_mean_code
-    ).reshape(code_ch)
+        net_params["framecodes"], idxs[:G], eval_mean=eval_mean_code
+    ).reshape(G, code_ch)
 
 
 def fused_run_net(
@@ -614,31 +681,53 @@ def fused_run_net(
     density_only: bool = False,
     view_embed_state: Optional[Dict] = None,  # for the view ladder's BARF alpha
     dual_params: Optional[Dict] = None,  # fine net: dual-net coarse pass
+    trainable: bool = False,
+    input_grads: bool = False,
 ):
     """Drop-in replacement for raycast._run_net on the supported subset:
     -> raw (N, S, 4), or with dual_params (the fine net; requires
     density_only) -> (raw_coarse [rgb zero], raw_fine).
 
-    On the host the wrappers run their plain versions (bf16 weights,
-    float32 activations)."""
+    trainable: the weights-only training path (kernels/field_grad.py):
+    ctx carries G pose rows with the rays contiguous per group, and the raw
+    has gradients for the net's weights, biases and framecodes. On the host
+    its wrappers run their plain versions at float32; the eval wrappers run
+    theirs with bf16 weights and float32 activations."""
     N, S = pts.shape[:2]
-    if ctx.skts.shape[0] != 1:
+    G = ctx.skts.shape[0]
+    if input_grads:
+        from posegen_tpu_torch.kernels.field_grad import _INPUT_GRADS
+
+        raise NotImplementedError(_INPUT_GRADS)
+    layout = net_layout(cfg.netdepth, cfg.multires, cfg.multires_views)
+    code_ch = cfg.framecode_ch if cfg.opt_framecode else 0
+    sched = _barf_sched(cfg, embed_state, view_embed_state)
+    pts_f = pts.reshape(N * S, 3).float().contiguous()
+    dirs = rays_d.float().contiguous()
+    if trainable:
+        from posegen_tpu_torch.kernels.field_grad import trainable_field
+
+        if dual_params is not None or density_only:
+            raise ValueError("the trainable path evaluates the full net in one pass")
+        if N % G:
+            raise ValueError(f"rays ({N}) not divisible into {G} pose groups")
+        poses = pack_poses(ctx.skts, embed_state, cfg.multires, cfg.multires_views, sched)
+        codes = _group_codes(net_params, ctx, G, N, code_ch, eval_mean_code)
+        raw = trainable_field(pts_f, dirs, S, poses, pack_net_f32(net_params, layout),
+                              group_view_bias(net_params, layout, codes))
+        return raw.view(N, S, 4)
+    if G != 1:
         raise NotImplementedError(
-            f"{ctx.skts.shape[0]} pose groups: the ported kernels take a "
-            "single pose group"
+            f"{G} pose groups: the ported eval kernels take a single pose group"
         )
     if dual_params is not None and not density_only:
         raise ValueError("dual_params needs the density-only, "
                          "single-group eval pass")
-    layout = net_layout(cfg.netdepth, cfg.multires, cfg.multires_views)
-    code_ch = cfg.framecode_ch if cfg.opt_framecode else 0
-    pose = pack_pose(ctx.skts[0], embed_state, cfg.multires, cfg.multires_views,
-                     _barf_sched(cfg, embed_state, view_embed_state))
-    pts_f = pts.reshape(N * S, 3).float().contiguous()
-    dirs = rays_d.float().contiguous()
+    pose = pack_pose(ctx.skts[0], embed_state, cfg.multires, cfg.multires_views, sched)
 
     def prep(net):
-        return prepare_net(net, layout, _group_code(net, ctx, code_ch, eval_mean_code))
+        code = _group_codes(net, ctx, 1, N, code_ch, eval_mean_code)
+        return prepare_net(net, layout, None if code is None else code[0])
 
     if dual_params is not None:
         raw_c, raw_f = fused_dual(pts_f, dirs, S, pose, prep(net_params),

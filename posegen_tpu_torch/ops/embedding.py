@@ -77,9 +77,19 @@ def identity_config(input_dims: int) -> EmbedConfig:
     return EmbedConfig(num_freqs=0, input_dims=input_dims, include_input=True)
 
 
+def _device_of(device, t) -> Optional[torch.device]:
+    """`device` when given, else the device of tensor `t`, else None (the
+    default device of a new tensor)."""
+    if device is not None:
+        return torch.device(device)
+    return t.device if isinstance(t, torch.Tensor) else None
+
+
 def init_embed_state(cfg: EmbedConfig, cutoff_dist: Optional[torch.Tensor] = None,
-                     device="cpu") -> dict:
-    """The embedder's train-state quantities {'tau', 'alpha', 'cutoff_dist'}."""
+                     device=None) -> dict:
+    """The embedder's train-state quantities {'tau', 'alpha', 'cutoff_dist'},
+    on `device`, or by default on the device of `cutoff_dist`."""
+    device = _device_of(device, cutoff_dist)
     if cutoff_dist is None:
         cutoff_dist = torch.full((cfg.cutoff_dim,), 0.175, dtype=torch.float32)
     return {
@@ -91,16 +101,20 @@ def init_embed_state(cfg: EmbedConfig, cutoff_dist: Optional[torch.Tensor] = Non
 
 
 def update_tau(cfg: EmbedConfig, global_step, step: int, rate: float,
-               device="cpu") -> torch.Tensor:
+               device=None) -> torch.Tensor:
     """Exponential temperature anneal (reference cutoff_embedder.py:181-183):
-    tau = init_tau * rate**(global_step / (step * 1000)), clamped at 2000."""
-    gs = torch.as_tensor(global_step, dtype=torch.float32, device=device)
+    tau = init_tau * rate**(global_step / (step * 1000)), clamped at 2000.
+    On `device`, or by default on the device of a tensor `global_step`."""
+    gs = torch.as_tensor(global_step, dtype=torch.float32,
+                         device=_device_of(device, global_step))
     return torch.clamp(cfg.init_tau * rate ** (gs / float(step * 1000)), max=2000.0)
 
 
 def update_alpha(cfg: EmbedConfig, global_step, step: int,
-                 target: Optional[float] = None, device="cpu") -> torch.Tensor:
-    """Linear BARF alpha schedule (reference :185-190)."""
+                 target: Optional[float] = None, device=None) -> torch.Tensor:
+    """Linear BARF alpha schedule (reference :185-190). On `device`, or by
+    default on the device of a tensor `global_step`."""
+    device = _device_of(device, global_step)
     if not cfg.freq_schedule:
         return torch.tensor(cfg.init_alpha, dtype=torch.float32, device=device)
     if target is None:

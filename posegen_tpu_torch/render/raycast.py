@@ -5,7 +5,8 @@ On a CUDA device, the field evaluations of a config that passes the gate
 (kernels/field.py) run in the fused CUDA kernels; the dual-net kernel takes
 the coarse pass when the caller does not read rgb0. Otherwise the plain
 pipeline materializes the encodings (`encode_inputs`) and applies the MLP
-(`models.nerf.nerf_apply`).
+(`models.nerf.nerf_apply`). Training asks for use_fused="train": the
+trainable kernel pair of kernels/field_grad.py on grouped poses.
 """
 
 from __future__ import annotations
@@ -274,18 +275,25 @@ def _run_net(
     rays_d: torch.Tensor,
     ctx: PoseCtx,
     eval_mean_code: bool,
-    use_fused: bool = False,
+    use_fused=False,
     density_only: bool = False,
 ) -> torch.Tensor:
     """Encode and evaluate one NeRF net over (N, S) samples -> raw (N, S, 4).
 
-    density_only (fused path only): the rgb rows come back zero; sigma is
+    use_fused: True (eval kernels), "train" (the trainable kernels, weight
+    gradients only), "full" (input gradients too: not ported yet) or False.
+    density_only (eval kernels only): the rgb rows come back zero; sigma is
     exact."""
+    if use_fused not in (False, True, "train", "full"):
+        raise ValueError(f"use_fused={use_fused!r}")
     if use_fused:
         return fused.fused_run_net(
             cfg, net_params, params["embed_kp"], pts, rays_d, ctx,
-            eval_mean_code=eval_mean_code, density_only=density_only,
+            eval_mean_code=eval_mean_code,
+            density_only=density_only and use_fused is True,
             view_embed_state=params.get("embed_view"),
+            trainable=use_fused in ("train", "full"),
+            input_grads=use_fused == "full",
         )
     x_pts, x_views, _ = encode_inputs(cfg, params, pts, rays_d, ctx)
     frame_idx = None
@@ -313,7 +321,7 @@ def render_rays(
     raw_noise_std: Optional[float] = None,
     eval_mean_code: bool = False,
     det_noise: Optional[Dict[str, torch.Tensor]] = None,
-    use_fused: Optional[bool] = None,
+    use_fused=None,
     coarse_rgb: bool = True,
 ) -> Dict[str, torch.Tensor]:
     """Volume-render a batch of rays (reference raycasters.py:361-474).
@@ -328,8 +336,11 @@ def render_rays(
     generator: draws the stratified / importance / density noise.
     det_noise: {'coarse': (N,S), 'importance': (N,I), 'sigma0': (N,S),
       'sigma': (N,S+I)} pre-drawn noise for parity runs.
-    use_fused: the fused field kernels (on the CPU, their plain versions);
-      None = auto: on for CUDA tensors whose config/pose passes the gate.
+    use_fused: the fused field kernels (on the CPU, their plain versions):
+      True the eval kernels, "train" the trainable pair (pose groups in
+      ctx, rays contiguous per group), False the plain pipeline; None =
+      auto: the eval kernels for CUDA tensors whose config/pose passes the
+      gate.
     Returns rgb_map/disp_map/acc_map/alpha (+ *0 coarse copies).
     """
     perturb = cfg.perturb if perturb is None else perturb
@@ -361,7 +372,7 @@ def render_rays(
     )
     raw_fc = None  # fine-net raw on the coarse samples (dual-net kernel)
     if (
-        use_fused
+        use_fused is True
         and coarse_density_only
         and fused.supports_dual_eval(cfg, ctx, params["coarse"])
     ):
@@ -376,7 +387,7 @@ def render_rays(
     if raw_fc is None:
         raw_c = _run_net(
             cfg, params["coarse"], params, pts, rays_d, ctx, eval_mean_code,
-            use_fused, density_only=coarse_density_only and use_fused,
+            use_fused, density_only=coarse_density_only and use_fused is True,
         )
 
     def density_noise(name, shape):

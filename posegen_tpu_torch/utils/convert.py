@@ -5,6 +5,8 @@ Both packages keep the same tree layout ({"coarse": {"pts_linears":
 [{"w", "b"}, ...], "alpha_linear", ...}, "fine": ..., "embed_kp": {"tau",
 "alpha", "cutoff_dist"}, ...}) and linear weights stored (in, out), so the
 bridge converts leaves only; the two then compute the same function.
+`train_state_from_numpy` carries a whole JAX train state over, the Adam
+moments included.
 """
 
 from __future__ import annotations
@@ -26,3 +28,39 @@ def params_from_numpy(tree, device):
     elif np.issubdtype(a.dtype, np.integer):
         a = a.astype(np.int64)
     return torch.as_tensor(a).to(device)
+
+
+def _adam_state(opt_state):
+    """The node of an optax state tree that holds Adam's count / mu / nu
+    (optax.adam alone, or chained after add_decayed_weights)."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (list, tuple)):
+        for node in opt_state:
+            found = _adam_state(node)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_numpy(state, tcfg, device):
+    """A posegen_tpu TrainState with numpy leaves (step, params, embeds and
+    optax's Adam state: count, mu, nu) -> the port's TrainState on `device`,
+    its torch Adam carrying the same moments and count."""
+    from posegen_tpu_torch.train.trainer import (
+        TrainState, nerf_optimizer, param_leaves, trainable,
+    )
+
+    params = trainable(params_from_numpy(state.params, device))
+    opt = nerf_optimizer(tcfg, params)
+    if opt is not None:
+        adam = _adam_state(state.opt_state)
+        if adam is None:
+            raise ValueError("no Adam state (count, mu, nu) in the optimizer state")
+        count = float(np.asarray(adam.count))
+        mu = param_leaves(params_from_numpy(adam.mu, device))
+        nu = param_leaves(params_from_numpy(adam.nu, device))
+        for p, m, v in zip(param_leaves(params), mu, nu, strict=True):
+            opt.state[p] = {"step": torch.tensor(count), "exp_avg": m, "exp_avg_sq": v}
+    return TrainState(step=int(np.asarray(state.step)), params=params,
+                      embeds=params_from_numpy(state.embeds, device), opt_state=opt)

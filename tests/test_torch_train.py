@@ -1,0 +1,272 @@
+"""posegen_tpu_torch train/ against posegen_tpu train/: the losses, the
+embedder schedules, the optimizer, and one full weights-only train step of
+the flagship nets on both of the port's field paths (the plain pipeline and
+the trainable kernels' plain versions) against JAX make_train_step on its
+XLA path, at JAX's own bounds (tests/test_fused_train.py:57-68)."""
+
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from posegen_tpu.render import raycast as jr
+from posegen_tpu.train import losses as jl
+from posegen_tpu.train import trainer as jt
+from posegen_tpu.utils.fixtures import make_pose_ctx, make_rays
+from posegen_tpu_torch.ops import embedding as temb
+from posegen_tpu_torch.render import raycast as tr
+from posegen_tpu_torch.train import losses as tl
+from posegen_tpu_torch.train import trainer as tt
+from posegen_tpu_torch.utils.convert import params_from_numpy, train_state_from_numpy
+
+N_IMAGES, RPI = 2, 16  # pose groups x rays per group
+PARAM_TOL = 5e-5  # max|diff| of every updated parameter
+LOSS_RTOL = 1e-4
+# JAX weights whose coarse and fine nets both render opaque rays on this batch,
+# so that every parameter of both nets has a gradient (seed 0's coarse net
+# renders nothing: its gradients are all zero)
+SEED = 2
+
+# ---------------------------------------------------------------------------
+# losses and schedules
+# ---------------------------------------------------------------------------
+
+LOSSES = {
+    "img2mse": lambda m, p, t, f: m.img2mse(p, t),
+    "img2l1": lambda m, p, t, f: m.img2l1(p, t),
+    "img2huber": lambda m, p, t, f: m.img2huber(p, t, delta=0.2),
+    "mse2psnr": lambda m, p, t, f: m.mse2psnr(m.img2mse(p, t)),
+    "acc2bce": lambda m, p, t, f: m.acc2bce(p[:, 0], f),
+    "rgb_loss_mse": lambda m, p, t, f: m.rgb_loss("MSE", p, t),
+    "rgb_loss_l1": lambda m, p, t, f: m.rgb_loss("L1", p, t),
+    "rgb_loss_huber": lambda m, p, t, f: m.rgb_loss("Huber", p, t, beta=0.05),
+}
+
+
+@pytest.mark.parametrize("name", list(LOSSES))
+def test_losses_match_jax(name):
+    rng = np.random.default_rng(4)
+    pred = rng.uniform(0, 1, (64, 3)).astype(np.float32)
+    target = rng.uniform(0, 1, (64, 3)).astype(np.float32)
+    fg = (rng.uniform(0, 1, (64,)) > 0.5).astype(np.float32)
+    ref = float(LOSSES[name](jl, jnp.asarray(pred), jnp.asarray(target), jnp.asarray(fg)))
+    got = float(LOSSES[name](tl, torch.as_tensor(pred), torch.as_tensor(target),
+                             torch.as_tensor(fg)))
+    np.testing.assert_allclose(got, ref, rtol=1e-6)
+    with pytest.raises(NotImplementedError):
+        tl.rgb_loss("L2", torch.as_tensor(pred), torch.as_tensor(target))
+
+
+@pytest.mark.parametrize("freq_schedule", [False, True])
+@pytest.mark.parametrize("step", [0, 1000, 250000])
+def test_updated_embeds_match_jax(step, freq_schedule):
+    jcfg = jr.RaycastConfig(freq_schedule=freq_schedule)
+    tcfg = tr.RaycastConfig(freq_schedule=freq_schedule)
+    j_emb = {k: v for k, v in jr.init_raycaster(jax.random.PRNGKey(0), jcfg).items()
+             if k.startswith("embed")}
+    t_emb = params_from_numpy(jax.tree_util.tree_map(np.asarray, j_emb), "cpu")
+    ref = jt._updated_embeds(jcfg, jt.TrainConfig(), j_emb, jnp.asarray(step))
+    got = tt._updated_embeds(tcfg, tt.TrainConfig(), t_emb, step)
+    for name in ref:
+        for k in ref[name]:
+            np.testing.assert_allclose(got[name][k].numpy(), np.asarray(ref[name][k]),
+                                       rtol=1e-6, err_msg=f"{name}.{k}")
+
+
+def test_schedules_keep_the_device_of_their_inputs():
+    """tau / alpha / the init state are built on their inputs' device (the
+    meta device stands in for a card here)."""
+    cfg = tr.RaycastConfig(freq_schedule=True).embed_kp_cfg
+    meta = torch.device("meta")
+    step = torch.tensor(1000.0, device=meta)
+    assert temb.update_tau(cfg, step, 250, 10.0).device == meta
+    assert temb.update_alpha(cfg, step, 5, 6.0).device == meta
+    assert temb.update_alpha(tr.RaycastConfig().embed_kp_cfg, step, 5).device == meta
+    st = temb.init_embed_state(cfg, torch.full((24,), 0.5, device=meta))
+    assert {t.device for t in st.values()} == {meta}
+    emb = tt._updated_embeds(tr.RaycastConfig(freq_schedule=True), tt.TrainConfig(),
+                             {"embed_kp": st}, 7)
+    assert {t.device for t in emb["embed_kp"].values()} == {meta}
+    assert temb.update_tau(cfg, 1000, 250, 10.0).device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("variant", ["adam", "weight_decay", "testopt"])
+def test_nerf_optimizer_matches_optax(variant):
+    """Three updates of a small tree with a fast-decaying learning rate."""
+    kw = dict(lrate=1e-2, lrate_decay=1, decay_unit=2)
+    if variant == "weight_decay":
+        kw["weight_decay"] = 0.1
+    if variant == "testopt":
+        kw["testopt"] = True
+    rng = np.random.default_rng(6)
+    tree = {"coarse": {"pts_linears": [{"w": rng.standard_normal((3, 4)),
+                                        "b": rng.standard_normal(4)}],
+                       "rgb_linear": {"w": rng.standard_normal((4, 3)), "b": np.zeros(3)}}}
+    tree = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), tree)
+    grads = [jax.tree_util.tree_map(lambda a: rng.standard_normal(a.shape).astype(np.float32),
+                                    tree) for _ in range(3)]
+    jcfg, tcfg = jt.TrainConfig(**kw), tt.TrainConfig(**kw)
+    opt = jt.nerf_optimizer(jcfg)
+    j_params = jax.tree_util.tree_map(jnp.asarray, tree)
+    j_state = opt.init(j_params)
+    params = tt.trainable(params_from_numpy(tree, "cpu"))
+    t_opt = tt.nerf_optimizer(tcfg, params)
+    assert (t_opt is None) == (variant == "testopt")
+    for step, g in enumerate(grads):
+        upd, j_state = opt.update(jax.tree_util.tree_map(jnp.asarray, g), j_state, j_params)
+        j_params = optax.apply_updates(j_params, upd)
+        if t_opt is not None:
+            for p, gp in zip(tt.param_leaves(params), tt.param_leaves(params_from_numpy(g, "cpu"))):
+                p.grad = gp
+            for group in t_opt.param_groups:
+                group["lr"] = tt.nerf_lr(tcfg, step)
+            t_opt.step()
+    for a, b in zip(tt.param_leaves(params), jax.tree_util.tree_leaves(j_params)):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), atol=1e-6, rtol=0)
+    if variant == "testopt":
+        for a, b in zip(tt.param_leaves(params), jax.tree_util.tree_leaves(tree)):
+            assert np.array_equal(a.detach().numpy(), b)
+
+
+# ---------------------------------------------------------------------------
+# the train step
+# ---------------------------------------------------------------------------
+
+STEP_CASES = {
+    "flagship": ({}, {}),
+    "fix_layer": ({}, dict(fix_layer=3)),
+    "framecode": (dict(opt_framecode=True, n_framecodes=4), {}),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _batch(framecode: bool):
+    """2 images x 16 rays: per-image pose rows, rays contiguous per image,
+    targets and backgrounds, and per-ray frame indices (images 0 and 2)."""
+    rng = np.random.default_rng(0)
+    parts = []
+    for i in range(N_IMAGES):
+        ctx = make_pose_ctx(seed=i)
+        ro, rd = make_rays(RPI, seed=10 + i)
+        parts.append({
+            "rays_o": np.asarray(ro), "rays_d": np.asarray(rd),
+            "target_s": rng.uniform(0, 1, (RPI, 3)).astype(np.float32),
+            "bgs": rng.uniform(0, 1, (RPI, 3)).astype(np.float32),
+            "kp3d": np.asarray(ctx.kps), "skts": np.asarray(ctx.skts),
+            "bones": np.asarray(ctx.bones), "cyls": np.asarray(ctx.cyls),
+        })
+        if framecode:
+            parts[-1]["cam_idxs"] = np.full((RPI, 1), 2 * i, np.int32)
+    return {k: np.concatenate([p[k] for p in parts]) for k in parts[0]}
+
+
+def _configs(name, fused_train):
+    rkw, tkw = STEP_CASES[name]
+    rkw = dict(perturb=0.0, raw_noise_std=0.0, **rkw)
+    tkw = dict(rays_per_image=RPI, use_background=True, **tkw)
+    return (jr.RaycastConfig(**rkw), jt.TrainConfig(fused_train=False, **tkw),
+            tr.RaycastConfig(**rkw), tt.TrainConfig(fused_train=fused_train, **tkw))
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_run(name):
+    """JAX states after 0..n steps (numpy leaves), with each step's stats:
+    3 steps of the flagship (fresh and carried-state tests), 1 of the rest."""
+    n_steps = 3 if name == "flagship" else 1
+    jcfg, jtcfg, _, _ = _configs(name, False)
+    state = jt.create_train_state(jr.init_raycaster(jax.random.PRNGKey(SEED), jcfg), jtcfg)
+    step = jax.jit(jt.make_train_step(jcfg, jtcfg))
+    batch = {k: jnp.asarray(v) for k, v in _batch(jcfg.opt_framecode).items()}
+    states, stats = [jax.tree_util.tree_map(np.array, state)], []
+    for _ in range(n_steps):
+        state, st = step(state, batch, jax.random.PRNGKey(5))
+        states.append(jax.tree_util.tree_map(np.array, state))
+        stats.append({k: float(v) for k, v in st.items()})
+    return states, stats
+
+
+def _port_step(name, use_fused, start: int):
+    """One port step from the JAX state after `start` steps."""
+    jcfg, jtcfg, tcfg, ttcfg = _configs(name, use_fused)
+    states, _ = _jax_run(name)
+    state = train_state_from_numpy(states[start], ttcfg, "cpu")
+    batch = {k: torch.as_tensor(v) for k, v in _batch(tcfg.opt_framecode).items()}
+    mode = tt._fused_train_mode(tcfg, ttcfg, state.params, batch)
+    assert mode == ("train" if use_fused else False)
+    state, stats = tt.make_train_step(tcfg, ttcfg)(state, batch)
+    assert state.step == start + 1
+    return state, {k: float(v) for k, v in stats.items()}
+
+
+def _assert_step_matches(name, use_fused, start):
+    state, stats = _port_step(name, use_fused, start)
+    states, j_stats = _jax_run(name)
+    ref, ref_stats = states[start + 1], j_stats[start]
+    assert np.isfinite(stats["total_loss"])
+    for k in ("total_loss", "grad_norm", "rgb_loss", "rgb0_loss", "psnr"):
+        np.testing.assert_allclose(stats[k], ref_stats[k], rtol=LOSS_RTOL, err_msg=k)
+    got = tt.param_leaves(state.params)
+    want = tt.param_leaves(params_from_numpy(ref.params, "cpu"))
+    assert len(got) == len(want) >= 40
+    moved = 0
+    for a, b in zip(got, want):
+        err = float((a.detach() - b).abs().max())
+        assert err < PARAM_TOL, err
+    for a, b in zip(tt.param_leaves(params_from_numpy(states[start].params, "cpu")), want):
+        moved += not torch.equal(a, b)
+    frozen = 4 * STEP_CASES[name][1].get("fix_layer", 0)  # w, b x 2 nets per layer
+    assert moved == len(want) - frozen
+    for k in ref.embeds["embed_kp"]:
+        np.testing.assert_allclose(state.embeds["embed_kp"][k].numpy(), ref.embeds["embed_kp"][k],
+                                   rtol=1e-6)
+    return state, states
+
+
+@pytest.mark.parametrize("use_fused", [False, True])
+def test_train_step_matches_jax(use_fused):
+    """A fresh state: one step through the plain pipeline and one through
+    the trainable kernels' plain versions, each against JAX's XLA step."""
+    _assert_step_matches("flagship", use_fused, 0)
+
+
+@pytest.mark.parametrize("use_fused", [False, True])
+def test_carried_state_step_matches_jax(use_fused):
+    """Two JAX steps, the state carried over by train_state_from_numpy
+    (Adam moments and count included), then one step on each side."""
+    state, states = _assert_step_matches("flagship", use_fused, 2)
+    p = tt.param_leaves(state.params)[0]
+    assert float(state.opt_state.state[p]["step"]) == 3
+
+
+@pytest.mark.parametrize("name", ["fix_layer", "framecode"])
+def test_train_step_variants_match_jax(name):
+    state, states = _assert_step_matches(name, True, 0)
+    if name == "fix_layer":
+        for net in ("coarse", "fine"):
+            for i, layer in enumerate(state.params[net]["pts_linears"]):
+                before = states[0].params[net]["pts_linears"][i]["w"]
+                assert np.array_equal(layer["w"].detach().numpy(), before) == (i < 3)
+    else:
+        assert "framecodes" in state.params["coarse"]
+        assert not np.array_equal(state.params["coarse"]["framecodes"].detach().numpy(),
+                                  states[0].params["coarse"]["framecodes"])
+
+
+def test_train_step_contract():
+    with pytest.raises(NotImplementedError, match="item 8"):
+        tt.TrainConfig(opt_pose=True)
+    _, _, tcfg, ttcfg = _configs("flagship", None)
+    batch = {k: torch.as_tensor(v) for k, v in _batch(False).items()}
+    params = {"coarse": {"views_linears": [0]}}
+    assert tt._fused_train_mode(tcfg, ttcfg, params, batch) is False  # auto: CPU tensors
+    on = dataclasses.replace(ttcfg, fused_train=True)
+    assert tt._fused_train_mode(tcfg, on, params, batch) == "train"
+    odd = {**batch, "skts": batch["skts"][[0, 1, 1]]}
+    assert tt._fused_train_mode(tcfg, on, params, odd) is False
+    assert tt._fused_train_mode(dataclasses.replace(tcfg, view_type="world"), on,
+                                params, batch) is False
