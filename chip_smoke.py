@@ -39,7 +39,27 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               same step through the plain float32 pipeline; then 5 steps of
               the config's perturbed, noisy training, every loss finite; the
               eval kernels refuse weights that require grad; and the times
-              of a train step and of each training kernel and plain version.
+              of a train step and of each training kernel and plain version;
+  7. pose kernels  at the pose-refinement step's shapes (configs/h36m/
+              h36m_prot2.txt: 256 pose groups x 12 rays x 64 and x 80
+              samples) and at one ragged size whose tiles straddle groups
+              (3 groups x 7 rays x 80 samples), field_backward with its
+              input-gradient branch against field_bwd_plain +
+              encode_bwd_plain, bf16 operands on both sides: d_pts, d_dirs
+              and d_poses each to relative L2 <= GRAD_TOL; its weight
+              gradients bit-identical to a weights-only launch, and two
+              launches bit-identical;
+  8. pose     make_train_step with opt_pose on an h36m_prot2 batch (N_rand
+              3072 = 256 groups x 12 rays over 512 synthetic frames, rot6d
+              pose params, framecodes, L1 loss, backgrounds) at perturb 0:
+              the launch counters read field_stash 2, field_bwd 2,
+              field_bwd_inputs 2 and no eval kernel, and the NeRF and the
+              pose gradients each hold to STEP_GRAD_TOL against the same
+              step through the plain float32 pipeline; then 5 perturbed,
+              noisy steps at opt_pose_step 50 (finite losses, the pose
+              unmoved, 5 gradients accumulated) and one at opt_pose_step 1
+              (the pose moves); the step's time, and the input branch's
+              time beside its bound.
 
 The last two lines of standard output are one JSON object of per-kernel
 numbers and one JSON object naming the device. Without a CUDA device, or
@@ -64,6 +84,8 @@ N_RAYS = 8192
 N_RAGGED = 1001  # rays of the ragged case: 1001 x 16 points = 250 tiles of 64 + 16
 N_ITERS = 30
 N_GROUPS, RAYS_PER_GROUP = 128, 16  # the flagship train batch: N_rand 2048
+POSE_GROUPS, POSE_RPG = 256, 12  # the h36m_prot2 batch: N_rand 3072 in 256 images
+POSE_FRAMES = 512
 RAGGED_GROUPS, RAGGED_RPG = 3, 7  # 3 x 7 rays x 80 samples = 26 tiles of 64 + 16
 GRAD_TOL = 1e-2  # training kernel vs plain: relative L2 per gradient tensor
 STEP_GRAD_TOL = 5e-2  # train step, kernels vs plain f32 pipeline: relative L2, all gradients
@@ -272,8 +294,10 @@ def run(torch) -> int:
                   f"full {e_full:.3e}, density_only {e_den:.3e}")
 
     # 3. the main path, through the launch counters -------------------------
-    expected = {False: {"dual": 1, "field": 1, "field_stash": 0, "field_bwd": 0},
-                True: {"dual": 0, "field": 2, "field_stash": 0, "field_bwd": 0}}
+    expected = {False: {"dual": 1, "field": 1, "field_stash": 0, "field_bwd": 0,
+                        "field_bwd_inputs": 0},
+                True: {"dual": 0, "field": 2, "field_stash": 0, "field_bwd": 0,
+                       "field_bwd_inputs": 0}}
     launches = {"dual": 0, "field": 0}
     with torch.no_grad():
         # The last sample's interval is 1e10 long, so a ray is opaque iff the
@@ -362,6 +386,7 @@ def run(torch) -> int:
                   f"({b_by}, {b_ms / k_ms:.1%} of it), plain {p_ms:.3f} ms [{card}]")
 
     train_rows, train_err, train_launches = train_phases(torch, card)
+    pose_row, pose_err, pose_launches = pose_phases(torch, card)
 
     by_name = {(r[0], r[1]): r for r in rows}
     kernels = []
@@ -386,6 +411,14 @@ def run(torch) -> int:
             "launches": train_launches[name], "max_abs_err": train_err[name], "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
+    _, _, _, k_ms, p_ms, b_ms, b_by = pose_row
+    kernels.append({
+        "name": "field_bwd_inputs", "route": "cuda",
+        "source": "posegen_tpu_torch/kernels/csrc/field_grad.cu",
+        "replaces": "posegen_tpu/kernels/field_grad.py:506",
+        "launches": pose_launches, "max_abs_err": pose_err, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    })
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -514,7 +547,7 @@ def train_phases(torch, card: str):
     state_k, stats_k = make_train_step(cfg, tcfg)(state_k, batch)
     torch.cuda.synchronize()
     launches = dict(F.LAUNCHES)
-    want = {"field": 0, "dual": 0, "field_stash": 2, "field_bwd": 2}
+    want = {"field": 0, "dual": 0, "field_stash": 2, "field_bwd": 2, "field_bwd_inputs": 0}
     check(launches == want, f"train step: launches {launches} != {want}")
     state_p, stats_p = make_train_step(cfg, tcfg_plain)(state_p, batch)
     torch.cuda.synchronize()
@@ -594,6 +627,246 @@ def train_phases(torch, card: str):
               f"bound {b_ms:.3f} ms ({b_by}, {b_ms / k_ms:.1%} of it), plain {p_ms:.3f} ms "
               f"[{card}]")
     return rows, err, launches
+
+
+def input_bwd_flops(L) -> int:
+    """FLOP per point of the input-gradient branch's products: g_e_pts from
+    layer 0's and the skip consumer's e_pts columns, g_e_view from the view
+    layer's (padded) e_view columns."""
+    from posegen_tpu_torch.kernels.field import VIEW_WIDTH, WIDTH
+
+    n_pc = 2 if L.skip >= 0 else 1
+    return 2 * (n_pc * WIDTH * L.pc + VIEW_WIDTH * L.vcp)
+
+
+def pose_batch(torch, n_groups: int, rpg: int, n_frames: int, seed: int):
+    """An h36m_prot2-style pose-refinement problem: rot6d pose params and
+    anchors over n_frames synthetic frames (axis-angle estimates, SMPL rest
+    pose joints), and a batch of n_groups images x rpg rays, each group at a
+    random frame with its framecode, cylinders around the frames' joints,
+    random targets and backgrounds."""
+    import numpy as np
+
+    from posegen_tpu_torch.pose.opt import PoseOptConfig, init_pose_params, pose_apply
+    from posegen_tpu_torch.skeleton.geometry import get_kp_bounding_cylinder
+    from posegen_tpu_torch.skeleton.skeleton import SMPL_REST_POSE
+    from posegen_tpu_torch.utils.fixtures import make_rays
+
+    rng = np.random.default_rng(seed)
+    bones = (rng.standard_normal((n_frames, 24, 3)) * 0.2).astype(np.float32)
+    kp3d = np.tile(SMPL_REST_POSE[None], (n_frames, 1, 1))
+    pcfg = PoseOptConfig(use_rot6d=True, opt_pose_tol=0.01, opt_pose_type="BE")
+    params, anchors = init_pose_params(pcfg, bones, kp3d, device=DEVICE)
+    rest = torch.as_tensor(SMPL_REST_POSE, device=DEVICE)
+    kp_idx = torch.as_tensor(rng.integers(0, n_frames, n_groups), device=DEVICE)
+    with torch.no_grad():
+        kps = pose_apply(params, kp_idx, rest)[0]
+    n = n_groups * rpg
+    rays_o, rays_d = make_rays(n, seed + 1, device=DEVICE)
+    gen = torch.Generator().manual_seed(seed)
+    batch = {
+        "rays_o": rays_o, "rays_d": rays_d,
+        "target_s": torch.rand((n, 3), generator=gen).to(DEVICE),
+        "bgs": torch.rand((n, 3), generator=gen).to(DEVICE),
+        "cyls": get_kp_bounding_cylinder(kps, ext_scale=0.001), "kp_idx": kp_idx,
+        "kp3d": kps + 0.01 * torch.randn(kps.shape, generator=gen).to(DEVICE),
+        "cam_idxs": kp_idx.repeat_interleave(rpg)[:, None],
+    }
+    return pcfg, params, anchors, rest, batch
+
+
+def pose_phases(torch, card: str):
+    """Phases 7 (the input-gradient branch vs plain) and 8 (the
+    pose-refinement train step) -> (timing row of the input branch at the
+    coarse shape, its max|diff| against plain, its launches in one step)."""
+    import dataclasses
+
+    from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.kernels import field_grad as FG
+    from posegen_tpu_torch.ops import sampling as samp
+    from posegen_tpu_torch.pose.opt import pose_apply
+    from posegen_tpu_torch.render.raycast import RaycastConfig, init_raycaster
+    from posegen_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state, make_train_step, param_leaves, trainable,
+    )
+
+    bf16 = torch.bfloat16
+    # configs/h36m/h36m_prot2.txt: the SURREAL architecture with framecodes
+    cfg = RaycastConfig(perturb=0.0, raw_noise_std=0.0, opt_framecode=True,
+                        n_framecodes=POSE_FRAMES)
+    L = F.net_layout(cfg.netdepth, cfg.multires, cfg.multires_views)
+    variables = init_raycaster(cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
+    pcfg, pose0, anchors, rest, batch = pose_batch(torch, POSE_GROUPS, POSE_RPG, POSE_FRAMES,
+                                                   SEED)
+    rpg = POSE_RPG
+
+    # 7. the input-gradient branch against its plain version ---------------
+    err, cases = 0.0, {}
+    with torch.no_grad():
+        ro, rd = batch["rays_o"], batch["rays_d"]
+        skts = pose_apply(pose0, batch["kp_idx"], rest)[2]
+        near, far = samp.get_near_far_in_cylinder(
+            ro, rd, batch["cyls"].repeat_interleave(rpg, 0), near=cfg.near, far=cfg.far)
+        poses = F.pack_poses(skts, variables["embed_kp"], cfg.multires, cfg.multires_views)
+        net = F.pack_net_f32(variables["fine"], L)
+        codes = variables["fine"]["framecodes"][batch["kp_idx"]]
+        bview = F.group_view_bias(variables["fine"], L, codes).contiguous()
+        gen = torch.Generator().manual_seed(SEED)
+        for tag, n_s in (("coarse", cfg.N_samples), ("fine", cfg.N_samples + cfg.N_importance)):
+            z = samp.sample_from_lineseg(near, far, n_s)
+            pts = (ro[:, None] + rd[:, None] * z[..., None]).reshape(-1, 3).contiguous()
+            g = torch.randn((pts.shape[0], 4), generator=gen).to(DEVICE)
+            cases[tag] = (pts, rd, n_s, poses, bview, g)
+        pts, _, n_s, _, _, _ = cases["fine"]
+        n_r = RAGGED_GROUPS * RAGGED_RPG
+        g_r = torch.randn((n_r * n_s, 4), generator=gen).to(DEVICE)
+        rows = torch.arange(RAGGED_GROUPS, device=DEVICE) * rpg
+        cases["ragged"] = (torch.cat([pts[r * n_s:(r + RAGGED_RPG) * n_s] for r in rows.tolist()]),
+                           torch.cat([rd[r:r + RAGGED_RPG] for r in rows.tolist()]), n_s,
+                           poses[:RAGGED_GROUPS].contiguous(),
+                           bview[:RAGGED_GROUPS].contiguous(), g_r)
+        stashes = {}
+        for tag, (pts, dirs, n_s, poses_t, bview_t, g) in cases.items():
+            _, e_pts, e_view = FG.fused_field_stash(pts, dirs, n_s, poses_t, net, bview_t)
+            stashes[tag] = (e_pts, e_view)
+            ins = FG.FieldInputs(pts, dirs, n_s, poses_t)
+            d = [FG.field_backward(g, e_pts, e_view, net, bview_t, ins) for _ in range(2)]
+            w_only = FG.field_backward(g, e_pts, e_view, net, bview_t)
+            *_, g_ep, g_ev = FG.field_bwd_plain(e_pts, e_view, g, net, bview_t, mm_dtype=bf16,
+                                                input_grads=True)
+            plain = FG.encode_bwd_plain(pts, dirs, n_s, poses_t, g_ep, g_ev, L.nf_kp, L.nf_view)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(*d)),
+                  f"field_bwd_inputs {tag}: two launches differ")
+            check(all(torch.equal(a, b) for a, b in zip(d[0][:3], w_only)),
+                  f"field_bwd_inputs {tag}: weight gradients differ from a weights-only launch")
+            msg = []
+            for name, k, r in zip(("d_pts", "d_dirs", "d_poses"), d[0][3:], plain):
+                check(bool(torch.isfinite(k).all()), f"field_bwd_inputs {tag} {name}: not finite")
+                e_l2 = rel_l2(k, r)
+                check(e_l2 <= GRAD_TOL, f"field_bwd_inputs {tag} {name}: relative L2 "
+                                        f"{e_l2:.3e} > {GRAD_TOL}")
+                err = max(err, float((k - r).abs().max()))
+                msg.append(f"{name} {e_l2:.3e}")
+            check(float(d[0][5][:, F.POSE_FLOATS - 25:].abs().max()) == 0.0,
+                  f"field_bwd_inputs {tag}: cut / tau / octave slots of d_poses not zero")
+            print(f"kernel field_bwd_inputs vs plain, {pts.shape[0]} points, {poses_t.shape[0]} "
+                  f"groups: relative L2 {', '.join(msg)}; weight gradients == weights-only "
+                  f"launch, two launches bit-identical")
+
+    # 8. the pose-refinement train step ------------------------------------
+    tcfg = TrainConfig(loss_fn="L1", use_background=True, lrate_decay=500000, decay_unit=1,
+                       opt_pose=True, opt_pose_step=50, opt_pose_lrate=5e-4,
+                       opt_pose_decay_rate=1.0, opt_pose_lrate_decay=2,
+                       opt_pose_decay_unit=1000, opt_pose_coef=2.0, rays_per_image=rpg)
+    tcfg_plain = dataclasses.replace(tcfg, fused_train=False)
+
+    def fresh(t):
+        return create_train_state(variables, t, trainable(pose0), anchors)
+
+    def step_of(c, t):
+        return make_train_step(c, t, pcfg, rest_pose=rest)
+
+    state_k, state_p = fresh(tcfg), fresh(tcfg_plain)
+    F.reset_launches()
+    state_k, stats_k = step_of(cfg, tcfg)(state_k, batch)
+    torch.cuda.synchronize()
+    launches = dict(F.LAUNCHES)
+    want = {"field": 0, "dual": 0, "field_stash": 2, "field_bwd": 2, "field_bwd_inputs": 2}
+    check(launches == want, f"pose step: launches {launches} != {want}")
+    state_p, stats_p = step_of(cfg, tcfg_plain)(state_p, batch)
+    torch.cuda.synchronize()
+    for k in ("total_loss", "rgb_loss", "rgb0_loss", "kp_loss", "mpjpc", "grad_norm",
+              "pose_grad_norm"):
+        check(bool(torch.isfinite(stats_k[k])), f"pose step: {k} not finite")
+    check(float(stats_k["pose_grad_norm"]) > 0.0, "pose step: the pose got no gradient")
+    out = []
+    for what, gk, gp in (
+        ("NeRF", [p.grad for p in param_leaves(state_k.params)],
+         [p.grad for p in param_leaves(state_p.params)]),
+        ("pose", [p.grad for p in state_k.pose_params.values()],
+         [p.grad for p in state_p.pose_params.values()]),
+    ):
+        e_l2 = rel_l2(torch.cat([a.reshape(-1) for a in gk]),
+                      torch.cat([b.reshape(-1) for b in gp]))
+        check(e_l2 <= STEP_GRAD_TOL, f"pose step {what} gradients vs plain f32 pipeline: "
+                                     f"relative L2 {e_l2:.3e} > {STEP_GRAD_TOL}")
+        out.append(f"{what} {e_l2:.3e}")
+    print(f"pose step: launches {launches}; total_loss {float(stats_k['total_loss']):.6f} (plain "
+          f"f32 {float(stats_p['total_loss']):.6f}), pose_grad_norm "
+          f"{float(stats_k['pose_grad_norm']):.6e} (plain {float(stats_p['pose_grad_norm']):.6e}); "
+          f"gradients vs plain: relative L2 {', '.join(out)}")
+
+    cfg_t = dataclasses.replace(cfg, perturb=1.0, raw_noise_std=1.0)
+    state_t = fresh(tcfg)
+    step_t = step_of(cfg_t, tcfg)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    before = {k: v.detach().clone() for k, v in state_t.pose_params.items()}
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state_t, st = step_t(state_t, batch, gen)
+        losses.append(float(st["total_loss"]))
+    check(all(map(math.isfinite, losses)), f"pose training: losses {losses}")
+    check(all(torch.equal(before[k], v) for k, v in state_t.pose_params.items()),
+          "pose training: the pose moved inside an accumulation")
+    check(state_t.pose_opt_state.mini_step == TRAIN_STEPS,
+          f"pose training: {state_t.pose_opt_state.mini_step} gradients accumulated")
+    tcfg1 = dataclasses.replace(tcfg, opt_pose_step=1)
+    state_1, _ = step_of(cfg_t, tcfg1)(fresh(tcfg1), batch, gen)
+    moved = sum(not torch.equal(pose0[k].detach(), v) for k, v in state_1.pose_params.items())
+    check(moved == len(pose0), "pose step at opt_pose_step 1: the pose did not move")
+    print(f"pose training, perturb {cfg_t.perturb}, raw_noise_std {cfg_t.raw_noise_std}, "
+          f"opt_pose_step 50: total_loss per step {losses}, pose unmoved, "
+          f"{state_t.pose_opt_state.mini_step} gradients accumulated; opt_pose_step 1 moves it")
+
+    n_rays = POSE_GROUPS * rpg
+    ms = cuda_ms(lambda: step_t(state_t, batch, gen), TRAIN_ITERS)
+    print(f"timing pose step: {ms:.3f} ms per {n_rays} rays, {n_rays / ms * 1e3:.1f} trained "
+          f"rays/s [{card}]")
+    wall, busy, top = profile_calls(torch, lambda: step_t(state_t, batch, gen), 3)
+    if busy > 0.0:
+        print(f"profile pose step (torch.profiler, 3 steps): {wall:.3f} ms per step, device "
+              f"kernels {busy:.3f} ms, idle share {1.0 - busy / wall:.1%} [{card}]")
+        for name, k_ms, n in top:
+            print(f"  {k_ms:8.3f} ms  x{n:g}  {name[:90]}")
+    else:
+        print("profile pose step: torch.profiler recorded no device time")
+
+    # the input branch's time: a launch with it less a weights-only launch,
+    # timed in turns; the plain version's alike
+    rows = {}
+    with torch.no_grad():
+        for tag in ("coarse", "fine"):
+            pts, dirs, n_s, poses_t, bview_t, g = cases[tag]
+            e_pts, e_view = stashes[tag]
+            P, G = pts.shape[0], poses_t.shape[0]
+            ins = FG.FieldInputs(pts, dirs, n_s, poses_t)
+            with_in = lambda: FG.field_backward(g, e_pts, e_view, net, bview_t, ins)  # noqa: E731
+            w_only = lambda: FG.field_backward(g, e_pts, e_view, net, bview_t)  # noqa: E731
+
+            def plain_in():
+                *_, g_ep, g_ev = FG.field_bwd_plain(e_pts, e_view, g, net, bview_t,
+                                                    mm_dtype=bf16, input_grads=True)
+                return FG.encode_bwd_plain(pts, dirs, n_s, poses_t, g_ep, g_ev, L.nf_kp, L.nf_view)
+
+            plain_w = lambda: FG.field_bwd_plain(e_pts, e_view, g, net, bview_t,  # noqa: E731
+                                                 mm_dtype=bf16)
+            t_in = (cuda_ms(with_in, 10) + cuda_ms(with_in, 10)) / 2
+            t_w = (cuda_ms(w_only, 10) + cuda_ms(w_only, 10)) / 2
+            p_in, p_w = cuda_ms(plain_in, 3, warmup=1), cuda_ms(plain_w, 3, warmup=1)
+            # read: three bf16 cotangent rows per point, pts, dirs, pose rows and
+            # the weights' input columns; written: d_pts, d_dirs, d_poses
+            nbytes = (2 * (2 * F.WIDTH + F.VIEW_WIDTH) * P + 2 * (12 * P + 12 * dirs.shape[0]
+                      + 4 * poses_t.numel()) + 2 * (2 * F.WIDTH * L.pc + F.VIEW_WIDTH * L.vcp))
+            b_ms, b_by = bound(input_bwd_flops(L) * P, nbytes)
+            k_ms = t_in - t_w
+            rows[tag] = ("field_bwd_inputs", tag, P, k_ms, p_in - p_w, b_ms, b_by)
+            share = f"{b_ms / k_ms:.1%} of it" if k_ms > 0 else "share not measured"
+            print(f"timing kernel field_bwd_inputs {tag} ({P} points, {G} groups, 2 launches per "
+                  f"step): {k_ms:.3f} ms (backward {t_in:.3f} ms with the branch, "
+                  f"{t_w:.3f} ms without), bound {b_ms:.3f} ms ({b_by}, {share}), plain "
+                  f"{p_in - p_w:.3f} ms [{card}]")
+    return rows["coarse"], err, launches["field_bwd_inputs"]
 
 
 if __name__ == "__main__":

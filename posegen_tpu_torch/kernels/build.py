@@ -101,10 +101,10 @@ def load() -> ctypes.CDLL:
     lib.posegen_dual.restype = I
     lib.posegen_field_stash.argtypes = [P, P, I, I, P, I, I, IA, I, P, P, P, I, I, P, P, P, P]
     lib.posegen_field_stash.restype = I
-    lib.posegen_field_bwd_workspace.argtypes = [I, IA, I, I, I]
+    lib.posegen_field_bwd_workspace.argtypes = [I, IA, I, I, I, I]
     lib.posegen_field_bwd_workspace.restype = ctypes.c_longlong
     lib.posegen_field_bwd.argtypes = [I, IA, I, P, P, P, I, I, P, P, P, P, ctypes.c_longlong,
-                                      P, P, P, P]
+                                      P, P, P, P, P, I, P, I, I, P, P, P, P]
     lib.posegen_field_bwd.restype = I
     lib.posegen_error_string.argtypes = [I]
     lib.posegen_error_string.restype = ctypes.c_char_p

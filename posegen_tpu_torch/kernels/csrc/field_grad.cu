@@ -6,11 +6,12 @@
 //                        forward on grouped poses, plus its bf16 encodings
 //                        written out for the backward.
 //   posegen_field_bwd    replaces posegen_tpu/kernels/field_grad.py::
-//                        _field_bwd_kernel, weights-only branch (stash, no
-//                        input cotangents): every weight and bias gradient
+//                        _field_bwd_kernel: every weight and bias gradient
 //                        of one net, and the view bias gradient per pose
 //                        group (the chain rule to framecodes runs on the
-//                        host).
+//                        host); with the forward's inputs, also its
+//                        input_grads branch (_encode_backward): d_pts,
+//                        d_dirs per ray and d_rot / d_trn per pose group.
 //
 // Bound on an H100: operations. The forward is 1,723,648 FLOP per point and
 // the backward 5,167,104 (the JAX kernels' counts), against 2,160 bytes of
@@ -34,6 +35,22 @@
 //       number of point ranges whose partial products are summed in a fixed
 //       order by wgrad_reduce_kernel; bias and view-bias sums likewise. Two
 //       launches on the same inputs give bit-identical gradients.
+//   (c) field_bwd_input_kernel (input gradients only): one block per 64
+//       points reads layer 0's, the skip consumer's and the view layer's
+//       pre-activation cotangents from (a)'s workspace, forms the encodings'
+//       cotangents g_e_pts = gz0 W0 + gz5 W5[:, :pc] and g_e_view =
+//       gzv Wv[:, 256:] on the tensor cores (bf16 operands, f32 sums, as
+//       the JAX kernel's _mm_tn), recomputes the encode from pts, dirs and
+//       the point's pose row in f32, and runs the encode's chain rule per
+//       (point, joint). d_pts is written per point; d_dirs per point, then
+//       ray_sum_kernel sums each ray's samples in order; d_rot / d_trn as
+//       per-tile partials for each pose group the tile touches, summed in
+//       tile order by pose_reduce_kernel. No atomics: two launches agree bit
+//       for bit, and passes (a) and (b) are the weights-only launch's own.
+//       Bound: 608,256 FLOP per point of products (2 (256 pc + 256 pc +
+//       128 vcp) at multires 7 / 4) against ~1.3 KB of workspace reads, so
+//       operations at ~0.6 ns per point; the encode's chain rule adds ~150
+//       transcendental and ~3,000 FMA per point on the CUDA cores.
 
 #include "field.cuh"
 
@@ -111,6 +128,8 @@ struct Workspace {
   float* bias_part;  // (n_tiles, n_bias) per-tile bias column sums
   float* gemm_part;  // (gemm tiles, splits, 64, 64) split partial products
   float* vb_part;    // (view groups, view chunks, 128)
+  float* d_dirs_pt;  // (p_pad, 3) d_dirs per point (input gradients only)
+  float* pose_part;  // (n_tiles, pose slots, 24 x 12) d_rot | d_trn per tile and group
   size_t p_pad;
 };
 
@@ -216,6 +235,16 @@ __device__ __forceinline__ void copy_rows(const bf16* src, int lds, bf16* dst, i
     const int r = t / nv, c = t - r * nv;
     reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * width)[c] =
         reinterpret_cast<const uint4*>(src + r * lds)[c];
+  }
+}
+
+// kTile rows of `width` bf16 from the workspace to shared (row stride lds).
+__device__ __forceinline__ void copy_rows_in(const bf16* src, bf16* dst, int lds, int width) {
+  const int nv = width / 8;
+  for (int t = threadIdx.x; t < kTile * nv; t += kThreads) {
+    const int r = t / nv, c = t - r * nv;
+    reinterpret_cast<uint4*>(dst + r * lds)[c] =
+        reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * width)[c];
   }
 }
 
@@ -488,6 +517,282 @@ __global__ void vbias_sum_kernel(const float* __restrict__ vb_part, int nck,
 }
 
 // ---------------------------------------------------------------------------
+// Kernel 4 (c): input gradients through the encode (input_grads branch)
+// ---------------------------------------------------------------------------
+
+constexpr int kPoseGrad = kJoints * 12;  // per group: d_rot (24 x 9) | d_trn (24 x 3), (j, e)
+constexpr int kState = 6;                // floats per (point, joint) of the chain rule
+constexpr int kViewLd = kViewWidth + kPad;
+
+// Shared memory of pass (c): [gz0 | gz5 | g_e_pts f32] then, reused,
+// [gzv | g_e_view f32]; the per-(point, joint) state; the points' pts, dirs.
+__host__ __device__ inline size_t input_region_bytes(const Layout& L) {
+  const size_t kp = sizeof(bf16) * 2 * kTile * kHLd + sizeof(float) * kTile * L.pc;
+  const size_t view = sizeof(bf16) * kTile * kViewLd + sizeof(float) * kTile * L.vcp;
+  return kp > view ? kp : view;
+}
+
+__host__ __device__ inline size_t input_smem_bytes(const Layout& L) {
+  return input_region_bytes(L) + sizeof(float) * (kTile * kJoints * kState + kTile * 6);
+}
+
+// out[kTile, ncols] f32 (row stride ldo) = sum over segments of A[kTile, 256
+// or 128] @ W[:, col0 ...] (W row-major (k, n), row stride ldw): each warp
+// takes every kWarps-th 16-column tile.
+struct Segment {
+  const bf16* a;
+  int lda, K;
+  const bf16* w;
+  int ldw;
+};
+
+template <int NSeg>
+__device__ void input_products(const Segment (&seg)[NSeg], int ncols, float* out, int ldo) {
+  const int warp = threadIdx.x >> 5;
+  for (int ct = warp; ct < ncols / 16; ct += kWarps) {
+    FragC acc[kMTiles][1];
+#pragma unroll
+    for (int im = 0; im < kMTiles; ++im) wmma::fill_fragment(acc[im][0], 0.f);
+#pragma unroll
+    for (int q = 0; q < NSeg; ++q) {
+      gemm_segment_t<1>(acc, seg[q].a, seg[q].lda, seg[q].K, seg[q].w, seg[q].ldw, 16 * ct);
+    }
+#pragma unroll
+    for (int im = 0; im < kMTiles; ++im) {
+      wmma::store_matrix_sync(out + 16 * im * ldo + 16 * ct, acc[im][0], ldo,
+                              wmma::mem_row_major);
+    }
+  }
+}
+
+// The encode of point gp at joint j, as encode_tile computes it (f32).
+struct JointFrame {
+  float X, Y, Z, v, sig, w, inv_v;
+};
+
+__device__ __forceinline__ JointFrame joint_frame(const float* s_pose, int j, float x, float y,
+                                                  float z) {
+  const float* R = s_pose + 9 * j;
+  const float* T = s_pose + kJoints * 9 + 3 * j;
+  JointFrame f;
+  f.X = R[0] * x + R[1] * y + R[2] * z + T[0];
+  f.Y = R[3] * x + R[4] * y + R[5] * z + T[1];
+  f.Z = R[6] * x + R[7] * y + R[8] * z + T[2];
+  f.v = sqrtf(f.X * f.X + f.Y * f.Y + f.Z * f.Z);
+  f.sig = 1.f / (1.f + expf(-(s_pose[kJoints * 13] * (f.v - s_pose[kJoints * 12 + j]))));
+  f.w = 1.f - f.sig;
+  f.inv_v = 1.f / fmaxf(f.v, 1e-12f);
+  return f;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    field_bwd_input_kernel(int n_pts, int spr, const float* __restrict__ pts,
+                           const float* __restrict__ dirs, const float* __restrict__ poses,
+                           int pose_ld, int ppg, int n_slots, const Layout L,
+                           const bf16* __restrict__ W, const Workspace S,
+                           float* __restrict__ pose_part, float* __restrict__ d_pts,
+                           float* __restrict__ d_dirs_pt) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const size_t region = input_region_bytes(L);
+  bf16* a0 = reinterpret_cast<bf16*>(smem);  // kp products: gz0, gz5 tiles
+  bf16* a5 = a0 + kTile * kHLd;
+  float* g_ep = reinterpret_cast<float*>(a5 + kTile * kHLd);
+  bf16* av = reinterpret_cast<bf16*>(smem);  // view product: gzv tile
+  float* g_ev = reinterpret_cast<float*>(av + kTile * kViewLd);
+  float* state = reinterpret_cast<float*>(smem + region);  // (kTile, 24, kState)
+  float* s_x = state + kTile * kJoints * kState;           // (kTile, 3) pts
+  float* s_d = s_x + kTile * 3;                            // (kTile, 3) dirs
+
+  const int p0 = blockIdx.x * kTile;
+  const size_t row0 = p0;
+  const size_t P = S.p_pad;
+  const int skip_layer = L.skip >= 0 && L.skip + 1 < L.depth ? L.skip + 1 : -1;
+  const int kc = kJoints * (1 + 2 * L.nf_kp);
+
+  for (int t = threadIdx.x; t < kTile * 3; t += kThreads) {
+    const int r = t / 3, c = t - 3 * r;
+    const int gp = min(p0 + r, n_pts - 1);
+    s_x[t] = pts[3 * gp + c];
+    s_d[t] = dirs[3 * (gp / spr) + c];
+  }
+
+  // ---- g_e_pts = gz0 @ W0 + gz5 @ W5[:, :pc] ----------------------------
+  copy_rows_in(S.gz + row0 * kWidth, a0, kHLd, kWidth);
+  if (skip_layer >= 0) copy_rows_in(S.gz + (skip_layer * P + row0) * kWidth, a5, kHLd, kWidth);
+  __syncthreads();
+  if (skip_layer >= 0) {
+    const Segment seg[2] = {{a0, kHLd, kWidth, W + L.w_layer[0], L.pc},
+                            {a5, kHLd, kWidth, W + L.w_layer[skip_layer], L.pc + kWidth}};
+    input_products<2>(seg, L.pc, g_ep, L.pc);
+  } else {
+    const Segment seg[1] = {{a0, kHLd, kWidth, W + L.w_layer[0], L.pc}};
+    input_products<1>(seg, L.pc, g_ep, L.pc);
+  }
+  __syncthreads();
+
+  // ---- kp rows and reldir rows, per (point, joint) ------------------------
+  for (int t = threadIdx.x; t < kTile * kJoints; t += kThreads) {
+    const int p = t / kJoints, j = t - p * kJoints;
+    float* st = state + t * kState;
+    if (p0 + p >= n_pts) {
+      for (int k = 0; k < kState; ++k) st[k] = 0.f;
+      continue;
+    }
+    const float* s_pose = poses + static_cast<size_t>((p0 + p) / ppg) * pose_ld;
+    const float* sw = s_pose + kPoseFloats;
+    const JointFrame f = joint_frame(s_pose, j, s_x[3 * p], s_x[3 * p + 1], s_x[3 * p + 2]);
+    const float* G = g_ep + p * L.pc;
+    const float g0 = G[j];
+    float g_v = g0 * f.w, g_w = g0 * f.v;
+    float s, c, fr = 1.f;
+    sincosf(f.v, &s, &c);
+    for (int o = 0; o < L.nf_kp; ++o) {
+      const float gs = G[(1 + 2 * o) * kJoints + j] * sw[o];
+      const float gc = G[(2 + 2 * o) * kJoints + j] * sw[o];
+      g_v += (gs * c - gc * s) * (fr * f.w);
+      g_w += gs * s + gc * c;
+      const float s2 = 2.f * s * c;
+      c = 1.f - 2.f * s * s;
+      s = s2;
+      fr *= 2.f;
+    }
+    const float gdx = G[kc + 3 * j], gdy = G[kc + 3 * j + 1], gdz = G[kc + 3 * j + 2];
+    const float g_inv = gdx * f.X + gdy * f.Y + gdz * f.Z;
+    if (f.v > 1e-12f) g_v -= g_inv * f.inv_v * f.inv_v;
+    st[0] = g_v;
+    st[1] = g_w;
+    st[2] = gdx * f.inv_v;
+    st[3] = gdy * f.inv_v;
+    st[4] = gdz * f.inv_v;
+  }
+  __syncthreads();
+
+  // ---- g_e_view = gzv @ Wv[:, 256:256 + vcp] -----------------------------
+  copy_rows_in(S.gzv + row0 * kViewWidth, av, kViewLd, kViewWidth);
+  __syncthreads();
+  {
+    const Segment seg[1] = {{av, kViewLd, kViewWidth, W + L.w_view + kWidth, kWidth + L.vcp}};
+    input_products<1>(seg, L.vcp, g_ev, L.vcp);
+  }
+  __syncthreads();
+
+  // ---- view rows, the gate, |p_local| and the direction's norm ------------
+  for (int t = threadIdx.x; t < kTile * kJoints; t += kThreads) {
+    const int p = t / kJoints, j = t - p * kJoints;
+    if (p0 + p >= n_pts) continue;
+    float* st = state + t * kState;
+    const float* s_pose = poses + static_cast<size_t>((p0 + p) / ppg) * pose_ld;
+    const float* sw = s_pose + kPoseFloats + L.nf_kp;
+    const JointFrame f = joint_frame(s_pose, j, s_x[3 * p], s_x[3 * p + 1], s_x[3 * p + 2]);
+    const float* R = s_pose + 9 * j;
+    const float dx = s_d[3 * p], dy = s_d[3 * p + 1], dz = s_d[3 * p + 2];
+    const float D[3] = {R[0] * dx + R[1] * dy + R[2] * dz, R[3] * dx + R[4] * dy + R[5] * dz,
+                        R[6] * dx + R[7] * dy + R[8] * dz};
+    const float dn_inv = rsqrtf(fmaxf(D[0] * D[0] + D[1] * D[1] + D[2] * D[2], 1e-24f));
+    const float* H = g_ev + p * L.vcp;
+    float g_w = st[1], g_dn[3], sq[3], cq[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float q = D[a] * dn_inv;
+      const float h0 = H[3 * j + a];
+      g_dn[a] = h0 * f.w;
+      g_w += h0 * q;
+      sincosf(q, &sq[a], &cq[a]);
+    }
+    float fr = 1.f;
+    for (int o = 0; o < L.nf_view; ++o) {
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        const float hs = H[(1 + 2 * o) * 3 * kJoints + 3 * j + a] * sw[o];
+        const float hc = H[(2 + 2 * o) * 3 * kJoints + 3 * j + a] * sw[o];
+        g_dn[a] += (hs * cq[a] - hc * sq[a]) * (fr * f.w);
+        g_w += hs * sq[a] + hc * cq[a];
+        const float s2 = 2.f * sq[a] * cq[a];
+        cq[a] = 1.f - 2.f * sq[a] * sq[a];
+        sq[a] = s2;
+      }
+      fr *= 2.f;
+    }
+    const float tau = s_pose[kJoints * 13];
+    const float g_v = st[0] + g_w * (-tau * f.sig * (1.f - f.sig));
+    st[0] = st[2] + g_v * f.X * f.inv_v;
+    st[1] = st[3] + g_v * f.Y * f.inv_v;
+    st[2] = st[4] + g_v * f.Z * f.inv_v;
+    const float dot = g_dn[0] * D[0] + g_dn[1] * D[1] + g_dn[2] * D[2];
+    const float k3 = dn_inv * dn_inv * dn_inv;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) st[3 + a] = g_dn[a] * dn_inv - D[a] * k3 * dot;
+  }
+  __syncthreads();
+
+  // ---- d_pts and d_dirs per point: sum_j R_j^T g, joints in order ---------
+  for (int t = threadIdx.x; t < kTile * 6; t += kThreads) {
+    const int p = t / 6, k = t - 6 * p, c = k % 3, off = k < 3 ? 0 : 3;
+    const int gp = p0 + p;
+    if (gp >= n_pts) continue;
+    const float* s_pose = poses + static_cast<size_t>(gp / ppg) * pose_ld;
+    const float* st = state + p * kJoints * kState + off;
+    float acc = 0.f;
+    for (int j = 0; j < kJoints; ++j, st += kState) {
+      const float* R = s_pose + 9 * j;
+      acc += R[c] * st[0] + R[3 + c] * st[1] + R[6 + c] * st[2];
+    }
+    (k < 3 ? d_pts : d_dirs_pt)[3 * gp + c] = acc;
+  }
+
+  // ---- d_rot / d_trn: one partial per pose group the tile touches ---------
+  const int last = min(p0 + kTile, n_pts) - 1;
+  const int g_first = p0 / ppg;
+  for (int slot = 0; slot <= last / ppg - g_first; ++slot) {
+    const int g = g_first + slot;
+    const int r0 = max(g * ppg, p0) - p0, r1 = min((g + 1) * ppg - 1, last) - p0;
+    for (int t = threadIdx.x; t < kPoseGrad; t += kThreads) {
+      const int j = t / 12, e = t - 12 * j;
+      float acc = 0.f;
+      if (e < 9) {  // d_rot[j][3r + c] = sum_p g_loc[r] x[c] + g_D[r] d[c]
+        const int r = e / 3, c = e - 3 * r;
+        for (int p = r0; p <= r1; ++p) {
+          const float* st = state + (p * kJoints + j) * kState;
+          acc += st[r] * s_x[3 * p + c] + st[3 + r] * s_d[3 * p + c];
+        }
+      } else {  // d_trn[j][r] = sum_p g_loc[r]
+        for (int p = r0; p <= r1; ++p) acc += state[(p * kJoints + j) * kState + e - 9];
+      }
+      pose_part[(static_cast<size_t>(blockIdx.x) * n_slots + slot) * kPoseGrad + t] = acc;
+    }
+  }
+}
+
+// d_poses rows: group g's partials from the tiles it spans, in tile order,
+// into its rot (24 x 9) and trn (24 x 3) slots.
+__global__ void pose_reduce_kernel(const float* __restrict__ pose_part, int n_pts, int ppg,
+                                   int n_slots, float* __restrict__ d_poses, int pose_ld) {
+  const int g = blockIdx.x;
+  const int t0 = g * ppg / kTile, t1 = (min((g + 1) * ppg, n_pts) - 1) / kTile;
+  for (int k = threadIdx.x; k < kPoseGrad; k += blockDim.x) {
+    float s = 0.f;
+    for (int t = t0; t <= t1; ++t) {
+      const int slot = g - t * kTile / ppg;
+      s += pose_part[(static_cast<size_t>(t) * n_slots + slot) * kPoseGrad + k];
+    }
+    const int j = k / 12, e = k - 12 * j;
+    d_poses[static_cast<size_t>(g) * pose_ld + (e < 9 ? 9 * j + e : kJoints * 9 + 3 * j + e - 9)] =
+        s;
+  }
+}
+
+// d_dirs per ray: the ray's samples summed in order.
+__global__ void ray_sum_kernel(const float* __restrict__ d_dirs_pt, int n_rays, int spr,
+                               float* __restrict__ d_dirs) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_rays * 3) return;
+  const int r = t / 3, c = t - 3 * r;
+  float s = 0.f;
+  for (int k = 0; k < spr; ++k) s += d_dirs_pt[3 * (static_cast<size_t>(r) * spr + k) + c];
+  d_dirs[t] = s;
+}
+
+// ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
 
@@ -498,6 +803,9 @@ static int n_tiles_of(int n_pts) { return (n_pts + kTile - 1) / kTile; }
 static int splits_of(int n_pts) { return max(1, min(kMaxSplits, n_pts / 2048)); }
 
 static int view_chunks(int vppg) { return (vppg + kVbRows - 1) / kVbRows; }
+
+// Most pose groups of ppg points that one tile of kTile points can touch.
+static int pose_slots(int ppg) { return min(kTile, (kTile - 1) / ppg + 2); }
 
 // Build the weight-gradient products of one net (see GemmJob).
 static int gemm_jobs(const Layout& L, const Workspace& S, const bf16* ep, const bf16* ev,
@@ -540,8 +848,9 @@ static int gemm_jobs(const Layout& L, const Workspace& S, const bf16* ep, const 
 }
 
 // Carve the workspace; returns its size in bytes (base may be null to size it).
-static size_t carve(const Layout& L, int n_pts, int n_vgroups, int vppg, unsigned char* base,
-                    Workspace* S) {
+// ppg > 0 (points per pose group) adds the input gradients' regions.
+static size_t carve(const Layout& L, int n_pts, int n_vgroups, int vppg, int ppg,
+                    unsigned char* base, Workspace* S) {
   const size_t P = static_cast<size_t>(n_tiles_of(n_pts)) * kTile;
   size_t off = 0;
   auto take = [&](size_t bytes) {
@@ -568,6 +877,13 @@ static size_t carve(const Layout& L, int n_pts, int n_vgroups, int vppg, unsigne
       take(sizeof(float) * J.n_tiles * splits_of(n_pts) * kGT * kGT));
   S->vb_part = reinterpret_cast<float*>(
       take(sizeof(float) * n_vgroups * view_chunks(vppg) * kViewWidth));
+  S->d_dirs_pt = nullptr;
+  S->pose_part = nullptr;
+  if (ppg > 0) {
+    S->d_dirs_pt = reinterpret_cast<float*>(take(sizeof(float) * P * 3));
+    S->pose_part = reinterpret_cast<float*>(
+        take(sizeof(float) * n_tiles_of(n_pts) * pose_slots(ppg) * kPoseGrad));
+  }
   return off;
 }
 
@@ -609,16 +925,18 @@ int posegen_field_stash(const float* pts, const float* dirs, int n_pts, int spr,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Bytes of workspace posegen_field_bwd needs for these sizes (0: invalid).
+// Bytes of workspace posegen_field_bwd needs for these sizes (0: invalid);
+// ppg > 0, the points per pose group, sizes it for the input gradients.
 long long posegen_field_bwd_workspace(int n_pts, const int* layout, int n_layout, int n_vgroups,
-                                      int vppg) {
+                                      int vppg, int ppg) {
   using namespace posegen;
   Layout L;
-  if (!read_layout(layout, n_layout, &L) || n_pts <= 0 || !view_groups_ok(n_pts, n_vgroups, vppg)) {
+  if (!read_layout(layout, n_layout, &L) || n_pts <= 0 || ppg < 0 ||
+      !view_groups_ok(n_pts, n_vgroups, vppg)) {
     return 0;
   }
   Workspace S;
-  return static_cast<long long>(carve(L, n_pts, n_vgroups, vppg, nullptr, &S));
+  return static_cast<long long>(carve(L, n_pts, n_vgroups, vppg, ppg, nullptr, &S));
 }
 
 // Weight-only backward of one net from the stash: g (n_pts, 4) f32 output
@@ -626,20 +944,34 @@ long long posegen_field_bwd_workspace(int n_pts, const int* layout, int n_layout
 // n_vgroups / vppg as the forward took them. Writes d_w (n_w,) and d_b
 // (n_b,) f32 in the packed layout (the view bias slot and the view head's
 // pad columns are left as they are) and d_bview (n_vgroups, 128). The
-// workspace holds posegen_field_bwd_workspace() bytes. Deterministic: no
-// atomics, every sum in a fixed order. Returns a cudaError_t code.
+// workspace holds posegen_field_bwd_workspace() bytes. With pts non-null
+// (the forward's pts (n_pts, 3), dirs (n_pts / spr, 3), poses at pose_ld
+// floats a row, ppg points per pose row) it also runs the input gradients
+// and writes d_pts (n_pts, 3), d_dirs (n_pts / spr, 3) and the rot / trn
+// slots of d_poses (n_pts / ppg rows of pose_ld; the other slots are left as
+// they are); the weight gradients are the same as without. Deterministic:
+// no atomics, every sum in a fixed order. Returns a cudaError_t code.
 int posegen_field_bwd(int n_pts, const int* layout, int n_layout, const void* w, const float* b,
                       const float* bview, int n_vgroups, int vppg, const float* g,
                       const void* e_pts, const void* e_view, void* workspace,
                       long long ws_bytes, float* d_w, float* d_b, float* d_bview,
+                      const float* pts, const float* dirs, int spr, const float* poses,
+                      int pose_ld, int ppg, float* d_pts, float* d_dirs, float* d_poses,
                       void* stream) {
   using namespace posegen;
   Layout L;
+  const bool inputs = pts != nullptr;
   if (!read_layout(layout, n_layout, &L) || n_pts <= 0 || !view_groups_ok(n_pts, n_vgroups, vppg)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (inputs && (dirs == nullptr || poses == nullptr || d_pts == nullptr || d_dirs == nullptr ||
+                 d_poses == nullptr || spr <= 0 || n_pts % spr != 0 || ppg <= 0 ||
+                 n_pts % ppg != 0 || pose_ld < kPoseFloats + L.nf_kp + L.nf_view)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Workspace S;
-  const size_t need = carve(L, n_pts, n_vgroups, vppg, static_cast<unsigned char*>(workspace), &S);
+  const size_t need = carve(L, n_pts, n_vgroups, vppg, inputs ? ppg : 0,
+                            static_cast<unsigned char*>(workspace), &S);
   if (workspace == nullptr || ws_bytes < static_cast<long long>(need)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -678,6 +1010,21 @@ int posegen_field_bwd(int n_pts, const int* layout, int n_layout, const void* w,
                                                                 S.vb_part);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   vbias_sum_kernel<<<n_vgroups, kViewWidth, 0, s>>>(S.vb_part, nck, d_bview);
+  if ((e = cudaGetLastError()) != cudaSuccess || !inputs) return static_cast<int>(e);
+
+  // (c) the input gradients, from (a)'s cotangents
+  const size_t smem_in = input_smem_bytes(L);
+  if ((e = set_smem(field_bwd_input_kernel, smem_in)) != cudaSuccess) return static_cast<int>(e);
+  const int n_slots = pose_slots(ppg);
+  field_bwd_input_kernel<<<n_tiles, kThreads, smem_in, s>>>(
+      n_pts, spr, pts, dirs, poses, pose_ld, ppg, n_slots, L, static_cast<const bf16*>(w), S,
+      S.pose_part, d_pts, S.d_dirs_pt);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  pose_reduce_kernel<<<n_pts / ppg, 128, 0, s>>>(S.pose_part, n_pts, ppg, n_slots, d_poses,
+                                                 pose_ld);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  const int n_rays = n_pts / spr;
+  ray_sum_kernel<<<(3 * n_rays + 255) / 256, 256, 0, s>>>(S.d_dirs_pt, n_rays, spr, d_dirs);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -60,8 +60,11 @@ MAX_OCTAVES = 64  # nf_kp + nf_view, csrc/field.cuh kMaxOctaves
 
 # launches per kernel since the last reset_launches(); "field" counts the
 # full and the density-only instantiation of the field kernel together;
-# "field_stash" and "field_bwd" are the training pair (kernels/field_grad.py)
-LAUNCHES: Dict[str, int] = {"field": 0, "dual": 0, "field_stash": 0, "field_bwd": 0}
+# "field_stash" and "field_bwd" are the training pair (kernels/field_grad.py),
+# and "field_bwd_inputs" counts the backward launches that also ran its
+# input-gradient branch
+LAUNCHES: Dict[str, int] = {"field": 0, "dual": 0, "field_stash": 0, "field_bwd": 0,
+                            "field_bwd_inputs": 0}
 
 
 def reset_launches() -> None:
@@ -688,17 +691,17 @@ def fused_run_net(
     -> raw (N, S, 4), or with dual_params (the fine net; requires
     density_only) -> (raw_coarse [rgb zero], raw_fine).
 
-    trainable: the weights-only training path (kernels/field_grad.py):
-    ctx carries G pose rows with the rays contiguous per group, and the raw
-    has gradients for the net's weights, biases and framecodes. On the host
-    its wrappers run their plain versions at float32; the eval wrappers run
-    theirs with bf16 weights and float32 activations."""
+    trainable: the training path (kernels/field_grad.py): ctx carries G
+    pose rows with the rays contiguous per group, and the raw has gradients
+    for the net's weights, biases and framecodes; with input_grads (pose
+    refinement) also for pts, rays_d and ctx.skts, else those get none, as
+    in the JAX kernel. On the host its wrappers run their plain versions at
+    float32; the eval wrappers run theirs with bf16 weights and float32
+    activations."""
     N, S = pts.shape[:2]
     G = ctx.skts.shape[0]
-    if input_grads:
-        from posegen_tpu_torch.kernels.field_grad import _INPUT_GRADS
-
-        raise NotImplementedError(_INPUT_GRADS)
+    if input_grads and not trainable:
+        raise ValueError("input_grads needs the trainable path")
     layout = net_layout(cfg.netdepth, cfg.multires, cfg.multires_views)
     code_ch = cfg.framecode_ch if cfg.opt_framecode else 0
     sched = _barf_sched(cfg, embed_state, view_embed_state)
@@ -712,6 +715,8 @@ def fused_run_net(
         if N % G:
             raise ValueError(f"rays ({N}) not divisible into {G} pose groups")
         poses = pack_poses(ctx.skts, embed_state, cfg.multires, cfg.multires_views, sched)
+        if not input_grads:
+            pts_f, dirs, poses = pts_f.detach(), dirs.detach(), poses.detach()
         codes = _group_codes(net_params, ctx, G, N, code_ch, eval_mean_code)
         raw = trainable_field(pts_f, dirs, S, poses, pack_net_f32(net_params, layout),
                               group_view_bias(net_params, layout, codes))

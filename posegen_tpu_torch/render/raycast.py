@@ -6,7 +6,9 @@ On a CUDA device, the field evaluations of a config that passes the gate
 the coarse pass when the caller does not read rgb0. Otherwise the plain
 pipeline materializes the encodings (`encode_inputs`) and applies the MLP
 (`models.nerf.nerf_apply`). Training asks for use_fused="train": the
-trainable kernel pair of kernels/field_grad.py on grouped poses.
+trainable kernel pair of kernels/field_grad.py on grouped poses; pose
+refinement asks for "full", the same pair with gradients into pts, rays_d
+and the pose rows.
 """
 
 from __future__ import annotations
@@ -281,7 +283,8 @@ def _run_net(
     """Encode and evaluate one NeRF net over (N, S) samples -> raw (N, S, 4).
 
     use_fused: True (eval kernels), "train" (the trainable kernels, weight
-    gradients only), "full" (input gradients too: not ported yet) or False.
+    gradients only), "full" (the trainable kernels with input gradients:
+    pose refinement) or False.
     density_only (eval kernels only): the rgb rows come back zero; sigma is
     exact."""
     if use_fused not in (False, True, "train", "full"):
@@ -338,7 +341,8 @@ def render_rays(
       'sigma': (N,S+I)} pre-drawn noise for parity runs.
     use_fused: the fused field kernels (on the CPU, their plain versions):
       True the eval kernels, "train" the trainable pair (pose groups in
-      ctx, rays contiguous per group), False the plain pipeline; None =
+      ctx, rays contiguous per group), "full" the same with input gradients,
+      False the plain pipeline; None =
       auto: the eval kernels for CUDA tensors whose config/pose passes the
       gate.
     Returns rgb_map/disp_map/acc_map/alpha (+ *0 coarse copies).

@@ -1,5 +1,5 @@
-"""The weights-only NeRF train step (port of posegen_tpu/train/trainer.py:
-40-431, without pose refinement).
+"""The NeRF train step, with pose refinement (port of
+posegen_tpu/train/trainer.py).
 
 One call of the step renders a batch of rays with the coarse and fine nets,
 composites the background, computes the photometric losses, backpropagates
@@ -7,6 +7,13 @@ into both nets (through the trainable kernel pair of kernels/field_grad.py
 on CUDA), zeroes frozen layers, and takes one Adam step with the
 reference's exponential learning-rate decay. The embedder schedules (tau,
 BARF alpha) are recomputed from the step counter before the render.
+
+With `opt_pose`, the batch's poses come from per-frame pose parameters
+(pose/opt.py: gather, FK, skts), the field runs in the "full" mode whose
+backward carries the photometric cotangents into the pose rows, the pose
+regularizer and the temporal loss join the total, and a second Adam (with
+optax.MultiSteps' gradient accumulation when opt_pose_step > 1) updates the
+pose parameters inside the warmup / stop window.
 
 Unlike the JAX step, which is a pure function of its state, this one
 updates the parameter tensors and the optimizer in place and returns the
@@ -22,7 +29,11 @@ import torch
 
 from posegen_tpu_torch.kernels.field import fused_config_disqualification
 from posegen_tpu_torch.ops import embedding as emb_mod
+from posegen_tpu_torch.pose.opt import (
+    PoseOptConfig, _canon_bones, kp_reg_loss, mpjpc_stat, pose_apply, temporal_loss,
+)
 from posegen_tpu_torch.render.raycast import PoseCtx, RaycastConfig, render_rays
+from posegen_tpu_torch.skeleton.skeleton import SMPL_SKELETON, Skeleton
 from posegen_tpu_torch.train import losses as L
 
 
@@ -45,7 +56,7 @@ class TrainConfig:
     use_background: bool = False  # composite (1-acc)*bg into the prediction
     testopt: bool = False  # test-time pose opt: freeze the NeRF nets
     fix_layer: int = 0  # freeze pts_linears below this layer (finetune)
-    # pose optimization: not ported yet (ROADMAP Queue 1 item 8)
+    # pose optimization
     opt_pose: bool = False
     opt_pose_lrate: float = 5e-4
     opt_pose_lrate_decay: int = 2
@@ -67,11 +78,19 @@ class TrainConfig:
     fused_train: Optional[bool] = None
     rays_per_image: int = 0  # rays per pose group in a batch (0 = one group)
 
-    def __post_init__(self):
-        if self.opt_pose:
-            raise NotImplementedError(
-                "opt_pose: pose refinement is not ported yet (ROADMAP Queue 1 item 8)"
-            )
+
+@dataclasses.dataclass
+class PoseOptState:
+    """The pose optimizer's state, updated in place: optax.adam's count and
+    moments per pose param and, with opt_pose_step > 1, optax.MultiSteps'
+    counters and running mean of the gradients."""
+
+    count: int  # applied Adam updates (the learning-rate schedule's step)
+    mu: Dict[str, torch.Tensor]
+    nu: Dict[str, torch.Tensor]
+    mini_step: int = 0  # gradients in the current accumulation
+    gradient_step: int = 0  # emitted accumulations
+    acc_grads: Optional[Dict[str, torch.Tensor]] = None
 
 
 class TrainState(NamedTuple):
@@ -79,6 +98,9 @@ class TrainState(NamedTuple):
     params: Dict[str, Any]  # trainable NeRF nets {'coarse', 'fine'}: leaves require grad
     embeds: Dict[str, Any]  # embedder buffers {'embed_kp', ...}
     opt_state: Optional[torch.optim.Adam]  # None under testopt
+    pose_params: Optional[Dict[str, torch.Tensor]] = None  # leaves require grad
+    pose_anchors: Optional[Dict[str, torch.Tensor]] = None
+    pose_opt_state: Optional[PoseOptState] = None
 
 
 def param_leaves(tree) -> List[torch.Tensor]:
@@ -123,11 +145,64 @@ def nerf_optimizer(tcfg: TrainConfig, params: Dict[str, Any]) -> Optional[torch.
                             weight_decay=tcfg.weight_decay or 0.0)
 
 
-def create_train_state(variables: Dict[str, Any], tcfg: TrainConfig) -> TrainState:
+def pose_lr(tcfg: TrainConfig, count: int) -> float:
+    """opt_pose_lrate * rate**(count / (decay * decay_unit)) at the pose
+    Adam's pre-update count: optax exponential_decay (JAX trainer.py:117-126)."""
+    steps = max(tcfg.opt_pose_lrate_decay * tcfg.opt_pose_decay_unit, 1)
+    return tcfg.opt_pose_lrate * tcfg.opt_pose_decay_rate ** (count / float(steps))
+
+
+def init_pose_opt_state(tcfg: TrainConfig, pose_params: Dict[str, torch.Tensor]) -> PoseOptState:
+    def zeros():
+        return {k: torch.zeros_like(v.detach()) for k, v in pose_params.items()}
+
+    return PoseOptState(count=0, mu=zeros(), nu=zeros(),
+                        acc_grads=zeros() if tcfg.opt_pose_step > 1 else None)
+
+
+def pose_update(tcfg: TrainConfig, st: PoseOptState, params: Dict[str, torch.Tensor],
+                grads: Dict[str, torch.Tensor]) -> None:
+    """One pose optimizer update in place: Adam (betas 0.9 / 0.999, eps 1e-8,
+    the learning rate of `pose_lr` at the pre-update count); with
+    opt_pose_step k > 1 optax.MultiSteps around it: the running mean of k
+    gradients, the Adam update on the k-th, none in between."""
+    b1, b2, eps = 0.9, 0.999, 1e-8
+    with torch.no_grad():
+        k = tcfg.opt_pose_step
+        if k > 1:
+            n = st.mini_step
+            for name, g in grads.items():
+                st.acc_grads[name] += (g - st.acc_grads[name]) / (n + 1)
+            st.mini_step = (n + 1) % k
+            if n != k - 1:
+                return
+            st.gradient_step += 1
+            grads = {name: a.clone() for name, a in st.acc_grads.items()}
+            for a in st.acc_grads.values():
+                a.zero_()
+        lr = pose_lr(tcfg, st.count)
+        st.count += 1
+        c1, c2 = 1.0 - b1**st.count, 1.0 - b2**st.count
+        for name, g in grads.items():
+            mu, nu = st.mu[name], st.nu[name]
+            mu.mul_(b1).add_((1.0 - b1) * g)
+            nu.mul_(b2).add_((1.0 - b2) * g * g)
+            params[name] -= lr * (mu / c1) / (torch.sqrt(nu / c2) + eps)
+
+
+def create_train_state(variables: Dict[str, Any], tcfg: TrainConfig,
+                       pose_params: Optional[Dict[str, torch.Tensor]] = None,
+                       pose_anchors: Optional[Dict[str, torch.Tensor]] = None) -> TrainState:
+    """A fresh state; with opt_pose, the pose params (from
+    pose.opt.init_pose_params) get their optimizer state."""
     params, embeds = _split_variables(variables)
     params = trainable(params)
+    pose_opt_state = None
+    if tcfg.opt_pose and pose_params is not None:
+        pose_opt_state = init_pose_opt_state(tcfg, pose_params)
     return TrainState(step=0, params=params, embeds=embeds,
-                      opt_state=nerf_optimizer(tcfg, params))
+                      opt_state=nerf_optimizer(tcfg, params), pose_params=pose_params,
+                      pose_anchors=pose_anchors, pose_opt_state=pose_opt_state)
 
 
 def _updated_embeds(cfg: RaycastConfig, tcfg: TrainConfig, embeds: Dict[str, Any],
@@ -184,10 +259,11 @@ def compute_losses(tcfg: TrainConfig, ret: Dict[str, torch.Tensor],
 
 def _fused_train_mode(cfg: RaycastConfig, tcfg: TrainConfig, params: Dict,
                       batch: Dict[str, torch.Tensor]):
-    """"train" when the trainable kernels apply, else False: enabled
-    (fused_train, or by default CUDA tensors), a config that passes the gate,
-    one view layer, and rays that divide evenly into the batch's pose
-    groups (JAX trainer.py:235-270)."""
+    """"train" ("full" with opt_pose: input gradients too) when the
+    trainable kernels apply, else False: enabled (fused_train, or by default
+    CUDA tensors), a config that passes the gate, one view layer, and rays
+    that divide evenly into the batch's pose groups (kp_idx rows with
+    opt_pose, skts rows without; JAX trainer.py:235-270)."""
     enabled = tcfg.fused_train
     if enabled is None:
         enabled = batch["rays_o"].is_cuda
@@ -195,9 +271,10 @@ def _fused_train_mode(cfg: RaycastConfig, tcfg: TrainConfig, params: Dict,
         return False
     if len(params["coarse"].get("views_linears", [0])) != 1:
         return False
-    if batch["rays_o"].shape[0] % batch["skts"].shape[0]:
+    groups = batch["kp_idx"] if tcfg.opt_pose else batch["skts"]
+    if batch["rays_o"].shape[0] % groups.shape[0]:
         return False
-    return "train"
+    return "full" if tcfg.opt_pose else "train"
 
 
 def _fix_layer(tcfg: TrainConfig, params: Dict) -> None:
@@ -210,23 +287,38 @@ def _fix_layer(tcfg: TrainConfig, params: Dict) -> None:
                     t.grad.zero_()
 
 
-def make_train_step(cfg: RaycastConfig, tcfg: TrainConfig):
+def make_train_step(cfg: RaycastConfig, tcfg: TrainConfig,
+                    pcfg: Optional[PoseOptConfig] = None, skel: Skeleton = SMPL_SKELETON,
+                    rest_pose: Optional[torch.Tensor] = None,
+                    kp_map: Optional[torch.Tensor] = None, n_frames: int = 0):
     """-> train_step(state, batch, generator=None) -> (state, stats).
 
-    batch: rays_o, rays_d, target_s (N, 3); kp3d, bones (G, 24, 3) and skts
-    (G, 24, 4, 4), one row per pose group with the rays contiguous per group
-    (G = 1 or N allowed); cyls (1, G or N, 5); optional bgs (N, 3), fgs
-    (N, 1), cam_idxs (N, 1) with framecodes. generator draws the stratified
-    and density noise when the config perturbs."""
+    batch: rays_o, rays_d, target_s (N, 3); cyls (1, G or N, 5); optional
+    bgs (N, 3), fgs (N, 1), cam_idxs (N, 1) with framecodes. Without
+    opt_pose: kp3d, bones (G, 24, 3) and skts (G, 24, 4, 4), one row per
+    pose group with the rays contiguous per group (G = 1 or N allowed). With
+    opt_pose: kp_idx (G,) frame indices into state.pose_params (kp3d (G,
+    24, 3), the dataset's joints, for the mpjpc stat; temp_val (G,) for the
+    temporal loss), with rest_pose (24, 3), kp_map for multiview params and
+    n_frames > 1 to turn the temporal loss on. generator draws the
+    stratified and density noise when the config perturbs."""
+    pcfg = pcfg or PoseOptConfig()
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None):
         embeds = _updated_embeds(cfg, tcfg, state.embeds, state.step)
         leaves = param_leaves(state.params)
-        for p in leaves:
+        opt_pose = tcfg.opt_pose and state.pose_params is not None
+        pose_leaves = dict(state.pose_params) if opt_pose else {}
+        for p in leaves + list(pose_leaves.values()):
             p.grad = None
         n = batch["rays_o"].shape[0]
-        kps, bones, skts = batch["kp3d"], batch["bones"], batch["skts"]
+        if opt_pose:
+            kp_idx = batch["kp_idx"].reshape(-1).long()
+            kps, bones, skts, _ = pose_apply(state.pose_params, kp_idx, rest_pose, skel, kp_map)
+        else:
+            kps, bones, skts = batch["kp3d"], batch["bones"], batch["skts"]
+        kps_g, bones_g = kps, bones  # per group, before the per-ray expansion
         g = skts.shape[0]
         cyls = batch["cyls"]
         if cyls.shape[0] not in (1, n):
@@ -242,20 +334,47 @@ def make_train_step(cfg: RaycastConfig, tcfg: TrainConfig):
         ret = render_rays(cfg, {**state.params, **embeds}, batch["rays_o"], batch["rays_d"],
                           ctx, generator=generator, use_fused=use_fused)
         total, stats = compute_losses(tcfg, ret, batch)
+        if opt_pose:
+            if state.pose_anchors is not None:
+                # the reference loop's regularizer, logged after its coefficient
+                kp_l = tcfg.opt_pose_coef * kp_reg_loss(pcfg, state.pose_params,
+                                                        state.pose_anchors, kp_idx, kp_map)
+                stats["kp_loss"] = kp_l
+                total = total + kp_l
+                if "kp3d" in batch:
+                    stats["mpjpc"] = mpjpc_stat(pcfg, kps_g, batch["kp3d"])
+            if tcfg.use_temp_loss and n_frames > 1:
+                temp_val = batch.get("temp_val")
+                if temp_val is None:
+                    temp_val = torch.ones(kp_idx.shape, device=kp_idx.device)
+                temp_l = tcfg.temp_coef * temporal_loss(
+                    state.pose_params, kp_idx, temp_val.float(), rest_pose, kps_g,
+                    _canon_bones(bones_g), skel, kp_map)
+                stats["temp_loss"] = temp_l
+                total = total + temp_l
         total.backward()
-        for p in leaves:
+        for p in leaves + list(pose_leaves.values()):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         _fix_layer(tcfg, state.params)
         with torch.no_grad():
             stats["total_loss"] = total
             stats["grad_norm"] = torch.sqrt(sum(p.grad.square().sum() for p in leaves))
+            if opt_pose:
+                stats["pose_grad_norm"] = torch.sqrt(
+                    sum(p.grad.square().sum() for p in pose_leaves.values()))
             if state.opt_state is not None:
                 for group in state.opt_state.param_groups:
                     group["lr"] = nerf_lr(tcfg, state.step)
                 state.opt_state.step()
+            # the warmup / stop window skips the whole pose update: no
+            # moment, count or accumulation advances while gated
+            active = ((tcfg.opt_pose_warmup <= 0 or state.step >= tcfg.opt_pose_warmup)
+                      and (tcfg.opt_pose_stop is None or state.step < tcfg.opt_pose_stop))
+            if opt_pose and active:
+                pose_update(tcfg, state.pose_opt_state, state.pose_params,
+                            {k: p.grad for k, p in pose_leaves.items()})
         stats = {k: v.detach() for k, v in stats.items()}
         return state._replace(step=state.step + 1, embeds=embeds), stats
 
     return train_step
-

@@ -6,7 +6,10 @@ Both packages keep the same tree layout ({"coarse": {"pts_linears":
 "alpha", "cutoff_dist"}, ...}) and linear weights stored (in, out), so the
 bridge converts leaves only; the two then compute the same function.
 `train_state_from_numpy` carries a whole JAX train state over, the Adam
-moments included.
+moments included, and with pose refinement the pose params, their anchors
+and the pose optimizer's state (optax.MultiSteps' counters and
+accumulated gradients too), so a JAX run resumes in the port mid-way
+through an accumulation.
 """
 
 from __future__ import annotations
@@ -43,9 +46,28 @@ def _adam_state(opt_state):
     return None
 
 
+def _pose_opt_state(state, device):
+    """An optax pose optimizer state (adam, or MultiSteps around it) with
+    numpy leaves -> the port's PoseOptState."""
+    from posegen_tpu_torch.train.trainer import PoseOptState
+
+    multi = hasattr(state, "mini_step")
+    adam = _adam_state(state.inner_opt_state if multi else state)
+    if adam is None:
+        raise ValueError("no Adam state (count, mu, nu) in the pose optimizer state")
+    st = PoseOptState(count=int(np.asarray(adam.count)), mu=params_from_numpy(adam.mu, device),
+                      nu=params_from_numpy(adam.nu, device))
+    if multi:
+        st.mini_step = int(np.asarray(state.mini_step))
+        st.gradient_step = int(np.asarray(state.gradient_step))
+        st.acc_grads = params_from_numpy(state.acc_grads, device)
+    return st
+
+
 def train_state_from_numpy(state, tcfg, device):
     """A posegen_tpu TrainState with numpy leaves (step, params, embeds and
-    optax's Adam state: count, mu, nu) -> the port's TrainState on `device`,
+    optax's Adam state: count, mu, nu; with pose refinement the pose params,
+    anchors and pose optimizer state) -> the port's TrainState on `device`,
     its torch Adam carrying the same moments and count."""
     from posegen_tpu_torch.train.trainer import (
         TrainState, nerf_optimizer, param_leaves, trainable,
@@ -62,5 +84,14 @@ def train_state_from_numpy(state, tcfg, device):
         nu = param_leaves(params_from_numpy(adam.nu, device))
         for p, m, v in zip(param_leaves(params), mu, nu, strict=True):
             opt.state[p] = {"step": torch.tensor(count), "exp_avg": m, "exp_avg_sq": v}
+    pose_params = pose_anchors = pose_opt = None
+    if getattr(state, "pose_params", None) is not None:
+        pose_params = trainable(params_from_numpy(state.pose_params, device))
+    if getattr(state, "pose_anchors", None) is not None:
+        pose_anchors = params_from_numpy(state.pose_anchors, device)
+    if getattr(state, "pose_opt_state", None) is not None:
+        pose_opt = _pose_opt_state(state.pose_opt_state, device)
     return TrainState(step=int(np.asarray(state.step)), params=params,
-                      embeds=params_from_numpy(state.embeds, device), opt_state=opt)
+                      embeds=params_from_numpy(state.embeds, device), opt_state=opt,
+                      pose_params=pose_params, pose_anchors=pose_anchors,
+                      pose_opt_state=pose_opt)

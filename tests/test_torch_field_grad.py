@@ -3,10 +3,12 @@
 The trainable field's plain versions (what its wrappers run on the CPU)
 are held against the oracle the JAX kernels are held to
 (tests/test_fused_grad.py): jax.grad of the XLA path (encode_inputs +
-nerf_apply), on the same numpy inputs, at float32. The stash forward is
-held against the JAX stash kernel in interpret mode with float32 matmul
-operands. Also: the float32 gradient packing, and the wrapper contract on
-the CPU. The CUDA kernels themselves run in chip_smoke.py on the card.
+nerf_apply), on the same numpy inputs, at float32, for the weights and,
+through the input-gradient branch, for pts, rays_d and skts. The stash
+forward is held against the JAX stash kernel in interpret mode with
+float32 matmul operands. Also: the float32 gradient packing, and the
+wrapper contract on the CPU. The CUDA kernels themselves run in
+chip_smoke.py on the card.
 """
 
 import dataclasses
@@ -232,10 +234,109 @@ def test_packed_f32_gradients_reach_the_leaves_in_float32():
         assert float((a - b).abs().max()) <= 1e-5 * max(float(b.abs().max()), 1e-3)
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_input_grads(name):
+    """jax.grad of sum(raw * wgt) through the XLA path with respect to the
+    net, pts, rays_d and the per-group skts (repeated per ray inside)."""
+    _, cfg, params, ctx, pts, rd, wgt, cam = _case(name)
+    rep = N_RAYS // ctx.skts.shape[0]
+    frame_idx = None if cam is None else np.broadcast_to(cam[:, None], (N_RAYS, S, 1))
+
+    def loss(net, pts, rd, skts):
+        ctx_r = jr.PoseCtx(kps=np.repeat(ctx.kps, rep, 0), skts=jnp.repeat(skts, rep, 0),
+                           bones=np.repeat(ctx.bones, rep, 0), cyls=ctx.cyls)
+        x_pts, x_views, _ = jr.encode_inputs(cfg, params, pts, rd, ctx_r)
+        raw = jnerf.nerf_apply(cfg.nerf_cfg, net, x_pts, x_views, frame_idx)
+        return jnp.sum(raw * wgt)
+
+    grads = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3)))(params["coarse"], pts, rd, ctx.skts)
+    return jax.tree_util.tree_map(np.asarray, grads)
+
+
+def _assert_input_grads(got: dict, ref: dict):
+    """Per tensor: max rel 1e-4 and rel L2 1e-5 (tests/test_fused_grad.py:124-130)."""
+    for k, a in ref.items():
+        b = got[k]
+        err = np.abs(b - a).max() / max(np.abs(a).max(), 1e-3)
+        assert err < MAX_REL, f"{k}: rel err {err}"
+        l2 = np.linalg.norm(b - a) / np.linalg.norm(a)
+        assert l2 < REL_L2, f"{k}: rel L2 {l2}"
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_input_grads_match_jax_autodiff(name):
+    """fused_run_net(trainable=True, input_grads=True) on CPU tensors (the
+    stash, backward and encode-backward plain versions through
+    TrainableField): the gradients of pts, rays_d and the group skts, and
+    of every weight (the framecode table's with framecodes), against
+    jax.grad of the XLA path."""
+    cfg, tp, tctx, pts, rd, wgt = _port(name)
+    net = trainable(tp["coarse"])
+    pts, rd = pts.clone().requires_grad_(True), rd.clone().requires_grad_(True)
+    skts = tctx.skts.clone().requires_grad_(True)
+    raw = tfield.fused_run_net(cfg, net, tp["embed_kp"], pts, rd, tctx._replace(skts=skts),
+                               view_embed_state=tp["embed_view"], trainable=True,
+                               input_grads=True)
+    (raw * wgt).sum().backward()
+    j_net, j_pts, j_rd, j_skts = _jax_input_grads(name)
+    _assert_input_grads({"pts": pts.grad.numpy(), "rays_d": rd.grad.numpy(),
+                         "skts": skts.grad.numpy()},
+                        {"pts": j_pts, "rays_d": j_rd, "skts": j_skts})
+    assert float(skts.grad[:, :, 3].abs().max()) == 0.0  # the [0 0 0 1] row
+    ref = _flat(j_net)
+    assert ("/framecodes" in ref) == cfg.opt_framecode
+    _assert_grads_match({p: t.grad.numpy() for p, t in _flat(net).items()}, ref)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_encode_grads(name):
+    """jax.grad of sum(x_pts * gp) + sum(x_views * gv) through JAX
+    encode_inputs, random cotangents gp, gv in its (joint-major) channel
+    order, with respect to pts, rays_d and the group skts."""
+    _, cfg, params, ctx, pts, rd, _, _ = _case(name)
+    rep = N_RAYS // ctx.skts.shape[0]
+    rng = np.random.default_rng(9)
+    pc, vc = tfield.pts_ch(cfg.multires), tfield.view_ch(cfg.multires_views)
+    gp = rng.standard_normal((N_RAYS, S, pc)).astype(np.float32)
+    gv = rng.standard_normal((N_RAYS, S, vc)).astype(np.float32)
+
+    def loss(pts, rd, skts):
+        ctx_r = jr.PoseCtx(kps=np.repeat(ctx.kps, rep, 0), skts=jnp.repeat(skts, rep, 0),
+                           bones=np.repeat(ctx.bones, rep, 0), cyls=ctx.cyls)
+        x_pts, x_views, _ = jr.encode_inputs(cfg, params, pts, rd, ctx_r)
+        return jnp.sum(x_pts * gp) + jnp.sum(x_views * gv)
+
+    grads = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(pts, rd, ctx.skts)
+    return gp, gv, jax.tree_util.tree_map(np.asarray, grads)
+
+
+@pytest.mark.parametrize("name", ["flagship", "freq_schedule", "two_groups"])
+def test_encode_bwd_plain_matches_jax_autodiff(name):
+    """encode_bwd_plain alone: the encodings' cotangents back to pts, the
+    per-ray dirs and the pose rows, whose rot / trn slots are the skts
+    gradient and whose cut, tau and octave weight slots stay zero."""
+    cfg, tp, tctx, pts, rd, _ = _port(name)
+    gp, gv, (j_pts, j_rd, j_skts) = _jax_encode_grads(name)
+    sched = tfield._barf_sched(cfg, tp["embed_kp"], tp["embed_view"])
+    poses = tfield.pack_poses(tctx.skts, tp["embed_kp"], cfg.multires, cfg.multires_views, sched)
+    d_pts, d_dirs, d_poses = tgrad.encode_bwd_plain(
+        pts.reshape(-1, 3), rd, S, poses, torch.as_tensor(gp).reshape(N_RAYS * S, -1),
+        torch.as_tensor(gv).reshape(N_RAYS * S, -1), cfg.multires, cfg.multires_views)
+    G = poses.shape[0]
+    assert d_dirs.shape == (N_RAYS, 3) and d_poses.shape == poses.shape
+    d_skts = torch.zeros(G, 24, 4, 4)
+    d_skts[:, :, :3, :3] = d_poses[:, :216].view(G, 24, 3, 3)
+    d_skts[:, :, :3, 3] = d_poses[:, 216:288].view(G, 24, 3)
+    _assert_input_grads({"pts": d_pts.view(N_RAYS, S, 3).numpy(), "rays_d": d_dirs.numpy(),
+                         "skts": d_skts.numpy()},
+                        {"pts": j_pts, "rays_d": j_rd, "skts": j_skts})
+    assert float(d_poses[:, 288:].abs().max()) == 0.0
+
+
 def test_wrapper_contract():
-    """Bad shapes raise; asking for input gradients raises
-    NotImplementedError; the eval wrappers refuse operands that require
-    grad under autograd instead of dropping the gradient."""
+    """Bad shapes raise; input gradients flow where autograd asks for them
+    and only on the trainable path; the eval wrappers refuse operands that
+    require grad under autograd instead of dropping the gradient."""
     cfg, tp, tctx, pts, rd, wgt = _port("two_groups")
     L = tfield.net_layout(cfg.netdepth, cfg.multires, cfg.multires_views)
     poses = tfield.pack_poses(tctx.skts, tp["embed_kp"], cfg.multires, cfg.multires_views)
@@ -255,16 +356,34 @@ def test_wrapper_contract():
     _, e_pts, e_view = tgrad.fused_field_stash(p, rd, S, poses, net, bview)
     with pytest.raises(ValueError, match="backward operands"):
         tgrad.field_backward(wgt.reshape(-1, 4)[:-1], e_pts, e_view, net, bview)
+    with pytest.raises(ValueError, match="inputs"):
+        tgrad.field_backward(wgt.reshape(-1, 4), e_pts, e_view, net, bview,
+                             tgrad.FieldInputs(p[:-S], rd[:-1], S, poses))
+    g = wgt.reshape(-1, 4)
+    out = tgrad.field_backward(g, e_pts, e_view, net, bview, tgrad.FieldInputs(p, rd, S, poses))
+    assert [tuple(t.shape) for t in out[3:]] == [tuple(p.shape), tuple(rd.shape),
+                                                tuple(poses.shape)]
+    for a, b in zip(out[:3], tgrad.field_backward(g, e_pts, e_view, net, bview)):
+        assert torch.equal(a, b)  # the weight gradients do not depend on the branch
 
+    # autograd asks for pts only: the Function returns its gradient alone
     p_req = p.clone().requires_grad_(True)
     raw = tgrad.trainable_field(p_req, rd, S, poses, net, bview)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        raw.sum().backward()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tfield.fused_run_net(cfg, tp["coarse"], tp["embed_kp"], pts, rd, tctx,
-                             trainable=True, input_grads=True)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tr._run_net(cfg, tp["coarse"], tp, pts, rd, tctx, False, use_fused="full")
+    (raw * g).sum().backward()
+    assert torch.allclose(p_req.grad, out[3], rtol=1e-6, atol=1e-6)
+    # "train" gives the inputs no gradient, as the JAX kernel does
+    p_req.grad = None
+    raw = tfield.fused_run_net(cfg, trainable(tp["coarse"]), tp["embed_kp"],
+                               p_req.view(pts.shape), rd, tctx, trainable=True)
+    raw.sum().backward()
+    assert p_req.grad is None
+    with pytest.raises(ValueError, match="trainable"):
+        tfield.fused_run_net(cfg, tp["coarse"], tp["embed_kp"], pts, rd, tctx, input_grads=True)
+    p_req.grad = None
+    raw = tr._run_net(cfg, trainable(tp["coarse"]), tp, p_req.view(pts.shape), rd, tctx, False,
+                      use_fused="full")
+    raw.sum().backward()
+    assert p_req.grad is not None and bool(torch.isfinite(p_req.grad).all())
 
     one = tctx._replace(kps=tctx.kps[:1], skts=tctx.skts[:1], bones=tctx.bones[:1],
                         cyls=tctx.cyls[:1])
@@ -279,4 +398,4 @@ def test_wrapper_contract():
                        rd, one, use_fused=True)
     with torch.no_grad():
         assert tfield.fused_field(p, rd, S, poses[0], net16).shape == (p.shape[0], 4)
-    assert set(tfield.LAUNCHES) >= {"field_stash", "field_bwd"}
+    assert set(tfield.LAUNCHES) >= {"field_stash", "field_bwd", "field_bwd_inputs"}

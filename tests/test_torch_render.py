@@ -139,6 +139,11 @@ def test_imports_touch_neither_jax_nor_the_jax_package():
         "for m in pkgutil.walk_packages(posegen_tpu_torch.__path__, 'posegen_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "from posegen_tpu_torch.pose.opt import init_pose_params, pose_apply, get_kp_reg_loss\n"
+        "from posegen_tpu_torch.pose.flipflop import PoseOptFlipFlop\n"
+        "from posegen_tpu_torch.skeleton.kinematics import pose_to_kinematic, rest_pose_from_l2ws\n"
+        "from posegen_tpu_torch.skeleton.rotations import rot6d_to_rot, rot_to_axisang\n"
+        "assert 'posegen_tpu_torch.pose.opt' in sys.modules\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib'))\n"
         "       or m == 'posegen_tpu' or m.startswith('posegen_tpu.')]\n"
         "assert not bad, bad\n"
@@ -147,7 +152,7 @@ def test_imports_touch_neither_jax_nor_the_jax_package():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 18
 
 
 def test_entry_points_default_to_cuda(monkeypatch):
@@ -158,6 +163,10 @@ def test_entry_points_default_to_cuda(monkeypatch):
         make_problem()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tr.init_raycaster(tr.RaycastConfig())
+    from posegen_tpu_torch.pose.opt import PoseOptConfig, init_pose_params
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_pose_params(PoseOptConfig(), np.zeros((2, 24, 3)), np.zeros((2, 24, 3)))
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

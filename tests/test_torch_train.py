@@ -1,8 +1,10 @@
 """posegen_tpu_torch train/ against posegen_tpu train/: the losses, the
-embedder schedules, the optimizer, and one full weights-only train step of
-the flagship nets on both of the port's field paths (the plain pipeline and
-the trainable kernels' plain versions) against JAX make_train_step on its
-XLA path, at JAX's own bounds (tests/test_fused_train.py:57-68)."""
+embedder schedules, both optimizers (the pose one with optax.MultiSteps'
+accumulation), and one full train step of the flagship nets, weights-only
+and with pose refinement, on both of the port's field paths (the plain
+pipeline and the trainable kernels' plain versions) against JAX
+make_train_step on its XLA path, at JAX's own bounds
+(tests/test_fused_train.py:57-68)."""
 
 import dataclasses
 import functools
@@ -14,15 +16,21 @@ import optax
 import pytest
 import torch
 
+from posegen_tpu.pose import opt as jopt
 from posegen_tpu.render import raycast as jr
+from posegen_tpu.skeleton.geometry import get_kp_bounding_cylinder
+from posegen_tpu.skeleton.skeleton import SMPL_REST_POSE
 from posegen_tpu.train import losses as jl
 from posegen_tpu.train import trainer as jt
 from posegen_tpu.utils.fixtures import make_pose_ctx, make_rays
 from posegen_tpu_torch.ops import embedding as temb
+from posegen_tpu_torch.pose import opt as topt
 from posegen_tpu_torch.render import raycast as tr
 from posegen_tpu_torch.train import losses as tl
 from posegen_tpu_torch.train import trainer as tt
-from posegen_tpu_torch.utils.convert import params_from_numpy, train_state_from_numpy
+from posegen_tpu_torch.utils.convert import (
+    _adam_state, params_from_numpy, train_state_from_numpy,
+)
 
 N_IMAGES, RPI = 2, 16  # pose groups x rays per group
 PARAM_TOL = 5e-5  # max|diff| of every updated parameter
@@ -257,9 +265,242 @@ def test_train_step_variants_match_jax(name):
                                   states[0].params["coarse"]["framecodes"])
 
 
+# ---------------------------------------------------------------------------
+# pose refinement
+# ---------------------------------------------------------------------------
+
+N_FRAMES = 4
+KP_IDX = np.array([1, 3], np.int32)  # frame per pose group; frame 3's next wraps to 0
+POSE_CASES = {  # raycast kwargs, train kwargs, JAX steps
+    "pose": ({}, dict(opt_pose_step=3), 3),
+    "pose_framecode": (dict(opt_framecode=True, n_framecodes=4), dict(opt_pose_step=3), 1),
+    "pose_testopt": ({}, dict(opt_pose_step=1, testopt=True), 1),
+}
+# per gradient tensor, max|diff| / max|grad|: a whole step (render, composite,
+# losses) in float32 on both sides, XLA's sums against PyTorch's; the worst
+# tensor measured 2.8e-4 (a NeRF weight)
+GRAD_REL = 1e-3
+
+
+def _pose_configs(name, fused_train):
+    rkw, tkw, _ = POSE_CASES[name]
+    rkw = dict(perturb=0.0, raw_noise_std=0.0, **rkw)
+    tkw = dict(rays_per_image=RPI, use_background=True, opt_pose=True, use_temp_loss=True,
+               **tkw)
+    return (jr.RaycastConfig(**rkw), jt.TrainConfig(fused_train=False, **tkw),
+            tr.RaycastConfig(**rkw), tt.TrainConfig(fused_train=fused_train, **tkw))
+
+
+@functools.lru_cache(maxsize=None)
+def _pose_init():
+    """JAX rot6d pose params over 4 frames, drifted from their anchors past
+    the 0.01 tolerance, and a grouped batch: 2 groups x 16 rays at frames 1
+    and 3, cylinders around the frames' joints, the dataset joints (kp3d)
+    a little off the frames'."""
+    rng = np.random.default_rng(12)
+    bones0 = (rng.standard_normal((N_FRAMES, 24, 3)) * 0.2).astype(np.float32)
+    kp0 = np.tile(SMPL_REST_POSE[None], (N_FRAMES, 1, 1))
+    pcfg = jopt.PoseOptConfig(use_rot6d=True, opt_pose_tol=0.01)
+    params, anchors = jopt.init_pose_params(pcfg, bones0, kp0)
+    params = {"pelvis": params["pelvis"] + 0.01,
+              "bones": params["bones"] + rng.standard_normal((N_FRAMES, 24, 6)) * 0.2}
+    kps = np.asarray(jopt.pose_apply(params, KP_IDX, SMPL_REST_POSE)[0])
+    batch = {k: np.concatenate([_batch(False)[k][i * RPI:(i + 1) * RPI] for i in range(2)])
+             for k in ("rays_o", "rays_d", "target_s", "bgs")}
+    batch["cyls"] = np.asarray(get_kp_bounding_cylinder(kps, ext_scale=0.001))
+    batch["kp_idx"] = KP_IDX
+    batch["kp3d"] = (kps + rng.standard_normal(kps.shape) * 0.01).astype(np.float32)
+    return pcfg, jax.tree_util.tree_map(np.asarray, (params, anchors)), batch
+
+
+def _pose_batch(framecode: bool):
+    batch = dict(_pose_init()[2])
+    if framecode:
+        batch["cam_idxs"] = np.repeat(np.array([[0], [2]], np.int32), RPI, 0)
+    return batch
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_pose_run(name):
+    """JAX states (numpy leaves) after 0..n pose-refinement steps, with
+    each step's stats."""
+    jcfg, jtcfg, _, _ = _pose_configs(name, False)
+    pcfg, (params, anchors), _ = _pose_init()
+    state = jt.create_train_state(jr.init_raycaster(jax.random.PRNGKey(SEED), jcfg), jtcfg,
+                                  jax.tree_util.tree_map(jnp.asarray, params),
+                                  jax.tree_util.tree_map(jnp.asarray, anchors))
+    step = jax.jit(jt.make_train_step(jcfg, jtcfg, pcfg, rest_pose=jnp.asarray(SMPL_REST_POSE),
+                                      n_frames=N_FRAMES))
+    batch = {k: jnp.asarray(v) for k, v in _pose_batch(jcfg.opt_framecode).items()}
+    states, stats = [jax.tree_util.tree_map(np.array, state)], []
+    for _ in range(POSE_CASES[name][2]):
+        state, st = step(state, batch, jax.random.PRNGKey(5))
+        states.append(jax.tree_util.tree_map(np.array, state))
+        stats.append({k: float(v) for k, v in st.items()})
+    return states, stats
+
+
+def _port_pose_step(name, use_fused, start):
+    _, _, tcfg, ttcfg = _pose_configs(name, use_fused)
+    states, _ = _jax_pose_run(name)
+    state = train_state_from_numpy(states[start], ttcfg, "cpu")
+    batch = {k: torch.as_tensor(v) for k, v in _pose_batch(tcfg.opt_framecode).items()}
+    assert tt._fused_train_mode(tcfg, ttcfg, state.params, batch) == ("full" if use_fused
+                                                                     else False)
+    pcfg = topt.PoseOptConfig(use_rot6d=True, opt_pose_tol=0.01)
+    step = tt.make_train_step(tcfg, ttcfg, pcfg, rest_pose=torch.as_tensor(SMPL_REST_POSE),
+                              n_frames=N_FRAMES)
+    state, stats = step(state, batch)
+    return state, {k: float(v) for k, v in stats.items()}
+
+
+def _assert_grad_close(got, want, what):
+    scale = max(float(np.abs(want).max()), 1e-6)
+    err = float(np.abs(got - want).max()) / scale
+    assert err < GRAD_REL, f"{what}: rel err {err}"
+
+
+def _assert_pose_step(name, use_fused, start):
+    state, stats = _port_pose_step(name, use_fused, start)
+    states, j_stats = _jax_pose_run(name)
+    ref, prev, ref_stats = states[start + 1], states[start], j_stats[start]
+    for k in ("total_loss", "rgb_loss", "rgb0_loss", "psnr", "kp_loss", "mpjpc", "temp_loss",
+              "grad_norm", "pose_grad_norm"):
+        np.testing.assert_allclose(stats[k], ref_stats[k], rtol=LOSS_RTOL, err_msg=k)
+    assert ref_stats["kp_loss"] > 0 and ref_stats["temp_loss"] > 0
+    for a, b in zip(tt.param_leaves(state.params), tt.param_leaves(ref.params)):
+        assert float(np.abs(a.detach().numpy() - b).max()) < PARAM_TOL
+    for k, p in state.pose_params.items():
+        assert float(np.abs(p.detach().numpy() - ref.pose_params[k]).max()) < PARAM_TOL, k
+    jst, pst = ref.pose_opt_state, state.pose_opt_state
+    multi = hasattr(jst, "mini_step")
+    adam = jst.inner_opt_state[0] if multi else jst[0]
+    assert pst.count == int(adam.count)
+    for k in state.pose_params:
+        np.testing.assert_allclose(pst.mu[k].numpy(), adam.mu[k], atol=1e-7, rtol=1e-4)
+        np.testing.assert_allclose(pst.nu[k].numpy(), adam.nu[k], atol=1e-10, rtol=1e-4)
+    if multi:
+        assert (pst.mini_step, pst.gradient_step) == (int(jst.mini_step), int(jst.gradient_step))
+        for k in state.pose_params:
+            _assert_grad_close(pst.acc_grads[k].numpy(), jst.acc_grads[k], f"acc_grads {k}")
+    return state, ref, prev
+
+
+@pytest.mark.parametrize("use_fused", [False, True])
+def test_pose_step_matches_jax(use_fused):
+    """A fresh state, opt_pose_step 3: one step on each side, through the
+    plain pipeline and through the trainable kernels' plain versions with
+    input gradients. The losses (photometric, regularizer, temporal), the
+    NeRF gradients (Adam's first moment / 0.1 in JAX), the pose gradients
+    (MultiSteps' first accumulated mean in JAX), the updated NeRF params and
+    the unmoved pose params."""
+    state, ref, prev = _assert_pose_step("pose", use_fused, 0)
+    mu = tt.param_leaves(_adam_state(ref.opt_state).mu)
+    for p, m in zip(tt.param_leaves(state.params), mu, strict=True):
+        _assert_grad_close(p.grad.numpy(), m / 0.1, "nerf grad")
+    for k, p in state.pose_params.items():
+        _assert_grad_close(p.grad.numpy(), ref.pose_opt_state.acc_grads[k], f"pose grad {k}")
+        assert np.array_equal(p.detach().numpy(), prev.pose_params[k])  # accumulating
+    assert state.pose_opt_state.mini_step == 1 and state.pose_opt_state.count == 0
+
+
+@pytest.mark.parametrize("use_fused", [False, True])
+def test_carried_pose_state_step_matches_jax(use_fused):
+    """Two JAX steps (the accumulation two gradients in), the state carried
+    over by train_state_from_numpy, then the third step on each side: the
+    accumulated mean goes through Adam and both move the pose alike."""
+    state, ref, prev = _assert_pose_step("pose", use_fused, 2)
+    assert state.pose_opt_state.mini_step == 0 and state.pose_opt_state.gradient_step == 1
+    assert state.pose_opt_state.count == 1
+    for k, p in state.pose_params.items():
+        assert not np.array_equal(p.detach().numpy(), prev.pose_params[k])
+        assert float(state.pose_opt_state.acc_grads[k].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("name", ["pose_framecode", "pose_testopt"])
+def test_pose_step_variants_match_jax(name):
+    """Framecodes with input gradients (the combination that once broke in
+    JAX), and testopt: the NeRF frozen, the pose trained (opt_pose_step 1)."""
+    state, ref, prev = _assert_pose_step(name, True, 0)
+    if name == "pose_testopt":
+        assert state.opt_state is None
+        for a, b in zip(tt.param_leaves(state.params), tt.param_leaves(prev.params)):
+            assert np.array_equal(a.detach().numpy(), b)
+        for k, p in state.pose_params.items():
+            assert not np.array_equal(p.detach().numpy(), prev.pose_params[k])
+    else:
+        assert not np.array_equal(state.params["coarse"]["framecodes"].detach().numpy(),
+                                  prev.params["coarse"]["framecodes"])
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_pose_optimizer_matches_optax(k):
+    """Seven updates of fixed gradients, a decaying learning rate, with and
+    without MultiSteps(k=3): params and every state leaf after each."""
+    kw = dict(opt_pose=True, opt_pose_lrate=1e-2, opt_pose_lrate_decay=1,
+              opt_pose_decay_unit=2, opt_pose_decay_rate=0.5, opt_pose_step=k)
+    opt = jt.pose_optimizer(jt.TrainConfig(**kw))
+    tcfg = tt.TrainConfig(**kw)
+    rng = np.random.default_rng(8)
+    tree = {"pelvis": rng.standard_normal((3, 3)).astype(np.float32),
+            "bones": rng.standard_normal((3, 24, 6)).astype(np.float32)}
+    j_params = {n: jnp.asarray(v) for n, v in tree.items()}
+    j_state = opt.init(j_params)
+    params = {n: torch.tensor(v) for n, v in tree.items()}
+    st = tt.init_pose_opt_state(tcfg, params)
+    for _ in range(7):
+        g = {n: rng.standard_normal(v.shape).astype(np.float32) for n, v in tree.items()}
+        upd, j_state = opt.update({n: jnp.asarray(v) for n, v in g.items()}, j_state, j_params)
+        j_params = optax.apply_updates(j_params, upd)
+        tt.pose_update(tcfg, st, params, {n: torch.as_tensor(v) for n, v in g.items()})
+        adam = j_state.inner_opt_state[0] if k > 1 else j_state[0]
+        assert st.count == int(adam.count)
+        for n in tree:
+            np.testing.assert_allclose(params[n].numpy(), np.asarray(j_params[n]), atol=1e-6,
+                                       rtol=0)
+            np.testing.assert_allclose(st.mu[n].numpy(), np.asarray(adam.mu[n]), atol=1e-6)
+            np.testing.assert_allclose(st.nu[n].numpy(), np.asarray(adam.nu[n]), atol=1e-6)
+        if k > 1:
+            assert (st.mini_step, st.gradient_step) == (int(j_state.mini_step),
+                                                        int(j_state.gradient_step))
+            for n in tree:
+                np.testing.assert_allclose(st.acc_grads[n].numpy(),
+                                           np.asarray(j_state.acc_grads[n]), atol=1e-6)
+    assert st.count == (7 if k == 1 else 2)
+
+
+TINY = dict(N_samples=8, N_importance=4, netdepth=2, netwidth=32, perturb=0.0)
+
+
+@pytest.mark.parametrize("gate", [dict(opt_pose_warmup=100), dict(opt_pose_stop=0)])
+def test_pose_gating_freezes_every_state_leaf(gate):
+    """Outside the warmup / stop window no pose moment, count or
+    accumulation advances and the pose does not move, though the NeRF
+    trains (JAX test_pose_opt_warmup_freezes_optimizer_state)."""
+    cfg = tr.RaycastConfig(**TINY)
+    tcfg = tt.TrainConfig(opt_pose=True, opt_pose_step=3, use_temp_loss=True, **gate)
+    _, (params, anchors), batch = _pose_init()
+    pose = tt.trainable(params_from_numpy(params, "cpu"))
+    state = tt.create_train_state(tr.init_raycaster(cfg, torch.Generator().manual_seed(0),
+                                                    device="cpu"),
+                                  tcfg, pose, params_from_numpy(anchors, "cpu"))
+    before = [t.clone() for t in tt.param_leaves([state.pose_params, state.pose_opt_state.mu,
+                                                  state.pose_opt_state.nu,
+                                                  state.pose_opt_state.acc_grads])]
+    nerf0 = [t.detach().clone() for t in tt.param_leaves(state.params)]
+    step = tt.make_train_step(cfg, tcfg, topt.PoseOptConfig(opt_pose_tol=0.01),
+                              rest_pose=torch.as_tensor(SMPL_REST_POSE), n_frames=N_FRAMES)
+    state, stats = step(state, {k: torch.as_tensor(v) for k, v in batch.items()})
+    st = state.pose_opt_state
+    assert (st.count, st.mini_step, st.gradient_step) == (0, 0, 0)
+    after = tt.param_leaves([state.pose_params, st.mu, st.nu, st.acc_grads])
+    assert all(torch.equal(a.detach(), b) for a, b in zip(after, before))
+    assert float(stats["pose_grad_norm"]) > 0
+    assert any(not torch.equal(a.detach(), b) for a, b in zip(tt.param_leaves(state.params), nerf0))
+
+
 def test_train_step_contract():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tt.TrainConfig(opt_pose=True)
+    tt.TrainConfig(opt_pose=True)  # pose refinement is a supported config
     _, _, tcfg, ttcfg = _configs("flagship", None)
     batch = {k: torch.as_tensor(v) for k, v in _batch(False).items()}
     params = {"coarse": {"views_linears": [0]}}
@@ -270,3 +511,8 @@ def test_train_step_contract():
     assert tt._fused_train_mode(tcfg, on, params, odd) is False
     assert tt._fused_train_mode(dataclasses.replace(tcfg, view_type="world"), on,
                                 params, batch) is False
+    pose_on = dataclasses.replace(on, opt_pose=True)
+    pose_batch = {k: torch.as_tensor(v) for k, v in _pose_batch(False).items()}
+    assert tt._fused_train_mode(tcfg, pose_on, params, pose_batch) == "full"
+    pose_odd = {**pose_batch, "kp_idx": pose_batch["kp_idx"][[0, 1, 1]]}
+    assert tt._fused_train_mode(tcfg, pose_on, params, pose_odd) is False
