@@ -59,7 +59,8 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               noisy steps at opt_pose_step 50 (finite losses, the pose
               unmoved, 5 gradients accumulated) and one at opt_pose_step 1
               (the pose moves); the step's time, and the input branch's
-              time beside its bound.
+              device time (the profiler's, of pass (c)'s kernels) beside
+              its bound.
 
 The last two lines of standard output are one JSON object of per-kernel
 numbers and one JSON object naming the device. Without a CUDA device, or
@@ -87,6 +88,8 @@ N_GROUPS, RAYS_PER_GROUP = 128, 16  # the flagship train batch: N_rand 2048
 POSE_GROUPS, POSE_RPG = 256, 12  # the h36m_prot2 batch: N_rand 3072 in 256 images
 POSE_FRAMES = 512
 RAGGED_GROUPS, RAGGED_RPG = 3, 7  # 3 x 7 rays x 80 samples = 26 tiles of 64 + 16
+# the kernels of the backward's input-gradient branch, pass (c), by name
+PASS_C_KERNELS = ("field_bwd_input_kernel", "pose_reduce_kernel", "ray_sum_kernel")
 GRAD_TOL = 1e-2  # training kernel vs plain: relative L2 per gradient tensor
 STEP_GRAD_TOL = 5e-2  # train step, kernels vs plain f32 pipeline: relative L2, all gradients
 TRAIN_ITERS = 20
@@ -144,10 +147,9 @@ def field_flops(L, density_only: bool) -> int:
     return 2 * macs
 
 
-def profile_calls(torch, fn, n: int):
-    """torch.profiler over n calls of fn -> (wall ms per call, device kernel
-    ms per call, the 8 kernels with the most device time as (name, ms per
-    call, launches per call))."""
+def profile_kernels(torch, fn, n: int):
+    """torch.profiler over n calls of fn -> (wall ms per call, every device
+    kernel as (name, ms per call, launches per call), most time first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -160,9 +162,16 @@ def profile_calls(torch, fn, n: int):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / n
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kern) / 1e3 / n
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    return wall, busy, [(e.key, e.self_device_time_total / 1e3 / n, e.count / n) for e in top]
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    return wall, [(e.key, e.self_device_time_total / 1e3 / n, e.count / n) for e in kern]
+
+
+def profile_calls(torch, fn, n: int):
+    """torch.profiler over n calls of fn -> (wall ms per call, device kernel
+    ms per call, the 8 kernels with the most device time as (name, ms per
+    call, launches per call))."""
+    wall, kern = profile_kernels(torch, fn, n)
+    return wall, sum(k[1] for k in kern), kern[:8]
 
 
 def bwd_flops(L) -> int:
@@ -632,11 +641,11 @@ def train_phases(torch, card: str):
 def input_bwd_flops(L) -> int:
     """FLOP per point of the input-gradient branch's products: g_e_pts from
     layer 0's and the skip consumer's e_pts columns, g_e_view from the view
-    layer's (padded) e_view columns."""
+    layer's e_view columns (not its zero pad columns)."""
     from posegen_tpu_torch.kernels.field import VIEW_WIDTH, WIDTH
 
     n_pc = 2 if L.skip >= 0 else 1
-    return 2 * (n_pc * WIDTH * L.pc + VIEW_WIDTH * L.vcp)
+    return 2 * (n_pc * WIDTH * L.pc + VIEW_WIDTH * L.vc)
 
 
 def pose_batch(torch, n_groups: int, rpg: int, n_frames: int, seed: int):
@@ -832,40 +841,52 @@ def pose_phases(torch, card: str):
     else:
         print("profile pose step: torch.profiler recorded no device time")
 
-    # the input branch's time: a launch with it less a weights-only launch,
-    # timed in turns; the plain version's alike
-    rows = {}
+    # the input branch's time: the device time of pass (c)'s kernels in a
+    # backward with the branch, by the profiler; the plain version's, its
+    # three products and encode_bwd_plain on seeded stand-ins for the
+    # workspace's cotangents (dense work: its time does not depend on them)
+    layers, _, _, (wv, _), _ = F._unpack(net)
+    w_ep = [layers[0][0]] + ([layers[L.skip + 1][0][:, :L.pc]] if L.skip >= 0 else [])
+    w_ev = wv[:, F.WIDTH:F.WIDTH + L.vc]
+
+    def tn(gg, w):  # field_bwd_plain's input-cotangent product, bf16 operands
+        return gg.to(bf16).float() @ w.to(bf16).float()
+
+    rows, gen_gz = {}, torch.Generator().manual_seed(SEED)
     with torch.no_grad():
         for tag in ("coarse", "fine"):
             pts, dirs, n_s, poses_t, bview_t, g = cases[tag]
             e_pts, e_view = stashes[tag]
             P, G = pts.shape[0], poses_t.shape[0]
             ins = FG.FieldInputs(pts, dirs, n_s, poses_t)
-            with_in = lambda: FG.field_backward(g, e_pts, e_view, net, bview_t, ins)  # noqa: E731
-            w_only = lambda: FG.field_backward(g, e_pts, e_view, net, bview_t)  # noqa: E731
+            _, kern = profile_kernels(
+                torch, lambda: FG.field_backward(g, e_pts, e_view, net, bview_t, ins), 5)
+            branch = [k for k in kern if any(n in k[0] for n in PASS_C_KERNELS)]
+            k_ms = sum(k[1] for k in branch)
+            found = {n for n in PASS_C_KERNELS for k in branch if n in k[0]}
+            check(k_ms > 0.0 and found == set(PASS_C_KERNELS),
+                  f"field_bwd_inputs {tag}: the profiler read no device time of "
+                  f"{sorted(set(PASS_C_KERNELS) - found) or PASS_C_KERNELS}")
+            gz = [torch.randn((P, F.WIDTH), generator=gen_gz).to(DEVICE, bf16) for _ in w_ep]
+            gzv = torch.randn((P, F.VIEW_WIDTH), generator=gen_gz).to(DEVICE, bf16)
 
             def plain_in():
-                *_, g_ep, g_ev = FG.field_bwd_plain(e_pts, e_view, g, net, bview_t,
-                                                    mm_dtype=bf16, input_grads=True)
-                return FG.encode_bwd_plain(pts, dirs, n_s, poses_t, g_ep, g_ev, L.nf_kp, L.nf_view)
+                g_ep = sum(tn(a, w) for a, w in zip(gz, w_ep))
+                return FG.encode_bwd_plain(pts, dirs, n_s, poses_t, g_ep, tn(gzv, w_ev),
+                                           L.nf_kp, L.nf_view)
 
-            plain_w = lambda: FG.field_bwd_plain(e_pts, e_view, g, net, bview_t,  # noqa: E731
-                                                 mm_dtype=bf16)
-            t_in = (cuda_ms(with_in, 10) + cuda_ms(with_in, 10)) / 2
-            t_w = (cuda_ms(w_only, 10) + cuda_ms(w_only, 10)) / 2
-            p_in, p_w = cuda_ms(plain_in, 3, warmup=1), cuda_ms(plain_w, 3, warmup=1)
+            p_ms = cuda_ms(plain_in, 3, warmup=1)
             # read: three bf16 cotangent rows per point, pts, dirs, pose rows and
             # the weights' input columns; written: d_pts, d_dirs, d_poses
             nbytes = (2 * (2 * F.WIDTH + F.VIEW_WIDTH) * P + 2 * (12 * P + 12 * dirs.shape[0]
-                      + 4 * poses_t.numel()) + 2 * (2 * F.WIDTH * L.pc + F.VIEW_WIDTH * L.vcp))
+                      + 4 * poses_t.numel()) + 2 * (2 * F.WIDTH * L.pc + F.VIEW_WIDTH * L.vc))
             b_ms, b_by = bound(input_bwd_flops(L) * P, nbytes)
-            k_ms = t_in - t_w
-            rows[tag] = ("field_bwd_inputs", tag, P, k_ms, p_in - p_w, b_ms, b_by)
-            share = f"{b_ms / k_ms:.1%} of it" if k_ms > 0 else "share not measured"
+            rows[tag] = ("field_bwd_inputs", tag, P, k_ms, p_ms, b_ms, b_by)
+            parts = ", ".join(f"{n.split('(')[0]} {ms:.3f}" for n, ms, _ in branch)
             print(f"timing kernel field_bwd_inputs {tag} ({P} points, {G} groups, 2 launches per "
-                  f"step): {k_ms:.3f} ms (backward {t_in:.3f} ms with the branch, "
-                  f"{t_w:.3f} ms without), bound {b_ms:.3f} ms ({b_by}, {share}), plain "
-                  f"{p_in - p_w:.3f} ms [{card}]")
+                  f"step): {k_ms:.3f} ms ({parts}; the whole backward {sum(k[1] for k in kern):.3f}"
+                  f" ms of device time), bound {b_ms:.3f} ms ({b_by}, {b_ms / k_ms:.1%} of it), "
+                  f"plain {p_ms:.3f} ms [{card}]")
     return rows["coarse"], err, launches["field_bwd_inputs"]
 
 

@@ -228,23 +228,15 @@ __device__ void dense_t(const bf16* A, int lda, int K, const bf16* __restrict__ 
   __syncthreads();
 }
 
-// kTile rows of `width` bf16 from shared (row stride lds) to the workspace.
-__device__ __forceinline__ void copy_rows(const bf16* src, int lds, bf16* dst, int width) {
+// kTile rows of `width` bf16 from src (row stride src_ld) to dst (row stride
+// dst_ld): shared to workspace and back.
+__device__ __forceinline__ void copy_rows(const bf16* src, int src_ld, bf16* dst, int dst_ld,
+                                          int width) {
   const int nv = width / 8;
   for (int t = threadIdx.x; t < kTile * nv; t += kThreads) {
     const int r = t / nv, c = t - r * nv;
-    reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * width)[c] =
-        reinterpret_cast<const uint4*>(src + r * lds)[c];
-  }
-}
-
-// kTile rows of `width` bf16 from the workspace to shared (row stride lds).
-__device__ __forceinline__ void copy_rows_in(const bf16* src, bf16* dst, int lds, int width) {
-  const int nv = width / 8;
-  for (int t = threadIdx.x; t < kTile * nv; t += kThreads) {
-    const int r = t / nv, c = t - r * nv;
-    reinterpret_cast<uint4*>(dst + r * lds)[c] =
-        reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * width)[c];
+    reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * dst_ld)[c] =
+        reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * src_ld)[c];
   }
 }
 
@@ -302,13 +294,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     const bool cat = !first && i - 1 == L.skip;
     dense<2>(cat ? e_pts : nullptr, ldp, cat ? L.pc : 0, first ? e_pts : h, first ? ldp : kHLd,
              first ? L.pc : kWidth, W + L.w_layer[i], B + L.b_layer[i], true, h, scratch);
-    copy_rows(h, kHLd, S.hs + (i * P + row0) * kWidth, kWidth);
+    copy_rows(h, kHLd, S.hs + (i * P + row0) * kWidth, kWidth, kWidth);
   }
   dense<2>(nullptr, 0, 0, h, kHLd, kWidth, W + L.w_feat, B + L.b_feat, false, h, scratch);
-  copy_rows(h, kHLd, S.feat + row0 * kWidth, kWidth);
+  copy_rows(h, kHLd, S.feat + row0 * kWidth, kWidth, kWidth);
   vb.p0 = p0;
   dense<1>(h, kHLd, kWidth, e_view, ldv, L.vcp, W + L.w_view, bview, true, h, scratch, vb);
-  copy_rows(h, kHLd, S.hv + row0 * kViewWidth, kViewWidth);
+  copy_rows(h, kHLd, S.hv + row0 * kViewWidth, kViewWidth, kViewWidth);
 
   // ---- heads -------------------------------------------------------------
   // rgb head: g_hv = g_rgb @ W_rgb (bf16 operands), masked where hv == 0
@@ -617,8 +609,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 
   // ---- g_e_pts = gz0 @ W0 + gz5 @ W5[:, :pc] ----------------------------
-  copy_rows_in(S.gz + row0 * kWidth, a0, kHLd, kWidth);
-  if (skip_layer >= 0) copy_rows_in(S.gz + (skip_layer * P + row0) * kWidth, a5, kHLd, kWidth);
+  copy_rows(S.gz + row0 * kWidth, kWidth, a0, kHLd, kWidth);
+  if (skip_layer >= 0) copy_rows(S.gz + (skip_layer * P + row0) * kWidth, kWidth, a5, kHLd,
+                                  kWidth);
   __syncthreads();
   if (skip_layer >= 0) {
     const Segment seg[2] = {{a0, kHLd, kWidth, W + L.w_layer[0], L.pc},
@@ -668,7 +661,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   __syncthreads();
 
   // ---- g_e_view = gzv @ Wv[:, 256:256 + vcp] -----------------------------
-  copy_rows_in(S.gzv + row0 * kViewWidth, av, kViewLd, kViewWidth);
+  copy_rows(S.gzv + row0 * kViewWidth, kViewWidth, av, kViewLd, kViewWidth);
   __syncthreads();
   {
     const Segment seg[1] = {{av, kViewLd, kViewWidth, W + L.w_view + kWidth, kWidth + L.vcp}};
