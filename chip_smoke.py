@@ -60,7 +60,18 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               unmoved, 5 gradients accumulated) and one at opt_pose_step 1
               (the pose moves); the step's time, and the input branch's
               device time (the profiler's, of pass (c)'s kernels) beside
-              its bound.
+              its bound;
+  9. variants the field kernel's A/B harness (posegen_tpu_torch/tools/
+              exp_kernel_variants.py, the port of tools/exp_kernel_variants.py)
+              on its problem (8192 rays x 80 samples = 655,360 points, one
+              pose): every case and probe of variant_field at tile 64, and
+              at each tile on a ragged grouped problem (3 groups x 7 rays x
+              80 samples; a tile may straddle groups), against variant_plain
+              with bf16 operands to the elementwise rule of phase 2 (the
+              encode probe also to relative L2 <= ENC_SUM_TOL); then the
+              harness's sweep over tiles 32, 64 and 128 from launch counts
+              of 0: every (case, tile) that fits launched chain + 3 times,
+              with its time beside its bound; and the plain version's time.
 
 The last two lines of standard output are one JSON object of per-kernel
 numbers and one JSON object naming the device. Without a CUDA device, or
@@ -93,6 +104,14 @@ PASS_C_KERNELS = ("field_bwd_input_kernel", "pose_reduce_kernel", "ray_sum_kerne
 GRAD_TOL = 1e-2  # training kernel vs plain: relative L2 per gradient tensor
 STEP_GRAD_TOL = 5e-2  # train step, kernels vs plain f32 pipeline: relative L2, all gradients
 TRAIN_ITERS = 20
+VARIANT_CHAIN = 10  # launches per timed chain of the harness's sweep (phase 9)
+VARIANT_TILE = 64  # kernel 2's tile: the harness's cases are held at it
+# the encode probe, kernel vs plain, relative L2 over all points (not the
+# elementwise rule: a point's sum of ~1,080 channels may cancel to near 0):
+# an ulp between the card's and PyTorch's f32 sin / cos, or the FMA
+# contraction of the double-angle recurrence, flips the bf16 rounding of a
+# few channels, 2^-8 of one channel each
+ENC_SUM_TOL = 1e-3
 TRAIN_STEPS = 5
 DEVICE = "cuda"
 # weight seed: with seed 1 the random nets give the 8192-ray render partial
@@ -134,17 +153,6 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
-
-
-def field_flops(L, density_only: bool) -> int:
-    """Multiply-add work of one field evaluation per point (x2 FLOP), as the
-    JAX kernels' cost estimates count it (posegen_tpu/kernels/field.py:679)."""
-    from posegen_tpu_torch.kernels.field import VIEW_WIDTH, WIDTH
-
-    macs = sum(L.layer_in(i) * WIDTH for i in range(L.depth)) + WIDTH  # trunk + alpha
-    if not density_only:
-        macs += WIDTH * WIDTH + (WIDTH + L.vc) * VIEW_WIDTH + VIEW_WIDTH * 3
-    return 2 * macs
 
 
 def profile_kernels(torch, fn, n: int):
@@ -304,9 +312,9 @@ def run(torch) -> int:
 
     # 3. the main path, through the launch counters -------------------------
     expected = {False: {"dual": 1, "field": 1, "field_stash": 0, "field_bwd": 0,
-                        "field_bwd_inputs": 0},
+                        "field_bwd_inputs": 0, "variant": 0},
                 True: {"dual": 0, "field": 2, "field_stash": 0, "field_bwd": 0,
-                       "field_bwd_inputs": 0}}
+                       "field_bwd_inputs": 0, "variant": 0}}
     launches = {"dual": 0, "field": 0}
     with torch.no_grad():
         # The last sample's interval is 1e10 long, so a ray is opaque iff the
@@ -372,7 +380,7 @@ def run(torch) -> int:
         rows = []
         pts_c, _, s_c = shapes["coarse"]
         P = pts_c.shape[0]
-        flops = (field_flops(L, True) + field_flops(L, False)) * P
+        flops = (F.field_flops(L, True) + F.field_flops(L, False)) * P
         nbytes = 12 * P + 12 * N_RAYS + pose.numel() * 4 + w_bytes(net_c) + w_bytes(net_f) + 32 * P
         k_ms = cuda_ms(lambda: F.fused_dual(pts_c, rays_d, s_c, pose, net_c, net_f), 10)
         p_ms = cuda_ms(lambda: F.dual_plain(pts_c, rays_d, s_c, pose, net_c, net_f,
@@ -382,7 +390,7 @@ def run(torch) -> int:
             pts, _, n_s = shapes[tag]
             P = pts.shape[0]
             for density_only in (False, True):
-                flops = field_flops(L, density_only) * P
+                flops = F.field_flops(L, density_only) * P
                 nbytes = 12 * P + 12 * N_RAYS + pose.numel() * 4 + w_bytes(net_f) + 16 * P
                 k_ms = cuda_ms(lambda: F.fused_field(pts, rays_d, n_s, pose, net_f,
                                                      density_only), 10)
@@ -396,6 +404,7 @@ def run(torch) -> int:
 
     train_rows, train_err, train_launches = train_phases(torch, card)
     pose_row, pose_err, pose_launches = pose_phases(torch, card)
+    variant_row, variant_err, variant_launches = variant_phases(torch, card)
 
     by_name = {(r[0], r[1]): r for r in rows}
     kernels = []
@@ -426,6 +435,14 @@ def run(torch) -> int:
         "source": "posegen_tpu_torch/kernels/csrc/field_grad.cu",
         "replaces": "posegen_tpu/kernels/field_grad.py:506",
         "launches": pose_launches, "max_abs_err": pose_err, "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+    })
+    k_ms, p_ms, b_ms, b_by = variant_row
+    kernels.append({
+        "name": "variant_field", "route": "cuda",
+        "source": "posegen_tpu_torch/kernels/csrc/field_variants.cu",
+        "replaces": "tools/exp_kernel_variants.py:269",
+        "launches": variant_launches, "max_abs_err": variant_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     })
     print(card)
@@ -556,7 +573,8 @@ def train_phases(torch, card: str):
     state_k, stats_k = make_train_step(cfg, tcfg)(state_k, batch)
     torch.cuda.synchronize()
     launches = dict(F.LAUNCHES)
-    want = {"field": 0, "dual": 0, "field_stash": 2, "field_bwd": 2, "field_bwd_inputs": 0}
+    want = {"field": 0, "dual": 0, "field_stash": 2, "field_bwd": 2, "field_bwd_inputs": 0,
+            "variant": 0}
     check(launches == want, f"train step: launches {launches} != {want}")
     state_p, stats_p = make_train_step(cfg, tcfg_plain)(state_p, batch)
     torch.cuda.synchronize()
@@ -619,7 +637,7 @@ def train_phases(torch, card: str):
             io = 12 * P + 12 * dirs.shape[0] + poses_t.numel() * 4 + w_bytes + bview_t.numel() * 4
             stash_b = (L.pc + L.vc) * 2 * P
             for name, flops, nbytes, kern, plain in (
-                ("field_stash", field_flops(L, False) * P, io + 16 * P + stash_b,
+                ("field_stash", F.field_flops(L, False) * P, io + 16 * P + stash_b,
                  lambda: FG.fused_field_stash(pts, dirs, n_s, poses_t, net, bview_t),
                  lambda: FG.field_stash_plain(pts, dirs, n_s, poses_t, net, bview_t,
                                               mm_dtype=bf16)),
@@ -781,7 +799,8 @@ def pose_phases(torch, card: str):
     state_k, stats_k = step_of(cfg, tcfg)(state_k, batch)
     torch.cuda.synchronize()
     launches = dict(F.LAUNCHES)
-    want = {"field": 0, "dual": 0, "field_stash": 2, "field_bwd": 2, "field_bwd_inputs": 2}
+    want = {"field": 0, "dual": 0, "field_stash": 2, "field_bwd": 2, "field_bwd_inputs": 2,
+            "variant": 0}
     check(launches == want, f"pose step: launches {launches} != {want}")
     state_p, stats_p = step_of(cfg, tcfg_plain)(state_p, batch)
     torch.cuda.synchronize()
@@ -888,6 +907,94 @@ def pose_phases(torch, card: str):
                   f" ms of device time), bound {b_ms:.3f} ms ({b_by}, {b_ms / k_ms:.1%} of it), "
                   f"plain {p_ms:.3f} ms [{card}]")
     return rows["coarse"], err, launches["field_bwd_inputs"]
+
+
+
+def variant_phases(torch, card: str):
+    """Phase 9 (the field kernel's variants vs plain, then the A/B harness's
+    sweep) -> ((ms, plain ms, bound ms, bound by) of base at VARIANT_TILE on
+    the harness's problem, max|diff| against plain over every case, the
+    sweep's launches)."""
+    from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.kernels import variants as V
+    from posegen_tpu_torch.tools import exp_kernel_variants as H
+
+    bf16 = torch.bfloat16
+    prob = H.make_inputs(N_RAYS, DEVICE)
+    ragged = H.make_inputs(RAGGED_GROUPS * RAGGED_RPG, DEVICE, n_groups=RAGGED_GROUPS)
+    L = prob.net.layout
+    cases = H.CASES + H.PROBES
+    err = 0.0
+    with torch.no_grad():
+        for name, kw in cases:
+            dens = kw.get("density_only", False)
+            fits = [t for t in V.TILES
+                    if V.variant_refusal(L, t, bf16enc=kw.get("bf16enc", False),
+                                         halves=kw.get("halves", 1),
+                                         mxenc=kw.get("mxenc", False)) is None
+                    and V.variant_blocks_per_sm(L, t, dens) > 0]
+            msg = []
+            for tag, pr, tiles in (("flagship", prob, [VARIANT_TILE]), ("ragged", ragged, fits)):
+                p = V.variant_plain(*pr, mm_dtype=bf16, **kw)
+                for tile in tiles:
+                    k = V.variant_field(*pr, tile=tile, **kw)
+                    torch.cuda.synchronize()
+                    what = f"variant {name} {tag} tile {tile}"
+                    if kw.get("encode_only") is True:  # sums that may cancel: relative L2
+                        check(bool(torch.isfinite(k).all()), f"{what}: kernel output not finite")
+                        e_l2 = rel_l2(k, p)
+                        check(e_l2 <= ENC_SUM_TOL, f"{what}: relative L2 {e_l2:.3e} > {ENC_SUM_TOL}")
+                        e = float((k - p).abs().max())
+                        msg.append(f"{tag}@{tile} {e:.3e} (relative L2 {e_l2:.3e})")
+                    else:
+                        e = compare(what, k, p)
+                        msg.append(f"{tag}@{tile} {e:.3e}")
+                    if dens and not kw.get("encode_only"):
+                        check(float(k[:, :3].abs().max()) == 0.0, f"{what}: rgb rows not zero")
+                    err = max(err, e)
+            print(f"kernel variant_field {name} vs variant_plain ({prob.pts.shape[0]} / "
+                  f"{ragged.pts.shape[0]} points, {ragged.poses.shape[0]} groups): max|diff| "
+                  + ", ".join(msg))
+
+        # base at kernel 2's tile is kernel 2's code: on the harness's
+        # problem, given one direction per ray of S points, fused_field
+        # computes the same raw bit for bit; their times, taken in turns
+        S = prob.pts.shape[0] // N_RAYS
+        ray_dirs = prob.dirs[::S].contiguous()
+        field2 = lambda: F.fused_field(prob.pts, ray_dirs, S, prob.poses[0], prob.net)
+        base64 = lambda: V.variant_field(*prob, tile=VARIANT_TILE)
+        same = torch.equal(field2(), base64())
+        check(same, f"variant base at tile {VARIANT_TILE} differs from fused_field")
+        turns = [cuda_ms(f, VARIANT_CHAIN) for f in (field2, base64, base64, field2)]
+        print(f"variant base at tile {VARIANT_TILE} == fused_field bit for bit on the harness's "
+              f"problem; ms in turns (field, variant, variant, field): "
+              f"{', '.join(f'{t:.3f}' for t in turns)} [{card}]")
+
+        # the harness's sweep: the main path of this phase
+        print(f"harness sweep (posegen_tpu_torch.tools.exp_kernel_variants, {N_RAYS} rays x "
+              f"{prob.pts.shape[0] // N_RAYS} samples, chain {VARIANT_CHAIN}) [{card}]")
+        F.reset_launches()
+        rows = H.sweep(prob, V.TILES, VARIANT_CHAIN, log=lambda line: print(f"  {line}"))
+        torch.cuda.synchronize()
+        launches = dict(F.LAUNCHES)
+        want = {k: 0 for k in launches}
+        want["variant"] = len(rows) * (VARIANT_CHAIN + 3)
+        check(launches == want, f"harness sweep: launches {launches} != {want}")
+        ran = {(r["name"], r["tile"]) for r in rows}
+        check({(n, VARIANT_TILE) for n, _ in cases} <= ran,
+              f"harness sweep: cases missing at tile {VARIANT_TILE}")
+        check({("base", 32), ("dens_base", 32), ("dens_base", 128)} <= ran,
+              "harness sweep: base / dens_base missing at tiles 32 / 128")
+        print(f"harness sweep: {len(rows)} (case, tile) pairs ran, launches {launches}")
+
+        base = next(r for r in rows if (r["name"], r["tile"]) == ("base", VARIANT_TILE))
+        p_ms = cuda_ms(lambda: V.variant_plain(*prob, mm_dtype=bf16), 3, warmup=1)
+        P = prob.pts.shape[0]
+        b_ms, b_by = base["bound"]
+        print(f"timing kernel variant_field base tile {VARIANT_TILE} ({P} points): "
+              f"{base['ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by}, {b_ms / base['ms']:.1%} of it), "
+              f"plain {p_ms:.3f} ms [{card}]")
+    return (base["ms"], p_ms, b_ms, b_by), err, launches["variant"]
 
 
 if __name__ == "__main__":

@@ -22,7 +22,7 @@ from typing import Optional
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "posegen_tpu_torch"
-SOURCES = ("field.cu", "field_grad.cu")
+SOURCES = ("field.cu", "field_grad.cu", "field_variants.cu")
 HEADERS = ("field.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -106,6 +106,10 @@ def load() -> ctypes.CDLL:
     lib.posegen_field_bwd.argtypes = [I, IA, I, P, P, P, I, I, P, P, P, P, ctypes.c_longlong,
                                       P, P, P, P, P, I, P, I, I, P, P, P, P]
     lib.posegen_field_bwd.restype = I
+    lib.posegen_field_variant.argtypes = [P, P, I, P, I, I, IA, I, P, P, P, I, I, I, I, I, P]
+    lib.posegen_field_variant.restype = I
+    lib.posegen_field_variant_blocks.argtypes = [I, I, IA, I, ctypes.POINTER(ctypes.c_int)]
+    lib.posegen_field_variant_blocks.restype = I
     lib.posegen_error_string.argtypes = [I]
     lib.posegen_error_string.restype = ctypes.c_char_p
     _LIB = lib

@@ -59,14 +59,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   float* out = out0;
   if (MODE == kDual) {
     trunk(L, w0, b0, e_pts, h, scratch);
-    const float a_c = row_dot4(h + p * kHLd, w0 + L.w_alpha, kWidth) + b0[L.b_alpha];
+    const float a_c = row_dot(h + p * kHLd, w0 + L.w_alpha, kWidth) + b0[L.b_alpha];
     if (store) out0[4 * gp + q] = q == 3 ? a_c : 0.f;
     W = w1;
     B = b1;
     out = out1;
   }
   trunk(L, W, B, e_pts, h, scratch);
-  const float alpha = row_dot4(h + p * kHLd, W + L.w_alpha, kWidth) + B[L.b_alpha];
+  const float alpha = row_dot(h + p * kHLd, W + L.w_alpha, kWidth) + B[L.b_alpha];
   if (MODE == kDensity) {
     if (store) out[4 * gp + q] = q == 3 ? alpha : 0.f;
     return;

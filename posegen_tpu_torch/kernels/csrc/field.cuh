@@ -29,7 +29,8 @@ using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
 constexpr int kJoints = 24;
-constexpr int kTile = 64;           // points per block
+constexpr int kTile = 64;           // points per block of field.cu and field_grad.cu; the
+                                    // shared body takes any multiple of 16 (TILE below)
 constexpr int kMTiles = kTile / 16;  // 16-row MMA tiles per block
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -68,10 +69,11 @@ __host__ __device__ inline int view_ld(const Layout& L) { return L.vcp + kPad; }
 
 // Dynamic shared memory: pose | x_pts | x_views (if any) | h | per-warp
 // scratch. Every region starts 128-byte aligned (each bf16 region is
-// kTile rows of a multiple of 8 elements).
+// TILE rows of a multiple of 8 elements).
+template <int TILE = kTile>
 __host__ __device__ inline size_t smem_bytes(const Layout& L, bool with_view) {
   const size_t rows = pts_ld(L) + (with_view ? view_ld(L) : 0) + kHLd;
-  return kPoseBytes + sizeof(bf16) * kTile * rows + sizeof(float) * kWarps * kScratch;
+  return kPoseBytes + sizeof(bf16) * TILE * rows + sizeof(float) * kWarps * kScratch;
 }
 
 // ---------------------------------------------------------------------------
@@ -87,14 +89,14 @@ __host__ __device__ inline size_t smem_bytes(const Layout& L, bool with_view) {
 // point gp reads row gp / ppg (its pose group); else every point reads the
 // one pose.
 // ---------------------------------------------------------------------------
-template <bool kView>
+template <bool kView, int TILE = kTile>
 __device__ void encode_tile(const float* __restrict__ pts, const float* __restrict__ dirs,
                             int n_pts, int spr, int p0, const float* pose_in,
                             const Layout& L, bf16* e_pts, bf16* e_view, int pose_ld = 0,
                             int ppg = 1) {
   const int ldp = pts_ld(L), ldv = view_ld(L);
   const int kc = kJoints * (1 + 2 * L.nf_kp);
-  for (int t = threadIdx.x; t < kTile * kJoints; t += kThreads) {
+  for (int t = threadIdx.x; t < TILE * kJoints; t += kThreads) {
     const int p = t / kJoints;
     const int j = t - p * kJoints;
     const int gp = min(p0 + p, n_pts - 1);
@@ -156,26 +158,26 @@ __device__ void encode_tile(const float* __restrict__ pts, const float* __restri
   }
   if (kView) {  // the view head reads its zero-weight pad columns too
     const int npad = L.vcp - L.vc;
-    for (int t = threadIdx.x; t < kTile * npad; t += kThreads) {
+    for (int t = threadIdx.x; t < TILE * npad; t += kThreads) {
       e_view[(t / npad) * ldv + L.vc + t % npad] = __float2bfloat16(0.f);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// MLP body: out[kTile, N] = act(A @ W^T + b) on the tensor cores, with the
+// MLP body: out[TILE, N] = act(A @ W^T + b) on the tensor cores, with the
 // input in up to two segments [A1 (K1 wide) | A2 (K2 wide)] so that the skip
 // concat and the view-head concat are never materialized. W is (N, K1 + K2)
 // row-major in device memory (read as a column-major B operand). Each warp
-// owns NT 16-column tiles of the output for all kMTiles row tiles; the next
+// owns NT 16-column tiles of the output for all TILE / 16 row tiles; the next
 // K step's weight fragments load while the current one multiplies.
 // ---------------------------------------------------------------------------
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-template <int NT>
-__device__ __forceinline__ void gemm_segment(FragC (&acc)[kMTiles][NT], const bf16* A, int lda,
+template <int NT, int TILE = kTile>
+__device__ __forceinline__ void gemm_segment(FragC (&acc)[TILE / 16][NT], const bf16* A, int lda,
                                              int K, const bf16* __restrict__ W, int ldw,
                                              int n0) {
   if (K == 0) return;
@@ -192,7 +194,7 @@ __device__ __forceinline__ void gemm_segment(FragC (&acc)[kMTiles][NT], const bf
       }
     }
 #pragma unroll
-    for (int im = 0; im < kMTiles; ++im) {
+    for (int im = 0; im < TILE / 16; ++im) {
       FragA a;
       wmma::load_matrix_sync(a, A + im * 16 * lda + k, lda);
 #pragma unroll
@@ -212,14 +214,14 @@ struct RowBias {
 
 // acc + bias (+ ReLU) -> bf16 rows of `out` (row stride kHLd), through the
 // warp's f32 scratch tile (the accumulator's register layout is opaque).
-template <int NT>
-__device__ __forceinline__ void store_tile(FragC (&acc)[kMTiles][NT],
+template <int NT, int TILE = kTile>
+__device__ __forceinline__ void store_tile(FragC (&acc)[TILE / 16][NT],
                                            const float* __restrict__ bias, bool relu,
                                            bf16* out, int n0, float* scratch,
                                            const RowBias rb = RowBias{}) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int im = 0; im < kMTiles; ++im) {
+  for (int im = 0; im < TILE / 16; ++im) {
 #pragma unroll
     for (int jn = 0; jn < NT; ++jn) {
       wmma::store_matrix_sync(scratch, acc[im][jn], 16, wmma::mem_row_major);
@@ -241,27 +243,28 @@ __device__ __forceinline__ void store_tile(FragC (&acc)[kMTiles][NT],
 
 // One dense layer of width NT * 16 * kWarps. `out` may alias an input: the
 // block synchronises between the last read and the first write.
-template <int NT>
+template <int NT, int TILE = kTile>
 __device__ void dense(const bf16* A1, int lda1, int K1, const bf16* A2, int lda2, int K2,
                       const bf16* __restrict__ W, const float* __restrict__ bias, bool relu,
                       bf16* out, float* scratch, const RowBias rb = RowBias{}) {
   const int warp = threadIdx.x >> 5;
   const int n0 = warp * NT * 16;
-  FragC acc[kMTiles][NT];
+  FragC acc[TILE / 16][NT];
 #pragma unroll
-  for (int im = 0; im < kMTiles; ++im) {
+  for (int im = 0; im < TILE / 16; ++im) {
 #pragma unroll
     for (int jn = 0; jn < NT; ++jn) wmma::fill_fragment(acc[im][jn], 0.f);
   }
   const int ldw = K1 + K2;
-  gemm_segment<NT>(acc, A1, lda1, K1, W, ldw, n0);
-  gemm_segment<NT>(acc, A2, lda2, K2, W + K1, ldw, n0);
+  gemm_segment<NT, TILE>(acc, A1, lda1, K1, W, ldw, n0);
+  gemm_segment<NT, TILE>(acc, A2, lda2, K2, W + K1, ldw, n0);
   __syncthreads();
-  store_tile<NT>(acc, bias, relu, out, n0, scratch + warp * kScratch, rb);
+  store_tile<NT, TILE>(acc, bias, relu, out, n0, scratch + warp * kScratch, rb);
   __syncthreads();
 }
 
-// The depth x 256 ReLU trunk: x_pts -> h (kTile x 256 in shared memory).
+// The depth x 256 ReLU trunk: x_pts -> h (TILE x 256 in shared memory).
+template <int TILE = kTile>
 __device__ inline void trunk(const Layout& L, const bf16* __restrict__ W,
                              const float* __restrict__ B, const bf16* e_pts, bf16* h,
                              float* scratch) {
@@ -269,21 +272,24 @@ __device__ inline void trunk(const Layout& L, const bf16* __restrict__ W,
   for (int i = 0; i < L.depth; ++i) {
     const bool first = i == 0;
     const bool cat = !first && i - 1 == L.skip;
-    dense<2>(cat ? e_pts : nullptr, ldp, cat ? L.pc : 0,
+    dense<2, TILE>(cat ? e_pts : nullptr, ldp, cat ? L.pc : 0,
              first ? e_pts : h, first ? ldp : kHLd, first ? L.pc : kWidth,
              W + L.w_layer[i], B + L.b_layer[i], true, h, scratch);
   }
 }
 
-// A narrow head's dot product for point threadIdx.x / 4: its four threads
-// split the K terms and end with the full sum each.
-__device__ __forceinline__ float row_dot4(const bf16* row, const bf16* __restrict__ w, int K) {
+// A narrow head's dot product for point threadIdx.x / TPP: its TPP threads
+// (a power of two up to 32, neighbours in one warp) split the K terms and
+// end with the full sum each.
+template <int TPP = 4>
+__device__ __forceinline__ float row_dot(const bf16* row, const bf16* __restrict__ w, int K) {
+  static_assert(TPP >= 1 && TPP <= 32 && (TPP & (TPP - 1)) == 0, "TPP: a power of two <= 32");
   float s = 0.f;
-  for (int k = threadIdx.x & 3; k < K; k += 4) {
+  for (int k = threadIdx.x & (TPP - 1); k < K; k += TPP) {
     s += __bfloat162float(row[k]) * __bfloat162float(w[k]);
   }
-  s += __shfl_xor_sync(0xffffffffu, s, 1);
-  s += __shfl_xor_sync(0xffffffffu, s, 2);
+#pragma unroll
+  for (int m = 1; m < TPP; m <<= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
   return s;
 }
 

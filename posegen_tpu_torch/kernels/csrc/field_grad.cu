@@ -96,7 +96,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int p = threadIdx.x >> 2, q = threadIdx.x & 3;
   const int gp = p0 + p;
   trunk(L, W, B, e_pts, h, scratch);
-  const float alpha = row_dot4(h + p * kHLd, W + L.w_alpha, kWidth) + B[L.b_alpha];
+  const float alpha = row_dot(h + p * kHLd, W + L.w_alpha, kWidth) + B[L.b_alpha];
   dense<2>(nullptr, 0, 0, h, kHLd, kWidth, W + L.w_feat, B + L.b_feat, false, h, scratch);
   vb.p0 = p0;
   dense<1>(h, kHLd, kWidth, e_view, view_ld(L), L.vcp, W + L.w_view, bview, true, h, scratch,

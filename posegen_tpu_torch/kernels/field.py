@@ -61,10 +61,11 @@ MAX_OCTAVES = 64  # nf_kp + nf_view, csrc/field.cuh kMaxOctaves
 # launches per kernel since the last reset_launches(); "field" counts the
 # full and the density-only instantiation of the field kernel together;
 # "field_stash" and "field_bwd" are the training pair (kernels/field_grad.py),
-# and "field_bwd_inputs" counts the backward launches that also ran its
-# input-gradient branch
+# "field_bwd_inputs" counts the backward launches that also ran its
+# input-gradient branch, and "variant" the A/B harness's variant kernel
+# (kernels/variants.py)
 LAUNCHES: Dict[str, int] = {"field": 0, "dual": 0, "field_stash": 0, "field_bwd": 0,
-                            "field_bwd_inputs": 0}
+                            "field_bwd_inputs": 0, "variant": 0}
 
 
 def reset_launches() -> None:
@@ -82,6 +83,17 @@ def pts_ch(nf_kp: int) -> int:
 
 def view_ch(nf_view: int) -> int:
     return 3 * N_JOINTS * (1 + 2 * nf_view)  # 648 at multires_views 4; 72 at 0
+
+
+def field_flops(layout: "NetLayout", density_only: bool) -> int:
+    """Multiply-add work of one field evaluation per point (x2 FLOP), as the
+    JAX kernels' cost estimates count it (posegen_tpu/kernels/field.py:679):
+    1,723,648 for the flagship net, 1,360,384 density-only."""
+    L = layout
+    macs = sum(L.layer_in(i) * WIDTH for i in range(L.depth)) + WIDTH  # trunk + alpha
+    if not density_only:
+        macs += WIDTH * WIDTH + (WIDTH + L.vc) * VIEW_WIDTH + VIEW_WIDTH * 3
+    return 2 * macs
 
 
 # ---------------------------------------------------------------------------
@@ -474,6 +486,11 @@ def encode_plain(pts: torch.Tensor, dirs: torch.Tensor, spr: int,
     return e_pts, e_view
 
 
+def bf16_round(a: torch.Tensor) -> torch.Tensor:
+    """a rounded to bfloat16, kept in float32."""
+    return a.to(torch.bfloat16).float()
+
+
 def _mm(a: torch.Tensor, w: torch.Tensor, mm_dtype: torch.dtype) -> torch.Tensor:
     """a (P, K) @ w (N, K)^T, both operands rounded to mm_dtype (bf16 weights
     are exact either way; the training path's float32 weights round as the
@@ -484,29 +501,36 @@ def _mm(a: torch.Tensor, w: torch.Tensor, mm_dtype: torch.dtype) -> torch.Tensor
 
 def mlp_plain(net: FieldNet, e_pts: torch.Tensor, e_view: Optional[torch.Tensor],
               density_only: bool, mm_dtype: torch.dtype,
-              bview: Optional[torch.Tensor] = None) -> torch.Tensor:
+              bview: Optional[torch.Tensor] = None, bf16act: bool = False,
+              bf16view: bool = False) -> torch.Tensor:
     """Trunk + heads on prebuilt encodings -> (P, 4) raw [r, g, b, sigma]
     (rgb zero when density_only). bview: a view bias (128,) or per point
-    (P, 128) in place of the packed one."""
+    (P, 128) in place of the packed one. bf16act rounds x_pts and every
+    ReLU output to bf16, and with it or bf16view the feature and x_views
+    are rounded before the view layer (the A/B harness's bf16act and
+    bf16enc, kernels/variants.py); no-ops at bf16 mm_dtype."""
     L = net.layout
     layers, (wa, ba), (wf, bf), (wv, bv), (wr, br) = _unpack(net)
     if bview is not None:
         bv = bview
-    h = e_pts
+    act = bf16_round if bf16act else (lambda a: a)
+    x0 = h = act(e_pts)
     for i, (w, b) in enumerate(layers):
         if i > 0 and i - 1 == L.skip:
-            acc = _mm(e_pts, w[:, :L.pc], mm_dtype) + _mm(h, w[:, L.pc:], mm_dtype)
+            acc = _mm(x0, w[:, :L.pc], mm_dtype) + _mm(h, w[:, L.pc:], mm_dtype)
         else:
             acc = _mm(h, w, mm_dtype)
-        h = torch.relu(acc + b)
+        h = act(torch.relu(acc + b))
     alpha = _mm(h, wa, mm_dtype) + ba
     if density_only:
         return torch.cat([alpha.new_zeros(alpha.shape[0], 3), alpha], -1)
     feat = _mm(h, wf, mm_dtype) + bf
-    hv = torch.relu(
+    if bf16act or bf16view:
+        feat, e_view = bf16_round(feat), bf16_round(e_view)
+    hv = act(torch.relu(
         _mm(feat, wv[:, :WIDTH], mm_dtype)
         + _mm(e_view, wv[:, WIDTH:WIDTH + L.vc], mm_dtype) + bv
-    )
+    ))
     rgb = _mm(hv, wr, mm_dtype) + br
     return torch.cat([rgb, alpha], -1)
 
