@@ -7,7 +7,12 @@ Runs from the root of a checkout, on a machine with one NVIDIA card, nvcc
 and PyTorch built for CUDA. Phases, each of which fails the run:
 
   1. build    compile the kernels from posegen_tpu_torch/kernels/csrc with
-              nvcc (the build's seconds and ptxas' register counts printed);
+              nvcc (the build's seconds and each kernel's registers and
+              spills printed); no kernel spills, the SASS of kernel 4's
+              passes (a) and (b) holds wgmma (HGMMA) and TMA (UTMALDG;
+              UTMASTG in pass (a)) by cuobjdump, and pass (a)'s shared-memory
+              plan and pass (b)'s split of the points agree between the
+              library and their mirrors in field_grad.py;
   2. kernels  at the flagship render's shapes (8192 rays, 64 + 16 samples)
               and at one ragged size (a last tile of 16 points),
               fused_dual against dual_plain and fused_field (full and
@@ -31,7 +36,15 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               fused_field's bit for bit on one group) and field_backward
               against field_bwd_plain, bf16 operands on both sides, each
               gradient tensor to ||kernel - plain||_2 <= GRAD_TOL ||plain||_2,
-              and two backward launches bit-identical;
+              and two backward launches bit-identical; then each pass of
+              the backward on its own, from the workspace that the same
+              launch left: pass (a)'s regions against
+              field_bwd_workspace_plain (hs, feat, hv, ghead by the
+              elementwise rule; the cotangents gz, gfeat, gzv by it on every
+              point whose ReLU masks agree with the plain version's, at most
+              MAX_MASK_FLIP_FRAC of the points not, and each to GRAD_TOL
+              relative L2), and the launch's d_w (pass (b)) against
+              field_wgrad_plain's products of those regions (elementwise);
   6. train    make_train_step on a flagship batch (N_rand 2048 = 128 groups x
               16 rays, with backgrounds) at perturb 0: the launch counters
               read field_stash 2, field_bwd 2 and no eval kernel, the losses
@@ -39,7 +52,12 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               same step through the plain float32 pipeline; then 5 steps of
               the config's perturbed, noisy training, every loss finite; the
               eval kernels refuse weights that require grad; and the times
-              of a train step and of each training kernel and plain version;
+              of a train step (with pass (a)'s and (b)'s device time per
+              step) and of each training kernel and plain version, each pass
+              of kernel 4 by the profiler beside its share of the backward's
+              bound, the two-pass design's floor (its workspace bytes at the
+              memory rate) and, for pass (b), one torch.mm (cuBLAS) per
+              product of the same workspace;
   7. pose kernels  at the pose-refinement step's shapes (configs/h36m/
               h36m_prot2.txt: 256 pose groups x 12 rays x 64 and x 80
               samples) and at one ragged size whose tiles straddle groups
@@ -58,7 +76,8 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               step through the plain float32 pipeline; then 5 perturbed,
               noisy steps at opt_pose_step 50 (finite losses, the pose
               unmoved, 5 gradients accumulated) and one at opt_pose_step 1
-              (the pose moves); the step's time, and the input branch's
+              (the pose moves); the step's time (with pass (a)'s and (b)'s
+              device time per step), and the input branch's
               device time (the profiler's, of pass (c)'s kernels) beside
               its bound;
   9. variants the field kernel's A/B harness (posegen_tpu_torch/tools/
@@ -80,6 +99,7 @@ outside a checkout of the repository, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import os
@@ -113,6 +133,19 @@ VARIANT_TILE = 64  # kernel 2's tile: the harness's cases are held at it
 # few channels, 2^-8 of one channel each
 ENC_SUM_TOL = 1e-3
 TRAIN_STEPS = 5
+# the redesigned passes of kernel 4 and the instructions their SASS must hold
+SM90_KERNELS = {"field_bwd_sm90_kernel": ("HGMMA", "UTMALDG", "UTMASTG"),
+                "wgrad_sm90_kernel": ("HGMMA", "UTMALDG")}
+PASS_A_KERNELS = ("field_bwd_sm90_kernel",)
+PASS_B_KERNELS = ("wgrad_sm90_kernel", "wgrad_reduce_kernel")
+# pass (a)'s workspace against field_bwd_workspace_plain: the forward's
+# regions by the elementwise rule; the cotangents by it on every point whose
+# ReLU masks (trunk and view layer) agree with the plain version's, and to
+# GRAD_TOL relative L2 over all (a mask on a knife edge, |z| within the
+# wgmma-vs-matmul rounding of 0, flips a whole cotangent entry)
+WS_FORWARD = ("hs", "feat", "hv", "ghead")
+WS_COTANGENTS = ("gz", "gfeat", "gzv")
+MAX_MASK_FLIP_FRAC = 0.01  # points allowed a mask that differs from the plain version's
 DEVICE = "cuda"
 # weight seed: with seed 1 the random nets give the 8192-ray render partial
 # opacity (mean fine acc ~0.3, coarse ~1), so the render comparison is not
@@ -176,10 +209,18 @@ def profile_kernels(torch, fn, n: int):
 
 def profile_calls(torch, fn, n: int):
     """torch.profiler over n calls of fn -> (wall ms per call, device kernel
-    ms per call, the 8 kernels with the most device time as (name, ms per
-    call, launches per call))."""
+    ms per call, every kernel as (name, ms per call, launches per call), most
+    time first)."""
     wall, kern = profile_kernels(torch, fn, n)
-    return wall, sum(k[1] for k in kern), kern[:8]
+    return wall, sum(k[1] for k in kern), kern
+
+
+def kernel_ms(kern, names) -> float:
+    """Device ms per call of the profiled kernels whose names hold one of
+    `names`; fails if one of them recorded no time."""
+    found = {n for n in names for k in kern if n in k[0]}
+    check(found == set(names), f"profiler: no device time of {sorted(set(names) - found)}")
+    return sum(k[1] for k in kern if any(n in k[0] for n in names))
 
 
 def bwd_flops(L) -> int:
@@ -192,6 +233,24 @@ def bwd_flops(L) -> int:
     macs = (sum(L.layer_in(i) * WIDTH for i in range(L.depth)) + WIDTH * WIDTH
             + (WIDTH + L.vc) * VIEW_WIDTH)
     return 3 * 2 * macs
+
+
+def ws_bytes(L) -> int:
+    """Bytes per point that kernel 4's pass (a) writes: the bf16 workspace
+    (hs, gz: depth x 256; feat, gfeat: 256; hv, gzv: 128; ghead: 16), gzv in
+    f32 for the view bias sums, and its bias column sums per 64 points."""
+    from posegen_tpu_torch.kernels.field import VIEW_WIDTH, WIDTH
+
+    bf16_cols = 2 * L.depth * WIDTH + 2 * WIDTH + 2 * VIEW_WIDTH + 16
+    return 2 * bf16_cols + 4 * VIEW_WIDTH + 4 * (L.depth * WIDTH + WIDTH + 4) // 64
+
+
+def wgrad_in_bytes(L) -> int:
+    """Bytes per point of pass (b)'s workspace operands, each read once
+    (hs, gz, feat, hv, gfeat, gzv, ghead; the stashes come on top)."""
+    from posegen_tpu_torch.kernels.field import VIEW_WIDTH, WIDTH
+
+    return 2 * (2 * L.depth * WIDTH + 2 * WIDTH + 2 * VIEW_WIDTH + 16)
 
 
 def bound(flops: float, nbytes: float):
@@ -214,6 +273,37 @@ def compare(name: str, got, ref) -> float:
           f"{name}: {int(bad.sum())} elements beyond {ATOL} + {RTOL}|plain| "
           f"(max|diff| {float(err.max()):.3e})")
     return float(err.max())
+
+
+def check_build(build) -> None:
+    """No kernel spills; the redesigned passes of kernel 4 issue wgmma
+    (HGMMA) and TMA (UTMALDG, and UTMASTG for pass (a)) in their SASS
+    (cuobjdump)."""
+    import re
+    import shutil
+
+    got = build.ptxas_report()
+    check(bool(got), "build: no ptxas report")
+    for name, (regs, st, ld) in sorted(got.items()):
+        print(f"  ptxas: {regs} registers, spills {st} / {ld} bytes: {name}")
+    spill = [name for name, (_, st, ld) in got.items() if st or ld]
+    check(not spill, f"ptxas: {spill} spill registers")
+    cob = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    out = subprocess.run([cob, "-sass", str(build.library_path())], capture_output=True,
+                         text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr.strip()[-500:]}")
+    sections = {sec.split()[0]: sec for sec in out.stdout.split("Function : ")[1:]}
+    for kernel, ops in SM90_KERNELS.items():
+        found = [name for name in sections if kernel in name]
+        check(len(found) == 1, f"SASS: {kernel} not found once in the library")
+        counts = {op: sections[found[0]].count(op) for op in ops}
+        check(all(counts.values()), f"SASS: {kernel} lacks {[o for o, n in counts.items() if not n]}")
+        regs = [v for k, v in got.items() if kernel in k][0]
+        n_instr = len(re.findall(r"/\*[0-9a-f]{4,}\*/", sections[found[0]]))
+        print(f"  SASS {kernel}: " + ", ".join(f"{op} x{n}" for op, n in counts.items())
+              + f", {n_instr} instructions ({16 * n_instr} bytes); ptxas {regs[0]} registers, "
+              f"spills {regs[1]} / {regs[2]} bytes")
 
 
 def main() -> int:
@@ -241,6 +331,7 @@ def main() -> int:
 def run(torch) -> int:
     from posegen_tpu_torch.kernels import build
     from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.kernels import field_grad as FG
     from posegen_tpu_torch.models.nerf import nerf_apply
     from posegen_tpu_torch.ops import sampling as samp
     from posegen_tpu_torch.render.raycast import RaycastConfig, encode_inputs, render_rays
@@ -255,9 +346,20 @@ def run(torch) -> int:
     t0 = time.perf_counter()
     build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s ({build.library_path().name})")
-    for line in build.BUILD_LOG["ptxas"].splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
+    check_build(build)
+    lib = build.load()
+    for depth in (8, 9, 16):
+        L0 = F.net_layout(depth, 7, 4)
+        check(lib.posegen_field_bwd_smem(*F._layout_arg(L0)) == FG.bwd_smem_bytes(L0),
+              f"pass (a)'s shared-memory plan at depth {depth} differs between the library "
+              "and field_grad.py")
+    chunk = ctypes.c_int()
+    for n_pts in (1, 63, 2047, 2048, 4097, 6000, 131072, 163840, 196608, 245760):
+        splits = lib.posegen_field_bwd_splits(n_pts, ctypes.byref(chunk))
+        check((splits, chunk.value) == FG.wgrad_split_plan(n_pts),
+              f"pass (b)'s split of {n_pts} points: library {(splits, chunk.value)}, "
+              f"field_grad.py {FG.wgrad_split_plan(n_pts)}")
+    print("  pass (a)'s shared-memory plan and pass (b)'s split plan: library == field_grad.py")
 
     # 2. kernels against their plain versions, at the render's shapes -------
     cfg = RaycastConfig()
@@ -402,7 +504,7 @@ def run(torch) -> int:
             print(f"timing kernel {name} {tag} ({P} points): {k_ms:.3f} ms, bound {b_ms:.3f} ms "
                   f"({b_by}, {b_ms / k_ms:.1%} of it), plain {p_ms:.3f} ms [{card}]")
 
-    train_rows, train_err, train_launches = train_phases(torch, card)
+    train_rows, train_err, train_launches, train_library, train_floors = train_phases(torch, card)
     pose_row, pose_err, pose_launches = pose_phases(torch, card)
     variant_row, variant_err, variant_launches = variant_phases(torch, card)
 
@@ -420,15 +522,25 @@ def run(torch) -> int:
             "launches": launches[name], "max_abs_err": err, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         })
-    for name, replaces in (("field_stash", "posegen_tpu/kernels/field_grad.py:252"),
-                           ("field_bwd", "posegen_tpu/kernels/field_grad.py:340")):
+    # kernel 4's weights-only branch is two passes, both launched by each
+    # field_backward call (its launch count); their bounds add up to the
+    # backward's, and design_floor_ms is the two-pass design's workspace
+    # traffic at the memory rate
+    for name, counter, replaces in (
+        ("field_stash", "field_stash", "posegen_tpu/kernels/field_grad.py:252"),
+        ("field_bwd_pass_a", "field_bwd", "posegen_tpu/kernels/field_grad.py:340"),
+        ("field_bwd_pass_b", "field_bwd", "posegen_tpu/kernels/field_grad.py:340"),
+    ):
         _, _, _, k_ms, p_ms, b_ms, b_by = train_rows[(name, "coarse")]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "posegen_tpu_torch/kernels/csrc/field_grad.cu", "replaces": replaces,
-            "launches": train_launches[name], "max_abs_err": train_err[name], "ms": k_ms,
-            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "launches": train_launches[counter], "max_abs_err": train_err[name], "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": train_library.get((name, "coarse")),
         })
+        if (name, "coarse") in train_floors:
+            kernels[-1]["design_floor_ms"] = train_floors[(name, "coarse")]
     _, _, _, k_ms, p_ms, b_ms, b_by = pose_row
     kernels.append({
         "name": "field_bwd_inputs", "route": "cuda",
@@ -503,8 +615,8 @@ def train_phases(torch, card: str):
     rpg = RAYS_PER_GROUP
 
     # 5. training kernels against their plain versions ---------------------
-    err = {"field_stash": 0.0, "field_bwd": 0.0}
-    cases = {}
+    err = {"field_stash": 0.0, "field_bwd": 0.0, "field_bwd_pass_a": 0.0, "field_bwd_pass_b": 0.0}
+    cases, workspaces = {}, {}
     with torch.no_grad():
         ro, rd = batch["rays_o"], batch["rays_d"]
         near, far = samp.get_near_far_in_cylinder(
@@ -537,7 +649,9 @@ def train_phases(torch, card: str):
                     compare(f"field_stash e_view {tag}", e_view.float(), p_ev.float()))
             err["field_stash"] = max(err["field_stash"], e)
             stashes[tag] = (e_pts, e_view)
-            d = [FG.field_backward(g, e_pts, e_view, net, bview_t) for _ in range(2)]
+            ws = FG.bwd_workspace(pts.shape[0], L, bview_t.shape[0], 0, DEVICE)
+            d = [FG.field_backward(g, e_pts, e_view, net, bview_t, workspace=ws)
+                 for _ in range(2)]
             p = FG.field_bwd_plain(e_pts, e_view, g, net, bview_t, mm_dtype=bf16)
             torch.cuda.synchronize()
             check(all(torch.equal(a, b) for a, b in zip(*d)),
@@ -553,6 +667,11 @@ def train_phases(torch, card: str):
             print(f"kernel field_stash vs plain, {pts.shape[0]} points, {poses_t.shape[0]} "
                   f"groups: max|diff| {e:.3e}; field_bwd vs plain: worst relative L2 "
                   f"{worst[0]:.3e} ({worst[1]}), two launches bit-identical")
+            e_a, e_b = backward_pass_checks(torch, FG, L, tag, g, e_pts, e_view, net, bview_t,
+                                            ws, d[1][0])
+            workspaces[tag] = ws
+            err["field_bwd_pass_a"] = max(err["field_bwd_pass_a"], e_a)
+            err["field_bwd_pass_b"] = max(err["field_bwd_pass_b"], e_b)
 
         # one group: the stash kernel's raw is the field kernel's, bit for bit
         pts, dirs, n_s, poses_t, bview_t, _ = cases["coarse"]
@@ -621,13 +740,15 @@ def train_phases(torch, card: str):
     wall, busy, top = profile_calls(torch, lambda: step_t(state_t, batch, gen), 3)
     if busy > 0.0:
         print(f"profile train step (torch.profiler, 3 steps): {wall:.3f} ms per step, device "
-              f"kernels {busy:.3f} ms, idle share {1.0 - busy / wall:.1%} [{card}]")
-        for name, k_ms, n in top:
+              f"kernels {busy:.3f} ms, idle share {1.0 - busy / wall:.1%}; kernel 4's pass (a) "
+              f"{kernel_ms(top, PASS_A_KERNELS):.3f} ms, pass (b) {kernel_ms(top, PASS_B_KERNELS):.3f} "
+              f"ms per step [{card}]")
+        for name, k_ms, n in top[:8]:
             print(f"  {k_ms:8.3f} ms  x{n:g}  {name[:90]}")
     else:
         print("profile train step: torch.profiler recorded no device time")
 
-    rows = {}
+    rows, library, floors = {}, {}, {}
     w_bytes = 2 * L.n_w + 4 * L.n_b
     with torch.no_grad():
         for tag in ("coarse", "fine"):
@@ -649,11 +770,94 @@ def train_phases(torch, card: str):
                 k_ms = cuda_ms(kern, 10)
                 p_ms = cuda_ms(plain, 3, warmup=1)
                 rows[(name, tag)] = (name, tag, P, k_ms, p_ms, *bound(flops, nbytes))
+            ws = workspaces[tag]  # pass (a)'s regions from the profiled launches below
+            _, kern = profile_kernels(torch, lambda: FG.field_backward(g, e_pts, e_view, net,
+                                                                       bview_t, workspace=ws), 5)
+            a_ms, b_ms = kernel_ms(kern, PASS_A_KERNELS), kernel_ms(kern, PASS_B_KERNELS)
+            pa_ms = cuda_ms(lambda: FG.field_bwd_workspace_plain(e_pts, e_view, g, net, bview_t,
+                                                                 mm_dtype=bf16), 3, warmup=1)
+            pb_ms = cuda_ms(lambda: FG.field_wgrad_plain(ws.regions, e_pts, e_view, L), 3,
+                            warmup=1)
+            lib_ms, lib_note = library_wgrad_ms(torch, FG, ws, e_pts, e_view, L)
+            # Each pass's bound is its share of the backward's (the function's):
+            # pass (a) two of its three products and the function's inputs read
+            # and bias gradients written, pass (b) the weight-gradient product
+            # and d_w written. The workspace between the passes is this
+            # design's, not the function's: its bytes at the memory rate are
+            # the design's floor, printed and kept beside the bound.
+            a_flops, b_flops = bwd_flops(L) * P * 2 // 3, bwd_flops(L) * P // 3
+            a_bytes = 16 * P + stash_b + w_bytes + bview_t.numel() * 4 + 4 * L.n_b
+            ws_b = ws_bytes(L) * P  # pass (a)'s workspace, written once
+            b_in = (wgrad_in_bytes(L) + stash_b // P) * P  # pass (b)'s operands, read once
+            rows[("field_bwd_pass_a", tag)] = (
+                "field_bwd_pass_a", tag, P, a_ms, pa_ms, *bound(a_flops, a_bytes))
+            rows[("field_bwd_pass_b", tag)] = (
+                "field_bwd_pass_b", tag, P, b_ms, pb_ms, *bound(b_flops, 4 * L.n_w))
+            library[("field_bwd_pass_b", tag)] = lib_ms
+            floors[("field_bwd_pass_a", tag)] = ws_b / PEAK_BYTES * 1e3
+            floors[("field_bwd_pass_b", tag)] = b_in / PEAK_BYTES * 1e3
+            print(f"timing kernel 4 pass (a) {tag} ({P} points): {a_ms:.3f} ms (profiler), "
+                  f"operation bound {a_flops / PEAK_BF16_FLOPS * 1e3:.3f} ms; the design's floor, "
+                  f"its workspace written at {PEAK_BYTES / 1e12:.2f} TB/s, "
+                  f"{floors[('field_bwd_pass_a', tag)]:.3f} ms; plain {pa_ms:.3f} ms [{card}]")
+            print(f"timing kernel 4 pass (b) {tag} ({P} points): {b_ms:.3f} ms (profiler), "
+                  f"operation bound {b_flops / PEAK_BF16_FLOPS * 1e3:.3f} ms; the design's floor, "
+                  f"its workspace and stash read, {floors[('field_bwd_pass_b', tag)]:.3f} ms; "
+                  f"plain {pb_ms:.3f} ms; library (one torch.mm per product, {lib_note}) "
+                  f"{lib_ms:.3f} ms [{card}]")
     for name, tag, P, k_ms, p_ms, b_ms, b_by in rows.values():
         print(f"timing kernel {name} {tag} ({P} points, 2 launches per step): {k_ms:.3f} ms, "
               f"bound {b_ms:.3f} ms ({b_by}, {b_ms / k_ms:.1%} of it), plain {p_ms:.3f} ms "
               f"[{card}]")
-    return rows, err, launches
+    return rows, err, launches, library, floors
+
+
+def backward_pass_checks(torch, FG, L, tag, g, e_pts, e_view, net, bview, ws, d_w):
+    """Phase 5's hold on each pass of kernel 4 on its own, from one
+    field_backward launch: pass (a)'s regions that it left in its workspace
+    `ws` against field_bwd_workspace_plain (see WS_FORWARD, WS_COTANGENTS),
+    and its d_w (pass (b)) against field_wgrad_plain's products of those
+    regions -> (max|diff| of (a), of (b))."""
+    plain = FG.field_bwd_workspace_plain(e_pts, e_view, g, net, bview, mm_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    names = WS_FORWARD + WS_COTANGENTS
+    k = {n: ws.regions[n].float() for n in names}
+    p = {n: plain[n].float() for n in names}
+    err_a = max(compare(f"pass (a) {n} {tag}", k[n], p[n]) for n in WS_FORWARD)
+    flip = ((k["hs"] > 0) != (p["hs"] > 0)).any(-1).any(0) | ((k["hv"] > 0) != (p["hv"] > 0)).any(-1)
+    n_flip, n_pts = int(flip.sum()), flip.numel()
+    check(n_flip <= MAX_MASK_FLIP_FRAC * n_pts, f"pass (a) {tag}: {n_flip} of {n_pts} points' "
+                                                "ReLU masks differ from the plain version's")
+    msg = []
+    for n in WS_COTANGENTS:
+        e_l2 = rel_l2(k[n], p[n])
+        check(e_l2 <= GRAD_TOL, f"pass (a) {n} {tag}: relative L2 {e_l2:.3e} > {GRAD_TOL}")
+        ok = ~flip if k[n].dim() == 2 else (~flip)[None].expand(k[n].shape[0], -1)
+        err_a = max(err_a, compare(f"pass (a) {n} {tag}, points whose masks agree", k[n][ok],
+                                   p[n][ok]))
+        msg.append(f"{n} {e_l2:.3e}")
+    ref = FG.field_wgrad_plain(ws.regions, e_pts, e_view, L)
+    torch.cuda.synchronize()
+    err_b = compare(f"pass (b) d_w {tag}", d_w, ref)
+    print(f"  pass (a) {tag}: workspace vs field_bwd_workspace_plain max|diff| {err_a:.3e} "
+          f"({', '.join(WS_FORWARD)} elementwise; {', '.join(WS_COTANGENTS)} elementwise on the "
+          f"{n_pts - n_flip} of {n_pts} points whose ReLU masks agree, relative L2 "
+          f"{', '.join(msg)}); pass (b) d_w vs field_wgrad_plain on the kernel's workspace "
+          f"max|diff| {err_b:.3e}, relative L2 {rel_l2(d_w, ref):.3e}")
+    return err_a, err_b
+
+
+def library_wgrad_ms(torch, FG, ws, e_pts, e_view, L):
+    """Pass (b)'s yardstick, timed and used nowhere in the port: one torch.mm
+    (cuBLAS) per product G^T H of the same workspace tensors -> (ms, its
+    output type)."""
+    prods = FG.wgrad_products(ws.regions, e_pts, e_view, L)
+    kw, note = {"out_dtype": torch.float32}, "f32 out"
+    try:
+        torch.mm(prods[0][1].T, prods[0][2], **kw)
+    except (TypeError, RuntimeError):
+        kw, note = {}, "bf16 out: this torch.mm takes no out_dtype"
+    return cuda_ms(lambda: [torch.mm(gg.T, x, **kw) for _, gg, x, _, _ in prods], 10), note
 
 
 def input_bwd_flops(L) -> int:
@@ -854,8 +1058,10 @@ def pose_phases(torch, card: str):
     wall, busy, top = profile_calls(torch, lambda: step_t(state_t, batch, gen), 3)
     if busy > 0.0:
         print(f"profile pose step (torch.profiler, 3 steps): {wall:.3f} ms per step, device "
-              f"kernels {busy:.3f} ms, idle share {1.0 - busy / wall:.1%} [{card}]")
-        for name, k_ms, n in top:
+              f"kernels {busy:.3f} ms, idle share {1.0 - busy / wall:.1%}; kernel 4's pass (a) "
+              f"{kernel_ms(top, PASS_A_KERNELS):.3f} ms, pass (b) {kernel_ms(top, PASS_B_KERNELS):.3f} "
+              f"ms per step [{card}]")
+        for name, k_ms, n in top[:8]:
             print(f"  {k_ms:8.3f} ms  x{n:g}  {name[:90]}")
     else:
         print("profile pose step: torch.profiler recorded no device time")

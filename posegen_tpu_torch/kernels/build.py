@@ -14,23 +14,26 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "posegen_tpu_torch"
 SOURCES = ("field.cu", "field_grad.cu", "field_variants.cu")
-HEADERS = ("field.cuh",)
+HEADERS = ("field.cuh", "sm90.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _LIB: Optional[ctypes.CDLL] = None
-BUILD_LOG = {"seconds": None, "ptxas": ""}  # filled by the build that ran
+# the build's seconds (None when the library was cached) and ptxas' report,
+# which is kept beside the library
+BUILD_LOG = {"seconds": None, "ptxas": ""}
 
 
 def _nvcc() -> str:
@@ -56,7 +59,9 @@ def library_path() -> Path:
 def build() -> Path:
     """Compile the kernels unless the hashed library exists -> its path."""
     out = library_path()
+    report = out.with_suffix(".ptxas.txt")
     if out.exists():
+        BUILD_LOG["ptxas"] = report.read_text() if report.exists() else ""
         return out
     nvcc = _nvcc()
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -81,6 +86,7 @@ def build() -> Path:
         raise RuntimeError(
             f"nvcc link failed ({proc.returncode}):\n{' '.join(link)}\n{proc.stdout}{proc.stderr}"
         )
+    report.write_text(ptxas)
     os.replace(tmp, out)
     BUILD_LOG["seconds"] = time.perf_counter() - t0
     BUILD_LOG["ptxas"] = ptxas
@@ -101,11 +107,16 @@ def load() -> ctypes.CDLL:
     lib.posegen_dual.restype = I
     lib.posegen_field_stash.argtypes = [P, P, I, I, P, I, I, IA, I, P, P, P, I, I, P, P, P, P]
     lib.posegen_field_stash.restype = I
-    lib.posegen_field_bwd_workspace.argtypes = [I, IA, I, I, I, I]
+    lib.posegen_field_bwd_workspace.argtypes = [I, IA, I, I, I, I,
+                                                ctypes.POINTER(ctypes.c_longlong)]
     lib.posegen_field_bwd_workspace.restype = ctypes.c_longlong
     lib.posegen_field_bwd.argtypes = [I, IA, I, P, P, P, I, I, P, P, P, P, ctypes.c_longlong,
                                       P, P, P, P, P, I, P, I, I, P, P, P, P]
     lib.posegen_field_bwd.restype = I
+    lib.posegen_field_bwd_splits.argtypes = [I, IA]
+    lib.posegen_field_bwd_splits.restype = I
+    lib.posegen_field_bwd_smem.argtypes = [IA, I]
+    lib.posegen_field_bwd_smem.restype = ctypes.c_longlong
     lib.posegen_field_variant.argtypes = [P, P, I, P, I, I, IA, I, P, P, P, I, I, I, I, I, P]
     lib.posegen_field_variant.restype = I
     lib.posegen_field_variant_blocks.argtypes = [I, I, IA, I, ctypes.POINTER(ctypes.c_int)]
@@ -114,6 +125,25 @@ def load() -> ctypes.CDLL:
     lib.posegen_error_string.restype = ctypes.c_char_p
     _LIB = lib
     return lib
+
+
+def ptxas_report() -> Dict[str, Tuple[int, int, int]]:
+    """The loaded build's ptxas -v report -> {mangled kernel: (registers,
+    spill store bytes, spill load bytes)}."""
+    out: Dict[str, list] = {}
+    cur = None
+    for line in BUILD_LOG["ptxas"].splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = m.group(1)
+            out[cur] = [0, 0, 0]
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and cur:
+            out[cur][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            out[cur][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
 
 
 def check(lib: ctypes.CDLL, rc: int, name: str) -> None:

@@ -17,24 +17,29 @@
 // the backward 5,167,104 (the JAX kernels' counts), against 2,160 bytes of
 // stash per point written and read back; at 989 TFLOP/s bf16 dense that is
 // 1.74 ns and 5.22 ns per point against 0.64 ns of stash traffic at
-// 3.35 TB/s.
+// 3.35 TB/s. The two-pass backward below also moves its workspace, 10,416
+// bytes per point written by (a) and 11,920 (with the stash) read by (b):
+// 3.1 ns and 3.6 ns per point at 3.35 TB/s. That is a floor of this design,
+// not of the function: above (b)'s 1.74 ns share of the operations, below
+// the 5.22 ns that bounds the whole backward.
 //
 // The TPU kernel sums every weight gradient into output blocks that stay
 // resident across a grid that runs in order. Hopper blocks run concurrently
 // in no order, and one net's gradients (~0.6 M floats) fit no block's shared
 // memory, so the backward is split in two deterministic passes:
-//   (a) field_bwd_tile_kernel: one block per 64 points reloads the stash,
-//       recomputes trunk and heads (the forward's own device code, so the
-//       activations are the forward's), and backprops the output cotangent
-//       through heads and trunk with the W^T products on the tensor cores.
-//       It writes each layer's input activation and pre-activation
-//       cotangent to a bf16 workspace (the JAX kernel casts both operands
-//       of every weight-gradient product to bf16, so nothing is lost), and
-//       the tile's bias-gradient column sums in f32.
-//   (b) wgrad_gemm_kernel: dW = G^T H over the point axis, split in a fixed
-//       number of point ranges whose partial products are summed in a fixed
-//       order by wgrad_reduce_kernel; bias and view-bias sums likewise. Two
-//       launches on the same inputs give bit-identical gradients.
+//   (a) field_bwd_sm90_kernel: one block per 128 points recomputes trunk
+//       and heads from the stash and backprops the output cotangent through
+//       heads and trunk, every product on wgmma with its weights streamed by
+//       TMA (see the kernel's note). It writes each layer's output
+//       activation and pre-activation cotangent to a bf16 workspace by TMA
+//       store (the JAX kernel casts both operands of every weight-gradient
+//       product to bf16, so nothing is lost), and the bias-gradient column
+//       sums per 64 points in f32.
+//   (b) wgrad_sm90_kernel: dW = G^T H over the point axis on wgmma, split in
+//       a fixed number of point ranges whose partial products are summed in
+//       a fixed order by wgrad_reduce_kernel; bias and view-bias sums
+//       likewise. Two launches on the same inputs give bit-identical
+//       gradients.
 //   (c) field_bwd_input_kernel (input gradients only): one block per 64
 //       points reads layer 0's, the skip consumer's and the view layer's
 //       pre-activation cotangents from (a)'s workspace, forms the encodings'
@@ -53,6 +58,7 @@
 //       transcendental and ~3,000 FMA per point on the CUDA cores.
 
 #include "field.cuh"
+#include "sm90.cuh"
 
 namespace posegen {
 
@@ -115,7 +121,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 // Kernel 4 (a): per-tile recompute + backprop into the workspace
 // ---------------------------------------------------------------------------
 
-// Workspace regions; every per-point region has p_pad = whole tiles of rows.
+// Workspace regions; every per-point region has p_pad rows, whole tiles of
+// pass (a) (kATile points).
 struct Workspace {
   bf16* hs;          // (depth, p_pad, 256) trunk layer outputs (post-ReLU)
   bf16* feat;        // (p_pad, 256) feature head output
@@ -125,8 +132,8 @@ struct Workspace {
   bf16* gzv;         // (p_pad, 128) view layer pre-activation cotangent
   bf16* ghead;       // (p_pad, 16) [g_alpha | g_r g_g g_b | 0 ...]
   float* gzv32;      // (p_pad, 128) gzv in f32, for the view bias sums
-  float* bias_part;  // (n_tiles, n_bias) per-tile bias column sums
-  float* gemm_part;  // (gemm tiles, splits, 64, 64) split partial products
+  float* bias_part;  // (p_pad / 64, n_bias) bias column sums per 64 points
+  float* gemm_part;  // (gemm tiles, splits, 128, 256) split partial products
   float* vb_part;    // (view groups, view chunks, 128)
   float* d_dirs_pt;  // (p_pad, 3) d_dirs per point (input gradients only)
   float* pose_part;  // (n_tiles, pose slots, 24 x 12) d_rot | d_trn per tile and group
@@ -139,338 +146,645 @@ __host__ __device__ inline int n_bias(const Layout& L) { return L.depth * kWidth
 constexpr int kHeadLd = 16;
 constexpr int kVbRows = 256;  // rows per view-bias chunk
 
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+// Pass (a) on Hopper. A block of kATile = 128 points runs two consumer
+// warpgroups of 64 points each and one producer warp. The producer streams
+// every product's weights, in 64-wide K chunks, through a TMA ring of three
+// stages (a 256 x 64 slab per chunk: four 64 x 64 boxes), and the stash's
+// e_pts / e_view chunks of the block's 128 points through a ring of their
+// own for layer 0, the skip consumer and the view layer: the encodings
+// never sit whole in shared memory. The producer's warpgroup gives its
+// registers to the consumers (setmaxnreg: 40 against 232 a thread, of the
+// 168 the launch allots). Each consumer warpgroup runs wgmma m64n256k16
+// (m64n128k16 for the view layer) with A from the activation tile or the
+// encoding slab and B from the weight slab: K-major for the forward's x W^T,
+// the same boxes read MN-major (the transpose bit) for the backward's g W.
+// The activation tile (128 x 256 bf16, 128-byte swizzled) is the next
+// layer's A operand as it stands: a warpgroup reads and overwrites only its
+// own 64 rows, after its wgmma wait and a warpgroup barrier. Each layer's
+// output leaves the tile by TMA store into the row-major workspace; the
+// forward's ReLU masks stay in shared memory as one bit per activation (4
+// words a thread a layer, in the accumulator's own layout), and the
+// backward reuses the tile for its cotangents. Bias column sums go to
+// bias_part per 64 points, in a fixed order (a butterfly over the 8 lanes
+// of each column, then the 4 warps in order). The layers' epilogues, when
+// the tensor cores wait, set the kernel's pace: the feature layer runs in
+// the trunk's loop and the backward's three kinds of layer in one loop, so
+// that each epilogue's code exists once (the fully unrolled code of one
+// more copy costs instruction fetches from L2 in every block).
+//
+// Shared memory (bytes, from a 1,024-aligned base): the tile 65,536 |
+// weight ring 3 x 32,768 | encoding ring 2 x 16,384, where after the view
+// layer each warpgroup keeps its column-sum scratch, its points' output
+// cotangent and the rgb and alpha heads' weights in its own rows of stage
+// 0 | ReLU masks depth x 4,096 | 10 mbarriers: 230,480 with the alignment
+// slack at depth 8 (bwd_smem_bytes). Deeper nets, whose masks take more,
+// run a two-stage weight ring.
+//
+// The recompute sums in wgmma order, not the stash kernel's WMMA order, so
+// its activations may differ from the forward's in the last bit of bf16 (the
+// JAX kernel recomputes too). Rows past n_pts read zero encodings and a zero
+// cotangent: their cotangents and sums are exactly 0.
+constexpr int kATile = 128;
+constexpr int kAThreads = 384;  // warpgroups 0 and 1 consume; warp 8 of warpgroup 2 produces
+constexpr int kEStages = 2;     // encoding ring; the weight ring has 3 stages, or 2 past depth 8
+constexpr uint32_t kBlockBytes = kATile * 128;           // one 64-column block of the tile
+constexpr uint32_t kHalfBlock = kBlockBytes / 2;         // a warpgroup's 64 rows of it
+constexpr uint32_t kSlabW = 4 * sm90::kBoxBytes;         // 256 x 64 weights
+constexpr uint32_t kSlabE = kBlockBytes;                 // 128 points x 64 encodings
+constexpr uint32_t kRingW = 4 * kBlockBytes;             // offset of the weight ring
+constexpr uint32_t kMaskLayer = 4 * 256 * 4;             // 4 words x 256 consumer threads
+constexpr size_t kSmemLimit = 232448;                    // an H100 block's shared memory
 
-// acc[kTile, NT*16 per warp] += A[kTile, K] @ W[K, :] with W row-major (k, n)
-// at W[k * ldw + n]: the W^T products of the backward (W is stored (out, in),
-// so its rows are the forward's outputs).
-template <int NT>
-__device__ __forceinline__ void gemm_segment_t(FragC (&acc)[kMTiles][NT], const bf16* A, int lda,
-                                               int K, const bf16* __restrict__ W, int ldw,
-                                               int n0) {
-  FragBr b[NT], bn[NT];
-#pragma unroll
-  for (int jn = 0; jn < NT; ++jn) wmma::load_matrix_sync(b[jn], W + n0 + 16 * jn, ldw);
-  for (int k = 0; k < K; k += 16) {
-    if (k + 16 < K) {
-#pragma unroll
-      for (int jn = 0; jn < NT; ++jn) {
-        wmma::load_matrix_sync(bn[jn], W + static_cast<size_t>(k + 16) * ldw + n0 + 16 * jn,
-                               ldw);
-      }
-    }
-#pragma unroll
-    for (int im = 0; im < kMTiles; ++im) {
-      FragA a;
-      wmma::load_matrix_sync(a, A + im * 16 * lda + k, lda);
-#pragma unroll
-      for (int jn = 0; jn < NT; ++jn) wmma::mma_sync(acc[im][jn], a, b[jn], acc[im][jn]);
-    }
-#pragma unroll
-    for (int jn = 0; jn < NT; ++jn) b[jn] = bn[jn];
-  }
+__host__ __device__ inline size_t bwd_plan_bytes(const Layout& L, int w_stages) {
+  return 1024 + kRingW + w_stages * kSlabW + kEStages * kSlabE +
+         static_cast<size_t>(L.depth) * kMaskLayer + 2 * (w_stages + kEStages) * sizeof(uint64_t);
 }
 
-// Where one backward product's 256-wide result goes.
-struct GradOut {
-  const bf16* mask;      // ReLU mask source: keep where mask[r * 256 + n] > 0; or none
-  const float* g;        // with w_alpha: add bf16(g[4 r + 3]) * w_alpha[n] (alpha head)
-  const bf16* w_alpha;
-  bf16* global;          // (kTile rows, 256) workspace rows of this tile
-  float* bias_part;      // 256 bias column sums of this tile
-};
-
-// out[kTile, 256] = A[kTile, K] @ W (row-major view), then + the alpha head's
-// outer product, then the ReLU mask; the f32 column sums go to the bias
-// partials and the bf16 values to `out` (shared, row stride kHLd, may alias
-// A) and to the workspace.
-__device__ void dense_t(const bf16* A, int lda, int K, const bf16* __restrict__ W, int ldw,
-                        bf16* out, float* scratch, const GradOut go) {
-  constexpr int NT = 2;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int n0 = warp * NT * 16;
-  FragC acc[kMTiles][NT];
-#pragma unroll
-  for (int im = 0; im < kMTiles; ++im) {
-#pragma unroll
-    for (int jn = 0; jn < NT; ++jn) wmma::fill_fragment(acc[im][jn], 0.f);
-  }
-  gemm_segment_t<NT>(acc, A, lda, K, W, ldw, n0);
-  __syncthreads();
-  float* sc = scratch + warp * kScratch;
-#pragma unroll
-  for (int jn = 0; jn < NT; ++jn) {
-    const int n = n0 + 16 * jn + (lane & 15);
-    float cs = 0.f;
-#pragma unroll
-    for (int im = 0; im < kMTiles; ++im) {
-      wmma::store_matrix_sync(sc, acc[im][jn], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int r = 16 * im + (e >> 4);
-        float v = sc[e];
-        if (go.w_alpha != nullptr) {
-          v += __bfloat162float(__float2bfloat16(go.g[4 * r + 3])) *
-               __bfloat162float(go.w_alpha[n]);
-        }
-        if (go.mask != nullptr && !(__bfloat162float(go.mask[r * kWidth + n]) > 0.f)) v = 0.f;
-        cs += v;
-        const bf16 vb = __float2bfloat16(v);
-        out[r * kHLd + n] = vb;
-        go.global[r * kWidth + n] = vb;
-      }
-      __syncwarp();
-    }
-    // lanes l and l + 16 hold the two halves of column n's rows
-    cs += __shfl_xor_sync(0xffffffffu, cs, 16);
-    if (lane < 16) go.bias_part[n] = cs;
-  }
-  __syncthreads();
-}
-
-// kTile rows of `width` bf16 from src (row stride src_ld) to dst (row stride
-// dst_ld): shared to workspace and back.
-__device__ __forceinline__ void copy_rows(const bf16* src, int src_ld, bf16* dst, int dst_ld,
-                                          int width) {
-  const int nv = width / 8;
-  for (int t = threadIdx.x; t < kTile * nv; t += kThreads) {
-    const int r = t / nv, c = t - r * nv;
-    reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * dst_ld)[c] =
-        reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * src_ld)[c];
-  }
+__host__ __device__ inline int bwd_w_stages(const Layout& L) {
+  return bwd_plan_bytes(L, 3) <= kSmemLimit ? 3 : 2;
 }
 
 __host__ __device__ inline size_t bwd_smem_bytes(const Layout& L) {
-  return sizeof(bf16) * kTile * (pts_ld(L) + view_ld(L) + 2 * kHLd) +
-         sizeof(float) * (kWarps * kScratch + kTile * 4);
+  return bwd_plan_bytes(L, bwd_w_stages(L));
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-    field_bwd_tile_kernel(int n_pts, const Layout L, const bf16* __restrict__ W,
-                          const float* __restrict__ B, const float* __restrict__ bview,
-                          RowBias vb, const float* __restrict__ g, const bf16* __restrict__ ep,
-                          const bf16* __restrict__ ev, const Workspace S) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int ldp = pts_ld(L), ldv = view_ld(L);
-  bf16* e_pts = reinterpret_cast<bf16*>(smem);
-  bf16* e_view = e_pts + kTile * ldp;
-  bf16* h = e_view + kTile * ldv;
-  bf16* gb = h + kTile * kHLd;
-  float* scratch = reinterpret_cast<float*>(gb + kTile * kHLd);
-  float* s_g = scratch + kWarps * kScratch;
+static int n_tiles_a(int n_pts) { return (n_pts + kATile - 1) / kATile; }
 
-  const int p0 = blockIdx.x * kTile;
-  const size_t row0 = p0;
-  const size_t P = S.p_pad;
-  float* bias_part = S.bias_part + static_cast<size_t>(blockIdx.x) * n_bias(L);
+// Tensor maps of pass (a): the stashes in boxes of 128 points x 64
+// columns; weights and workspace in boxes of 64 x 64.
+struct BwdMaps {
+  CUtensorMap ep, ev;
+  CUtensorMap w[kMaxDepth];  // trunk layer i: its h columns (layer 0: all of them)
+  CUtensorMap w_skip_e;      // the skip consumer's e_pts columns
+  CUtensorMap w_feat, w_view_f, w_view_e;  // view layer: feature | e_view columns
+  CUtensorMap hs, gz, feat, gfeat, hv, gzv;
+};
 
-  // the stashed encodings (rows past the last point repeat it, as the
-  // forward's encode does) and the output cotangent (zero past it)
-  const int vp = L.pc / 8, vv = L.vc / 8;
-  for (int t = threadIdx.x; t < kTile * vp; t += kThreads) {
-    const int r = t / vp, c = t - r * vp;
-    const size_t src = min(p0 + r, n_pts - 1);
-    reinterpret_cast<uint4*>(e_pts + r * ldp)[c] =
-        reinterpret_cast<const uint4*>(ep + src * L.pc)[c];
-  }
-  for (int t = threadIdx.x; t < kTile * vv; t += kThreads) {
-    const int r = t / vv, c = t - r * vv;
-    const size_t src = min(p0 + r, n_pts - 1);
-    reinterpret_cast<uint4*>(e_view + r * ldv)[c] =
-        reinterpret_cast<const uint4*>(ev + src * L.vc)[c];
-  }
-  const int npad = L.vcp - L.vc;
-  for (int t = threadIdx.x; t < kTile * npad; t += kThreads) {
-    e_view[(t / npad) * ldv + L.vc + t % npad] = __float2bfloat16(0.f);
-  }
-  for (int t = threadIdx.x; t < kTile * 4; t += kThreads) {
-    s_g[t] = p0 + t / 4 < n_pts ? g[4 * row0 + t] : 0.f;
-  }
-  __syncthreads();
+// The two rings: ws weight stages and kEStages encoding stages, each with a
+// full and an empty mbarrier; `it` and `ie` count their chunks.
+struct Ring {
+  uint32_t w, e, bars;  // shared addresses: weight slabs, encoding slabs, barriers
+  int ws;
+  __device__ uint32_t wslab(int s) const { return w + s * kSlabW; }
+  __device__ uint32_t eslab(int s) const { return e + s * kSlabE; }
+  __device__ uint32_t wfull(int s) const { return bars + 8 * s; }
+  __device__ uint32_t wempty(int s) const { return bars + 8 * (ws + s); }
+  __device__ uint32_t efull(int s) const { return bars + 8 * (2 * ws + s); }
+  __device__ uint32_t eempty(int s) const { return bars + 8 * (2 * ws + kEStages + s); }
+};
 
-  // ---- forward recompute (the forward kernel's device code) -------------
-  for (int i = 0; i < L.depth; ++i) {
-    const bool first = i == 0;
-    const bool cat = !first && i - 1 == L.skip;
-    dense<2>(cat ? e_pts : nullptr, ldp, cat ? L.pc : 0, first ? e_pts : h, first ? ldp : kHLd,
-             first ? L.pc : kWidth, W + L.w_layer[i], B + L.b_layer[i], true, h, scratch);
-    copy_rows(h, kHLd, S.hs + (i * P + row0) * kWidth, kWidth, kWidth);
-  }
-  dense<2>(nullptr, 0, 0, h, kHLd, kWidth, W + L.w_feat, B + L.b_feat, false, h, scratch);
-  copy_rows(h, kHLd, S.feat + row0 * kWidth, kWidth, kWidth);
-  vb.p0 = p0;
-  dense<1>(h, kHLd, kWidth, e_view, ldv, L.vcp, W + L.w_view, bview, true, h, scratch, vb);
-  copy_rows(h, kHLd, S.hv + row0 * kViewWidth, kViewWidth, kViewWidth);
-
-  // ---- heads -------------------------------------------------------------
-  // rgb head: g_hv = g_rgb @ W_rgb (bf16 operands), masked where hv == 0
-  const bf16* wr = W + L.w_rgb;
-  for (int t = threadIdx.x; t < kTile * kViewWidth; t += kThreads) {
-    const int r = t / kViewWidth, c = t % kViewWidth;
-    float s = 0.f;
-#pragma unroll
-    for (int q = 0; q < 3; ++q) {
-      s += __bfloat162float(__float2bfloat16(s_g[4 * r + q])) *
-           __bfloat162float(wr[q * kViewWidth + c]);
+// The producer: every chunk of the block's products, in the consumers' order.
+__device__ void bwd_produce(const BwdMaps& M, const Layout& L, int p0, const Ring& R) {
+  int it = 0, ie = 0;
+  auto issue = [&](const CUtensorMap* wm, bool mn, int nbox, int kc, const CUtensorMap* em) {
+    const int s = it % R.ws;
+    sm90::mbar_wait(R.wempty(s), ((it / R.ws) & 1) ^ 1);
+    sm90::mbar_expect_tx(R.wfull(s), nbox * sm90::kBoxBytes);
+    for (int b = 0; b < nbox; ++b) {
+      sm90::tma_load_2d(R.wslab(s) + b * sm90::kBoxBytes, wm, R.wfull(s), 64 * (mn ? b : kc),
+                        64 * (mn ? kc : b));
     }
-    const float gzv = __bfloat162float(h[r * kHLd + c]) > 0.f ? s : 0.f;
-    const bf16 gzb = __float2bfloat16(gzv);
-    gb[r * kHLd + c] = gzb;
-    S.gzv[(row0 + r) * kViewWidth + c] = gzb;
-    S.gzv32[(row0 + r) * kViewWidth + c] = gzv;
+    ++it;
+    if (em != nullptr) {
+      const int se = ie % kEStages;
+      sm90::mbar_wait(R.eempty(se), ((ie / kEStages) & 1) ^ 1);
+      sm90::mbar_expect_tx(R.efull(se), kSlabE);
+      sm90::tma_load_2d(R.eslab(se), em, R.efull(se), 64 * kc, p0);
+      ++ie;
+    }
+  };
+  const int nk_p = (L.pc + 63) / 64, nk_v = (L.vc + 63) / 64;
+  for (int i = 0; i < L.depth; ++i) {
+    if (i == 0 || i - 1 == L.skip) {
+      for (int kc = 0; kc < nk_p; ++kc) issue(i == 0 ? &M.w[0] : &M.w_skip_e, false, 4, kc, &M.ep);
+    }
+    if (i > 0) {
+      for (int kc = 0; kc < 4; ++kc) issue(&M.w[i], false, 4, kc, nullptr);
+    }
   }
-  for (int t = threadIdx.x; t < kTile * kHeadLd; t += kThreads) {
-    const int r = t / kHeadLd, c = t % kHeadLd;
-    const float v = c == 0 ? s_g[4 * r + 3] : c < 4 ? s_g[4 * r + c - 1] : 0.f;
-    S.ghead[(row0 + r) * kHeadLd + c] = __float2bfloat16(v);
+  for (int kc = 0; kc < 4; ++kc) issue(&M.w_feat, false, 4, kc, nullptr);
+  for (int kc = 0; kc < 4; ++kc) issue(&M.w_view_f, false, 2, kc, nullptr);
+  for (int kc = 0; kc < nk_v; ++kc) issue(&M.w_view_e, false, 2, kc, &M.ev);
+  for (int kc = 0; kc < 2; ++kc) issue(&M.w_view_f, true, 4, kc, nullptr);
+  for (int kc = 0; kc < 4; ++kc) issue(&M.w_feat, true, 4, kc, nullptr);
+  for (int i = L.depth - 1; i >= 1; --i) {
+    for (int kc = 0; kc < 4; ++kc) issue(&M.w[i], true, 4, kc, nullptr);
   }
-  if (threadIdx.x < 4) {  // alpha, then r, g, b: bias sums in f32
-    const int q = threadIdx.x == 0 ? 3 : threadIdx.x - 1;
-    float s = 0.f;
-    for (int r = 0; r < kTile; ++r) s += s_g[4 * r + q];
-    bias_part[L.depth * kWidth + kWidth + threadIdx.x] = s;
+}
+
+// acc (+)= the next nk chunks of the ring: A from the encoding slab (enc) or
+// from tile blocks at a0, a0 + 1 block, ...; B the chunk's weights, K-major
+// or (TB) MN-major. zero: the first chunk overwrites acc.
+template <int N, int TB>
+__device__ __forceinline__ void consume(float (&acc)[128], int nk, bool enc, uint32_t a0,
+                                        bool zero, int& it, int& ie, const Ring& R, int wg) {
+  for (int c = 0; c < nk; ++c) {
+    const int s = it % R.ws, se = ie % kEStages;
+    sm90::mbar_wait(R.wfull(s), (it / R.ws) & 1);
+    if (enc) sm90::mbar_wait(R.efull(se), (ie / kEStages) & 1);
+    const uint32_t a = (enc ? R.eslab(se) : a0 + c * kBlockBytes) + wg * kHalfBlock;
+    sm90::fence_acc<N / 2>(acc);
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = sm90::desc_k(a, kk);
+      const uint64_t db = TB ? sm90::desc_mn(R.wslab(s), kk) : sm90::desc_k(R.wslab(s), kk);
+      const int sd = zero && c == 0 && kk == 0 ? 0 : 1;
+      if constexpr (N == 256) {
+        sm90::wgmma_m64n256k16<0, TB>(acc, da, db, sd);
+      } else {
+        sm90::wgmma_m64n128k16<0, TB>(acc, da, db, sd);
+      }
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait_all();
+    sm90::fence_acc<N / 2>(acc);
+    if ((threadIdx.x & 127) == 0) {
+      sm90::mbar_arrive(R.wempty(s));
+      if (enc) sm90::mbar_arrive(R.eempty(se));
+    }
+    ++it;
+    ie += enc;
+  }
+}
+
+// A consumer thread's place: d[4 j + e] is at tile row r0 + 8 (e / 2),
+// column 8 j + 2 (lane % 4) + e % 2.
+struct Frag {
+  int wg, t, lane, r0;
+  __device__ Frag()
+      : wg(threadIdx.x >> 7), t(threadIdx.x & 127), lane(threadIdx.x & 31),
+        r0(64 * (threadIdx.x >> 7) + 16 * ((threadIdx.x & 127) >> 5) + ((threadIdx.x & 31) >> 2)) {}
+  __device__ int col(int j, int e) const { return 8 * j + 2 * (lane & 3) + (e & 1); }
+  __device__ int row(int e) const { return r0 + 8 * (e >> 1); }
+};
+
+// The bits of a bf16 pair, the first value in the low half.
+__device__ __forceinline__ uint32_t bf162_bits(__nv_bfloat162 v) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__low2bfloat16(v))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__high2bfloat16(v))) << 16);
+}
+
+// v[0 .. N / 2) as bf16 into the tile's swizzled blocks from blk0 (this
+// thread's rows and columns). For values past a ReLU, m collects the mask
+// bf16(v) > 0 from the bf16 bits (bit i of word i / 32 for v[i]).
+template <int N>
+__device__ __forceinline__ void put_tile(const float (&v)[128], unsigned char* tile, int blk0,
+                                         const Frag& f, uint32_t (&m)[4]) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = 4 * j + 2 * h;
+      unsigned char* p = tile + (blk0 + j / 8) * kBlockBytes + (f.r0 + 8 * h) * 128 +
+                         (((j & 7) ^ (f.lane >> 2)) << 4) + 4 * (f.lane & 3);
+      const __nv_bfloat162 b2 = __floats2bfloat162_rn(v[i], v[i + 1]);
+      *reinterpret_cast<__nv_bfloat162*>(p) = b2;
+      const uint32_t bits = bf162_bits(b2);
+      m[i >> 5] |= (static_cast<uint32_t>((bits & 0x7fffu) != 0u) << (i & 31)) |
+                   (static_cast<uint32_t>((bits & 0x7fff0000u) != 0u) << ((i + 1) & 31));
+    }
+  }
+}
+
+// Before a warpgroup overwrites its tile rows: its TMA stores have read them.
+__device__ __forceinline__ void tile_ready(const Frag& f) {
+  if (f.t == 0) sm90::tma_store_wait_read();
+  sm90::bar_sync(1 + f.wg, 128);
+}
+
+// After it wrote them: visible to the async proxy (TMA, wgmma).
+__device__ __forceinline__ void tile_publish(const Frag& f) {
+  sm90::fence_async_shared();
+  sm90::bar_sync(1 + f.wg, 128);
+}
+
+// The warpgroup's rows of nblk tile blocks from blk0 to `map` at (0, row).
+__device__ __forceinline__ void store_blocks(const Frag& f, uint32_t tile, const CUtensorMap* map,
+                                             int blk0, int nblk, int row) {
+  if (f.t != 0) return;
+  for (int b = 0; b < nblk; ++b) {
+    sm90::tma_store_2d(map, tile + (blk0 + b) * kBlockBytes + f.wg * kHalfBlock, 64 * b, row);
+  }
+  sm90::tma_store_commit();
+}
+
+// Column sums of the warpgroup's 64 rows, step 1: the 8 lanes of each
+// column reduce-scatter (xor 16, 8, 4), each lane then holds 8 columns'
+// 16-row sums, written to the warp's scratch row.
+__device__ __forceinline__ void col_sums_part(const float (&v)[128], float* scratch,
+                                              const Frag& f) {
+  float s[64];
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    s[2 * j] = v[4 * j] + v[4 * j + 2];
+    s[2 * j + 1] = v[4 * j + 1] + v[4 * j + 3];
+  }
+  const bool b4 = f.lane & 16, b3 = f.lane & 8, b2 = f.lane & 4;
+  float u[32], w[16], x[8];
+#pragma unroll
+  for (int k = 0; k < 32; ++k) {
+    u[k] = (b4 ? s[k + 32] : s[k]) + __shfl_xor_sync(0xffffffffu, b4 ? s[k] : s[k + 32], 16);
+  }
+#pragma unroll
+  for (int k = 0; k < 16; ++k) {
+    w[k] = (b3 ? u[k + 16] : u[k]) + __shfl_xor_sync(0xffffffffu, b3 ? u[k] : u[k + 16], 8);
+  }
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    x[k] = (b2 ? w[k + 8] : w[k]) + __shfl_xor_sync(0xffffffffu, b2 ? w[k] : w[k + 8], 4);
+  }
+  float* sc = scratch + (f.t >> 5) * 256;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) sc[32 * k + f.lane] = x[k];
+}
+
+// Step 2 (after a warpgroup barrier): the 4 warps' sums in order. Entry
+// 32 k + l of a warp's row is column 8 (q / 2) + 2 (l % 4) + q % 2 with
+// q = 8 (l / 4) + k.
+__device__ __forceinline__ void col_sums_out(const float* scratch, float* out, const Frag& f) {
+  for (int e = f.t; e < 256; e += 128) {
+    const int k = e >> 5, l = e & 31, q = 8 * (l >> 2) + k;
+    out[8 * (q >> 1) + 2 * (l & 3) + (q & 1)] =
+        scratch[e] + scratch[256 + e] + scratch[512 + e] + scratch[768 + e];
+  }
+}
+
+// A backward layer's output: bf16 into the tile, its column sums into
+// `sums`, and the tile to `map` at row `row`.
+__device__ __forceinline__ void bwd_out(const float (&v)[128], unsigned char* tile_p, uint32_t tile,
+                                        float* scratch, float* sums, const CUtensorMap* map,
+                                        int row, const Frag& f) {
+  tile_ready(f);
+  uint32_t unused[4] = {0u, 0u, 0u, 0u};
+  put_tile<256>(v, tile_p, 0, f, unused);
+  col_sums_part(v, scratch, f);
+  tile_publish(f);
+  store_blocks(f, tile, map, 0, 4, row);
+  col_sums_out(scratch, sums, f);
+}
+
+__device__ __forceinline__ void apply_mask(float (&v)[128], const uint32_t* m_layer, int tid) {
+  uint32_t m[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) m[k] = m_layer[k * 256 + tid];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) {
+    if (!((m[i >> 5] >> (i & 31)) & 1u)) v[i] = 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(kAThreads, 1)
+    field_bwd_sm90_kernel(const __grid_constant__ BwdMaps M, int n_pts, const Layout L,
+                          const bf16* __restrict__ W, const float* __restrict__ B,
+                          const float* __restrict__ bview, RowBias vb,
+                          const float* __restrict__ g, const Workspace S) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
+  unsigned char* base = smem_raw + pad;
+  const uint32_t tile = raw + pad;
+  const int ws = bwd_w_stages(L);
+  const uint32_t ring_e = kRingW + ws * kSlabW, mask_off = ring_e + kEStages * kSlabE;
+  uint32_t* masks = reinterpret_cast<uint32_t*>(base + mask_off);
+  const Ring R{tile + kRingW, tile + ring_e, tile + mask_off + L.depth * kMaskLayer, ws};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ws; ++s) {
+      sm90::mbar_init(R.wfull(s), 1);
+      sm90::mbar_init(R.wempty(s), 2);
+    }
+    for (int s = 0; s < kEStages; ++s) {
+      sm90::mbar_init(R.efull(s), 1);
+      sm90::mbar_init(R.eempty(s), 2);
+    }
+    sm90::fence_mbar_init();
   }
   __syncthreads();
-
-  // feature head: g_feat = g_zv @ W_view[:, :256]
-  dense_t(gb, kHLd, kViewWidth, W + L.w_view, kWidth + L.vcp, gb, scratch,
-          GradOut{nullptr, nullptr, nullptr, S.gfeat + row0 * kWidth,
-                  bias_part + L.depth * kWidth});
-  // trunk output: g_feat @ W_feat + g_alpha (x) w_alpha, masked by its ReLU
-  const int last = L.depth - 1;
-  dense_t(gb, kHLd, kWidth, W + L.w_feat, kWidth, gb, scratch,
-          GradOut{S.hs + (last * P + row0) * kWidth, s_g, W + L.w_alpha,
-                  S.gz + (last * P + row0) * kWidth, bias_part + last * kWidth});
-
-  // ---- trunk, reversed: layer i's input cotangent (the h part of the skip
-  // consumer's [x_pts | h] input), masked by layer i - 1's ReLU ----------
-  for (int i = last; i >= 1; --i) {
-    const int off = i - 1 == L.skip ? L.pc : 0;
-    dense_t(gb, kHLd, kWidth, W + L.w_layer[i] + off, L.layer_in_of(i), gb, scratch,
-            GradOut{S.hs + ((i - 1) * P + row0) * kWidth, nullptr, nullptr,
-                    S.gz + ((i - 1) * P + row0) * kWidth, bias_part + (i - 1) * kWidth});
+  const int p0 = blockIdx.x * kATile;
+  if (threadIdx.x >= 256) {
+    sm90::reg_dealloc<40>();
+    if (threadIdx.x == 256) bwd_produce(M, L, p0, R);
+    return;
   }
+  sm90::reg_alloc<232>();
+
+  const Frag f;
+  const int tid = threadIdx.x;
+  // Once the view layer has read the last encoding chunk, the warpgroup's
+  // own rows of encoding stage 0 hold its column-sum scratch (4 x 256
+  // floats), its 64 points' output cotangent (64 x 4 floats) and the rgb and
+  // alpha heads' weights (3 x 128 and 256 bf16).
+  float* scratch = reinterpret_cast<float*>(base + ring_e + f.wg * kHalfBlock);
+  float* s_g = scratch + 4 * 256;
+  bf16* wr_s = reinterpret_cast<bf16*>(s_g + 4 * 64);
+  bf16* wa_s = wr_s + 3 * kViewWidth;
+  const int P = static_cast<int>(S.p_pad);
+  const int hrow = p0 + 64 * f.wg;  // the warpgroup's first point
+  float* sums = S.bias_part + static_cast<size_t>(2 * blockIdx.x + f.wg) * n_bias(L);
+  const int nk_p = (L.pc + 63) / 64, nk_v = (L.vc + 63) / 64;
+
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  int it = 0, ie = 0;
+
+  // ---- forward recompute: the trunk, then the feature head (i == depth,
+  // no ReLU) ------------------------------------------------------------------
+  for (int i = 0; i <= L.depth; ++i) {
+    const bool trunk = i < L.depth;
+    const bool cat = trunk && i > 0 && i - 1 == L.skip;
+    if (i == 0 || cat) consume<256, 0>(acc, nk_p, true, 0, true, it, ie, R, f.wg);
+    if (i > 0) consume<256, 0>(acc, 4, false, tile, !cat, it, ie, R, f.wg);
+    const float* bias = B + (trunk ? L.b_layer[i] : L.b_feat);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = acc[4 * j + e] + __ldg(bias + f.col(j, e));
+        acc[4 * j + e] = trunk ? fmaxf(x, 0.f) : x;
+      }
+    }
+    tile_ready(f);
+    uint32_t m[4] = {0u, 0u, 0u, 0u};
+    put_tile<256>(acc, base, 0, f, m);
+    if (trunk) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) masks[(4 * i + k) * 256 + tid] = m[k];
+    }
+    tile_publish(f);
+    store_blocks(f, tile, trunk ? &M.hs : &M.feat, 0, 4, trunk ? i * P + hrow : hrow);
+  }
+  consume<128, 0>(acc, 4, false, tile, true, it, ie, R, f.wg);  // view layer: [feat | e_view]
+  consume<128, 0>(acc, nk_v, true, 0, false, it, ie, R, f.wg);
+  for (int e = f.t; e < 256; e += 128) {  // the output cotangent, zero past n_pts
+    const size_t p = hrow + e / 4;
+    s_g[e] = p < static_cast<size_t>(n_pts) ? g[4 * p + e % 4] : 0.f;
+  }
+  if (f.t < 48) {
+    reinterpret_cast<uint4*>(wr_s)[f.t] = reinterpret_cast<const uint4*>(W + L.w_rgb)[f.t];
+  } else if (f.t < 80) {
+    reinterpret_cast<uint4*>(wa_s)[f.t - 48] = reinterpret_cast<const uint4*>(W + L.w_alpha)[f.t - 48];
+  }
+
+  // ---- heads: hv = relu(zv + the point's view bias) into tile blocks 0-1;
+  // g_zv = g_rgb @ W_rgb (bf16 operands) where hv > 0, into blocks 2-3 ------
+  {
+    const float* brow[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int p = min(p0 + f.r0 + 8 * h, n_pts - 1);
+      brow[h] = bview + (vb.ld ? static_cast<size_t>(p / vb.ppg) * vb.ld : 0);
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[4 * j + e] = fmaxf(acc[4 * j + e] + __ldg(brow[e >> 1] + f.col(j, e)), 0.f);
+      }
+    }
+    tile_ready(f);
+    uint32_t hm[4] = {0u, 0u, 0u, 0u};
+    put_tile<128>(acc, base, 0, f, hm);
+    float gq[2][3];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        gq[h][q] = __bfloat162float(__float2bfloat16(s_g[4 * (f.r0 + 8 * h - 64 * f.wg) + q]));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = f.col(j, e), i = 4 * j + e;
+        float s = 0.f;
+#pragma unroll
+        for (int q = 0; q < 3; ++q) s += gq[e >> 1][q] * __bfloat162float(wr_s[q * kViewWidth + c]);
+        acc[i] = (hm[i >> 5] >> (i & 31)) & 1u ? s : 0.f;
+      }
+    }
+    float* __restrict__ gzv32 = S.gzv32 + static_cast<size_t>(p0 + f.r0) * kViewWidth;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        *reinterpret_cast<float2*>(gzv32 + 8 * h * kViewWidth + f.col(j, 0)) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
+    uint32_t unused[4] = {0u, 0u, 0u, 0u};
+    put_tile<128>(acc, base, 2, f, unused);
+    {  // ghead: a half row of 8 bf16 a thread, [g_alpha g_r g_g g_b 0 0 0 0 | 0 ...]
+      const int r = f.t >> 1;
+      const float* gr = s_g + 4 * r;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if ((f.t & 1) == 0) {
+        v.x = bf162_bits(__floats2bfloat162_rn(gr[3], gr[0]));
+        v.y = bf162_bits(__floats2bfloat162_rn(gr[1], gr[2]));
+      }
+      reinterpret_cast<uint4*>(S.ghead + static_cast<size_t>(hrow + r) * kHeadLd)[f.t & 1] = v;
+    }
+    if (f.t < 4) {  // alpha, then r, g, b: bias sums in f32
+      const int q = f.t == 0 ? 3 : f.t - 1;
+      float s = 0.f;
+      for (int r = 0; r < 64; ++r) s += s_g[4 * r + q];
+      sums[L.depth * kWidth + kWidth + f.t] = s;
+    }
+    tile_publish(f);
+    store_blocks(f, tile, &M.hv, 0, 2, hrow);
+    store_blocks(f, tile, &M.gzv, 2, 2, hrow);
+  }
+
+  // ---- backward: k = 0 the feature head's cotangent g_feat = g_zv @
+  // W_view[:, :256]; k = 1 the trunk output's, g_feat @ W_feat + g_alpha (x)
+  // w_alpha; then down the trunk, layer i's input cotangent (the h part of
+  // the skip consumer's [x_pts | h] input); each masked by its layer's ReLU
+  for (int k = 0; k <= L.depth; ++k) {
+    const int layer = L.depth - k;  // whose pre-activation cotangent k >= 1 gives
+    consume<256, 1>(acc, k == 0 ? 2 : 4, false, k == 0 ? tile + 2 * kBlockBytes : tile, true, it,
+                    ie, R, f.wg);
+    if (k == 1) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[4 * j + e] +=
+              __bfloat162float(__float2bfloat16(s_g[4 * (f.row(e) - 64 * f.wg) + 3])) *
+              __bfloat162float(wa_s[f.col(j, e)]);
+        }
+      }
+    }
+    if (k >= 1) apply_mask(acc, masks + layer * 1024, tid);
+    bwd_out(acc, base, tile, scratch, sums + (k == 0 ? L.depth : layer) * kWidth,
+            k == 0 ? &M.gfeat : &M.gz, k == 0 ? hrow : layer * P + hrow, f);
+  }
+  if (f.t == 0) sm90::tma_store_wait_all();
 }
 
 // ---------------------------------------------------------------------------
 // Kernel 4 (b): weight gradients dW = G^T H over the point axis
 // ---------------------------------------------------------------------------
 
-// One product: rows [m_lo, m_hi) of G^T H land at out[(m - m_lo) * ldo + n].
-// G (n_pts, lda) has ma valid columns and H (n_pts, ldb) nb; both widths are
-// multiples of 8 (whole 16-byte vectors).
-struct GemmJob {
-  const bf16* a;
-  const bf16* b;
-  float* out;
-  int lda, ma, ldb, nb, ldo, m_lo, m_hi, tiles_n, tile0;
-};
-
+// Pass (b) on Hopper: a persistent GEMM over (output tile, point split) work
+// items. An output tile is 128 rows (the products' outputs) x 256 columns
+// (their inputs); each of two consumer warpgroups owns 64 rows and runs
+// wgmma m64n256k16 with A = G^T from [64 points x 64 outputs] TMA boxes
+// (MN-major A) and B = H from [64 points x 64 inputs] boxes (MN-major B),
+// fed by a producer warp through a four-stage ring of 48 KB per stage. A
+// split's partial tile goes to gemm_part; wgrad_reduce_kernel sums the
+// splits in split order. Ragged widths (e_pts 432, e_view 648, the 16-wide
+// ghead) and the last points read TMA's zero fill. Work items are numbered
+// split-major, so the blocks that run together read the same point range:
+// a job's G and H rows are reused from L2 across its tiles.
+constexpr int kBM = 128, kBN = 256;  // output tile
+constexpr int kBStages = 4;
+constexpr uint32_t kStageA = 2 * sm90::kBoxBytes, kStageB = 4 * sm90::kBoxBytes;
 constexpr int kMaxJobs = 24;
-constexpr int kGT = 64;           // output tile edge
-constexpr int kGK = 32;           // points per staged step
-constexpr int kGLd = kGT + 8;     // shared row stride (bf16)
-constexpr int kGThreads = 128;
 constexpr int kMaxSplits = 16;
 
-struct GemmJobs {
-  GemmJob job[kMaxJobs];
+// One product: rows [m_lo, m_hi) of G^T H land at out[(m - m_lo) * ldo + n];
+// G has ma valid columns, H nb.
+struct WgradJob {
+  CUtensorMap a, b;  // G (n_pts x ma), H (n_pts x nb): boxes of 64 points x 64 columns
+  float* out;
+  int ldo, ma, nb, m_lo, m_hi, tiles_n, tile0;
+};
+
+struct WgradJobs {
+  WgradJob job[kMaxJobs];
   float* part;
   int n_jobs, n_tiles, splits, chunk, n_pts;
 };
 
-__device__ __forceinline__ const GemmJob& find_job(const GemmJobs& J, int tile) {
+__host__ __device__ inline size_t wgrad_smem_bytes() {
+  return 1024 + kBStages * (kStageA + kStageB) + 2 * kBStages * sizeof(uint64_t);
+}
+
+__device__ __forceinline__ const WgradJob& find_job(const WgradJobs& J, int tile) {
   int j = 0;
   while (j + 1 < J.n_jobs && J.job[j + 1].tile0 <= tile) ++j;
   return J.job[j];
 }
 
-using FragAc = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
+struct WgradItem {
+  const WgradJob* jb;
+  int tile, split, m0, n0, k_begin, k_end;
+};
 
-__global__ void __launch_bounds__(kGThreads)
-    wgrad_gemm_kernel(const __grid_constant__ GemmJobs J) {
-  __shared__ __align__(128) bf16 sA[kGK * kGLd];
-  __shared__ __align__(128) bf16 sB[kGK * kGLd];
-  const int tile = blockIdx.x, split = blockIdx.y;
-  const GemmJob& jb = find_job(J, tile);
-  const int t = tile - jb.tile0;
-  const int m0 = (t / jb.tiles_n) * kGT, n0 = (t % jb.tiles_n) * kGT;
-  const int k_begin = split * J.chunk;
-  const int k_end = min(J.n_pts, k_begin + J.chunk);
-  const int warp = threadIdx.x >> 5;
+__device__ __forceinline__ WgradItem wgrad_item(const WgradJobs& J, int item) {
+  WgradItem w;
+  w.split = item / J.n_tiles;
+  w.tile = item - w.split * J.n_tiles;
+  w.jb = &find_job(J, w.tile);
+  const int t = w.tile - w.jb->tile0;
+  w.m0 = (t / w.jb->tiles_n) * kBM;
+  w.n0 = (t % w.jb->tiles_n) * kBN;
+  w.k_begin = w.split * J.chunk;
+  w.k_end = min(J.n_pts, w.k_begin + J.chunk);
+  return w;
+}
 
-  FragC acc[4];
-#pragma unroll
-  for (int jn = 0; jn < 4; ++jn) wmma::fill_fragment(acc[jn], 0.f);
-  // each thread stages 2 vectors of G and 2 of H per step; the next step's
-  // vectors load while this one multiplies
-  uint4 va[2], vb[2];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int v = threadIdx.x + u * kGThreads;
-      const int r = v >> 3, c = (v & 7) * 8;
-      const int p = k0 + r;
-      va[u] = make_uint4(0, 0, 0, 0);
-      vb[u] = make_uint4(0, 0, 0, 0);
-      if (p < k_end) {
-        if (m0 + c < jb.ma) {
-          va[u] = *reinterpret_cast<const uint4*>(jb.a + static_cast<size_t>(p) * jb.lda + m0 + c);
-        }
-        if (n0 + c < jb.nb) {
-          vb[u] = *reinterpret_cast<const uint4*>(jb.b + static_cast<size_t>(p) * jb.ldb + n0 + c);
-        }
-      }
+__global__ void __launch_bounds__(kAThreads, 1) wgrad_sm90_kernel(const __grid_constant__ WgradJobs J) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t ring_a = (raw + 1023) & ~1023u;
+  const uint32_t ring_b = ring_a + kBStages * kStageA;
+  const uint32_t bars = ring_b + kBStages * kStageB;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (kBStages + s); };
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBStages; ++s) {
+      sm90::mbar_init(full(s), 1);
+      sm90::mbar_init(empty(s), 2);
     }
-  };
-  if (k_begin < k_end) load(k_begin);
-  for (int k0 = k_begin; k0 < k_end; k0 += kGK) {
-#pragma unroll
-    for (int u = 0; u < 2; ++u) {
-      const int v = threadIdx.x + u * kGThreads;
-      const int r = v >> 3, c = (v & 7) * 8;
-      *reinterpret_cast<uint4*>(sA + r * kGLd + c) = va[u];
-      *reinterpret_cast<uint4*>(sB + r * kGLd + c) = vb[u];
-    }
-    __syncthreads();
-    if (k0 + kGK < k_end) load(k0 + kGK);
-#pragma unroll
-    for (int kk = 0; kk < kGK; kk += 16) {
-      FragAc a;  // (m, k) = G[k][m]: the staged G rows read column-major
-      wmma::load_matrix_sync(a, sA + kk * kGLd + 16 * warp, kGLd);
-#pragma unroll
-      for (int jn = 0; jn < 4; ++jn) {
-        FragBr b;
-        wmma::load_matrix_sync(b, sB + kk * kGLd + 16 * jn, kGLd);
-        wmma::mma_sync(acc[jn], a, b, acc[jn]);
-      }
-    }
-    __syncthreads();
+    sm90::fence_mbar_init();
   }
-  float* part = J.part + (static_cast<size_t>(tile) * J.splits + split) * kGT * kGT;
+  __syncthreads();
+  const int n_items = J.n_tiles * J.splits;
+
+  if (threadIdx.x >= 256) {  // the producer
+    if (threadIdx.x != 256) return;
+    int it = 0;
+    for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const WgradItem w = wgrad_item(J, item);
+      for (int k0 = w.k_begin; k0 < w.k_end; k0 += 64, ++it) {
+        const int s = it % kBStages;
+        sm90::mbar_wait(empty(s), ((it / kBStages) & 1) ^ 1);
+        sm90::mbar_expect_tx(full(s), kStageA + kStageB);
+        for (int b = 0; b < 2; ++b) {
+          sm90::tma_load_2d(ring_a + s * kStageA + b * sm90::kBoxBytes, &w.jb->a, full(s),
+                            w.m0 + 64 * b, k0);
+        }
+        for (int b = 0; b < 4; ++b) {
+          sm90::tma_load_2d(ring_b + s * kStageB + b * sm90::kBoxBytes, &w.jb->b, full(s),
+                            w.n0 + 64 * b, k0);
+        }
+      }
+    }
+    return;
+  }
+
+  const int wg = threadIdx.x >> 7, lane = threadIdx.x & 31;
+  const int r0 = 64 * wg + 16 * ((threadIdx.x & 127) >> 5) + (lane >> 2);
+  int it = 0;
+  float acc[128];
+  for (int item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const WgradItem w = wgrad_item(J, item);
+    const bool active = w.m0 + 64 * wg < w.jb->ma;  // rows past ma stay zero
 #pragma unroll
-  for (int jn = 0; jn < 4; ++jn) {
-    wmma::store_matrix_sync(part + 16 * warp * kGT + 16 * jn, acc[jn], kGT, wmma::mem_row_major);
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (int k0 = w.k_begin; k0 < w.k_end; k0 += 64, ++it) {
+      const int s = it % kBStages;
+      sm90::mbar_wait(full(s), (it / kBStages) & 1);
+      if (active) {
+        sm90::fence_acc<128>(acc);
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          sm90::wgmma_m64n256k16<1, 1>(
+              acc, sm90::desc_mn(ring_a + s * kStageA + wg * sm90::kBoxBytes, kk),
+              sm90::desc_mn(ring_b + s * kStageB, kk), 1);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait_all();
+        sm90::fence_acc<128>(acc);
+      }
+      if ((threadIdx.x & 127) == 0) sm90::mbar_arrive(empty(s));
+    }
+    float* part = J.part + (static_cast<size_t>(w.tile) * J.splits + w.split) * kBM * kBN;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        *reinterpret_cast<float2*>(part + (r0 + 8 * h) * kBN + 8 * j + 2 * (lane & 3)) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      }
+    }
   }
 }
 
-// Sum each tile's split partials in split order into the gradient buffer.
-__global__ void wgrad_reduce_kernel(const __grid_constant__ GemmJobs J) {
+// Sum each tile's split partials in split order into the gradient buffer:
+// block (tile, y) takes rows [y * kReduceRows, (y + 1) * kReduceRows).
+constexpr int kReduceRows = 4;
+
+__global__ void wgrad_reduce_kernel(const __grid_constant__ WgradJobs J) {
   const int tile = blockIdx.x;
-  const GemmJob& jb = find_job(J, tile);
+  const WgradJob& jb = find_job(J, tile);
   const int t = tile - jb.tile0;
-  const int m0 = (t / jb.tiles_n) * kGT, n0 = (t % jb.tiles_n) * kGT;
-  const float* part = J.part + static_cast<size_t>(tile) * J.splits * kGT * kGT;
-  for (int e = threadIdx.x; e < kGT * kGT; e += blockDim.x) {
-    const int m = m0 + e / kGT, n = n0 + e % kGT;
+  const int m0 = (t / jb.tiles_n) * kBM, n0 = (t % jb.tiles_n) * kBN;
+  const float* part = J.part + static_cast<size_t>(tile) * J.splits * kBM * kBN;
+  const int e1 = (blockIdx.y + 1) * kReduceRows * kBN;
+  for (int e = blockIdx.y * kReduceRows * kBN + threadIdx.x; e < e1; e += blockDim.x) {
+    const int m = m0 + e / kBN, n = n0 + e % kBN;
     if (m < jb.m_lo || m >= jb.m_hi || n >= jb.nb) continue;
     float s = 0.f;
-    for (int sp = 0; sp < J.splits; ++sp) s += part[static_cast<size_t>(sp) * kGT * kGT + e];
+    for (int sp = 0; sp < J.splits; ++sp) s += part[static_cast<size_t>(sp) * kBM * kBN + e];
     jb.out[static_cast<size_t>(m - jb.m_lo) * jb.ldo + n] = s;
   }
 }
 
-// Bias gradients: the tiles' column sums, summed in tile order.
+// Bias gradients: the column sums per 64 points, summed in order.
 __global__ void bias_reduce_kernel(const float* __restrict__ part, int n_tiles, const Layout L,
                                    float* __restrict__ d_b) {
   const int nb = n_bias(L);
@@ -511,6 +825,50 @@ __global__ void vbias_sum_kernel(const float* __restrict__ vb_part, int nck,
 // ---------------------------------------------------------------------------
 // Kernel 4 (c): input gradients through the encode (input_grads branch)
 // ---------------------------------------------------------------------------
+
+using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+
+// acc[kTile, NT*16 per warp] += A[kTile, K] @ W[K, :] with W row-major (k, n)
+// at W[k * ldw + n]: the W^T products of the backward (W is stored (out, in),
+// so its rows are the forward's outputs).
+template <int NT>
+__device__ __forceinline__ void gemm_segment_t(FragC (&acc)[kMTiles][NT], const bf16* A, int lda,
+                                               int K, const bf16* __restrict__ W, int ldw,
+                                               int n0) {
+  FragBr b[NT], bn[NT];
+#pragma unroll
+  for (int jn = 0; jn < NT; ++jn) wmma::load_matrix_sync(b[jn], W + n0 + 16 * jn, ldw);
+  for (int k = 0; k < K; k += 16) {
+    if (k + 16 < K) {
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn) {
+        wmma::load_matrix_sync(bn[jn], W + static_cast<size_t>(k + 16) * ldw + n0 + 16 * jn,
+                               ldw);
+      }
+    }
+#pragma unroll
+    for (int im = 0; im < kMTiles; ++im) {
+      FragA a;
+      wmma::load_matrix_sync(a, A + im * 16 * lda + k, lda);
+#pragma unroll
+      for (int jn = 0; jn < NT; ++jn) wmma::mma_sync(acc[im][jn], a, b[jn], acc[im][jn]);
+    }
+#pragma unroll
+    for (int jn = 0; jn < NT; ++jn) b[jn] = bn[jn];
+  }
+}
+
+// kTile rows of `width` bf16 from src (row stride src_ld) to dst (row stride
+// dst_ld): the workspace's rows into shared memory.
+__device__ __forceinline__ void copy_rows(const bf16* src, int src_ld, bf16* dst, int dst_ld,
+                                          int width) {
+  const int nv = width / 8;
+  for (int t = threadIdx.x; t < kTile * nv; t += kThreads) {
+    const int r = t / nv, c = t - r * nv;
+    reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * dst_ld)[c] =
+        reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * src_ld)[c];
+  }
+}
 
 constexpr int kPoseGrad = kJoints * 12;  // per group: d_rot (24 x 9) | d_trn (24 x 3), (j, e)
 constexpr int kState = 6;                // floats per (point, joint) of the chain rule
@@ -795,22 +1153,44 @@ static int n_tiles_of(int n_pts) { return (n_pts + kTile - 1) / kTile; }
 
 static int splits_of(int n_pts) { return max(1, min(kMaxSplits, n_pts / 2048)); }
 
+// Points per split, whole 64-point chunks (mirrored by field_grad.py wgrad_split_plan).
+static int chunk_of(int n_pts) {
+  const int splits = splits_of(n_pts);
+  return ((n_pts + splits - 1) / splits + 63) / 64 * 64;
+}
+
 static int view_chunks(int vppg) { return (vppg + kVbRows - 1) / kVbRows; }
 
 // Most pose groups of ppg points that one tile of kTile points can touch.
 static int pose_slots(int ppg) { return min(kTile, (kTile - 1) / ppg + 2); }
 
-// Build the weight-gradient products of one net (see GemmJob).
-static int gemm_jobs(const Layout& L, const Workspace& S, const bf16* ep, const bf16* ev,
-                     float* d_w, GemmJobs* J) {
+// The weight-gradient products of one net (see WgradJob); with maps, their
+// tensor maps over n_pts rows too. 0, or -1 when a job or a map fails.
+static int gemm_jobs(const Layout& L, const Workspace& S, int n_pts, const bf16* ep,
+                     const bf16* ev, float* d_w, WgradJobs* J, bool maps) {
   int n = 0, tiles = 0;
+  bool ok = true;
   const size_t P = S.p_pad;
   auto add = [&](const bf16* a, int lda, int ma, const bf16* b, int ldb, int nb, float* out,
                  int ldo, int m_lo, int m_hi) {
-    if (n == kMaxJobs) return;
-    GemmJob& j = J->job[n++];
-    j = GemmJob{a, b, out, lda, ma, ldb, nb, ldo, m_lo, m_hi, (nb + kGT - 1) / kGT, tiles};
-    tiles += ((ma + kGT - 1) / kGT) * j.tiles_n;
+    if (n == kMaxJobs) {
+      ok = false;
+      return;
+    }
+    WgradJob& j = J->job[n++];
+    j.out = out;
+    j.ldo = ldo;
+    j.ma = ma;
+    j.nb = nb;
+    j.m_lo = m_lo;
+    j.m_hi = m_hi;
+    j.tiles_n = (nb + kBN - 1) / kBN;
+    j.tile0 = tiles;
+    tiles += ((ma + kBM - 1) / kBM) * j.tiles_n;
+    if (maps) {
+      ok = ok && sm90::make_map(&j.a, a, ma, n_pts, lda, 64) &&
+           sm90::make_map(&j.b, b, nb, n_pts, ldb, 64);
+    }
   };
   for (int i = 0; i < L.depth; ++i) {
     const bf16* gz = S.gz + i * P * kWidth;
@@ -837,16 +1217,50 @@ static int gemm_jobs(const Layout& L, const Workspace& S, const bf16* ep, const 
   add(S.ghead, kHeadLd, kHeadLd, S.hv, kViewWidth, kViewWidth, d_w + L.w_rgb, kViewWidth, 1, 4);
   J->n_jobs = n;
   J->n_tiles = tiles;
-  return n < kMaxJobs ? 0 : -1;
+  return ok ? 0 : -1;
 }
 
-// Carve the workspace; returns its size in bytes (base may be null to size it).
-// ppg > 0 (points per pose group) adds the input gradients' regions.
+// Pass (a)'s tensor maps; false when the encoder refuses one.
+static bool bwd_maps(const Layout& L, int n_pts, const bf16* W, const bf16* ep, const bf16* ev,
+                     const Workspace& S, BwdMaps* M) {
+  using sm90::make_map;
+  const size_t P = S.p_pad;
+  bool ok = make_map(&M->ep, ep, L.pc, n_pts, L.pc, kATile) &&
+            make_map(&M->ev, ev, L.vc, n_pts, L.vc, kATile);
+  for (int i = 0; i < L.depth && ok; ++i) {
+    const bf16* w = W + L.w_layer[i];
+    const int ld = L.layer_in_of(i);
+    if (i == 0) {
+      ok = make_map(&M->w[0], w, L.pc, kWidth, ld, 64);
+    } else if (i - 1 == L.skip) {
+      ok = make_map(&M->w_skip_e, w, L.pc, kWidth, ld, 64) &&
+           make_map(&M->w[i], w + L.pc, kWidth, kWidth, ld, 64);
+    } else {
+      ok = make_map(&M->w[i], w, kWidth, kWidth, ld, 64);
+    }
+  }
+  const int ldv = kWidth + L.vcp;
+  return ok && make_map(&M->w_feat, W + L.w_feat, kWidth, kWidth, kWidth, 64) &&
+         make_map(&M->w_view_f, W + L.w_view, kWidth, kViewWidth, ldv, 64) &&
+         make_map(&M->w_view_e, W + L.w_view + kWidth, L.vc, kViewWidth, ldv, 64) &&
+         make_map(&M->hs, S.hs, kWidth, L.depth * P, kWidth, 64) &&
+         make_map(&M->gz, S.gz, kWidth, L.depth * P, kWidth, 64) &&
+         make_map(&M->feat, S.feat, kWidth, P, kWidth, 64) &&
+         make_map(&M->gfeat, S.gfeat, kWidth, P, kWidth, 64) &&
+         make_map(&M->hv, S.hv, kViewWidth, P, kViewWidth, 64) &&
+         make_map(&M->gzv, S.gzv, kViewWidth, P, kViewWidth, 64);
+}
+
+// Carve the workspace; returns its size in bytes (base may be null to size
+// it). ppg > 0 (points per pose group) adds the input gradients' regions.
+// offsets, if given, receives each region's byte offset in carve order.
 static size_t carve(const Layout& L, int n_pts, int n_vgroups, int vppg, int ppg,
-                    unsigned char* base, Workspace* S) {
-  const size_t P = static_cast<size_t>(n_tiles_of(n_pts)) * kTile;
+                    unsigned char* base, Workspace* S, long long* offsets = nullptr) {
+  const size_t P = static_cast<size_t>(n_tiles_a(n_pts)) * kATile;
   size_t off = 0;
+  int k = 0;
   auto take = [&](size_t bytes) {
+    if (offsets != nullptr) offsets[k++] = static_cast<long long>(off);
     unsigned char* p = base ? base + off : nullptr;
     off += align256(bytes);
     return p;
@@ -860,14 +1274,12 @@ static size_t carve(const Layout& L, int n_pts, int n_vgroups, int vppg, int ppg
   S->gzv = reinterpret_cast<bf16*>(take(sizeof(bf16) * P * kViewWidth));
   S->ghead = reinterpret_cast<bf16*>(take(sizeof(bf16) * P * kHeadLd));
   S->gzv32 = reinterpret_cast<float*>(take(sizeof(float) * P * kViewWidth));
-  S->bias_part =
-      reinterpret_cast<float*>(take(sizeof(float) * n_tiles_of(n_pts) * n_bias(L)));
-  // the gemm tiles: the jobs' count, sized with a null workspace
-  GemmJobs J{};
-  Workspace dummy = *S;
-  gemm_jobs(L, dummy, nullptr, nullptr, nullptr, &J);
+  S->bias_part = reinterpret_cast<float*>(take(sizeof(float) * (P / 64) * n_bias(L)));
+  // the gemm tiles: the jobs' count, sized without maps
+  WgradJobs J{};
+  gemm_jobs(L, *S, n_pts, nullptr, nullptr, nullptr, &J, false);
   S->gemm_part = reinterpret_cast<float*>(
-      take(sizeof(float) * J.n_tiles * splits_of(n_pts) * kGT * kGT));
+      take(sizeof(float) * J.n_tiles * splits_of(n_pts) * kBM * kBN));
   S->vb_part = reinterpret_cast<float*>(
       take(sizeof(float) * n_vgroups * view_chunks(vppg) * kViewWidth));
   S->d_dirs_pt = nullptr;
@@ -920,8 +1332,11 @@ int posegen_field_stash(const float* pts, const float* dirs, int n_pts, int spr,
 
 // Bytes of workspace posegen_field_bwd needs for these sizes (0: invalid);
 // ppg > 0, the points per pose group, sizes it for the input gradients.
+// regions, if not null, receives its layout: regions[0] = p_pad (rows of
+// every per-point region), regions[1..8] = byte offsets of hs, feat, hv,
+// gz, gfeat, gzv, ghead and gzv32 (see Workspace).
 long long posegen_field_bwd_workspace(int n_pts, const int* layout, int n_layout, int n_vgroups,
-                                      int vppg, int ppg) {
+                                      int vppg, int ppg, long long* regions) {
   using namespace posegen;
   Layout L;
   if (!read_layout(layout, n_layout, &L) || n_pts <= 0 || ppg < 0 ||
@@ -929,7 +1344,32 @@ long long posegen_field_bwd_workspace(int n_pts, const int* layout, int n_layout
     return 0;
   }
   Workspace S;
-  return static_cast<long long>(carve(L, n_pts, n_vgroups, vppg, ppg, nullptr, &S));
+  long long offsets[16];
+  const size_t bytes = carve(L, n_pts, n_vgroups, vppg, ppg, nullptr, &S, offsets);
+  if (regions != nullptr) {
+    regions[0] = static_cast<long long>(S.p_pad);
+    for (int k = 0; k < 8; ++k) regions[1 + k] = offsets[k];
+  }
+  return static_cast<long long>(bytes);
+}
+
+// Pass (b)'s split of n_pts points: returns the number of splits and
+// writes the points per split to *chunk (split s sums points [s chunk,
+// min(n_pts, (s + 1) chunk))); 0 when n_pts <= 0.
+int posegen_field_bwd_splits(int n_pts, int* chunk) {
+  using namespace posegen;
+  if (n_pts <= 0 || chunk == nullptr) return 0;
+  *chunk = chunk_of(n_pts);
+  return splits_of(n_pts);
+}
+
+// Bytes of dynamic shared memory the backward's pass (a) takes for this
+// layout (0: invalid layout).
+long long posegen_field_bwd_smem(const int* layout, int n_layout) {
+  using namespace posegen;
+  Layout L;
+  if (!read_layout(layout, n_layout, &L)) return 0;
+  return static_cast<long long>(bwd_smem_bytes(L));
 }
 
 // Weight-only backward of one net from the stash: g (n_pts, 4) f32 output
@@ -937,7 +1377,8 @@ long long posegen_field_bwd_workspace(int n_pts, const int* layout, int n_layout
 // n_vgroups / vppg as the forward took them. Writes d_w (n_w,) and d_b
 // (n_b,) f32 in the packed layout (the view bias slot and the view head's
 // pad columns are left as they are) and d_bview (n_vgroups, 128). The
-// workspace holds posegen_field_bwd_workspace() bytes. With pts non-null
+// workspace holds posegen_field_bwd_workspace() bytes; pass (a)'s regions
+// are left in it for the caller to read. With pts non-null
 // (the forward's pts (n_pts, 3), dirs (n_pts / spr, 3), poses at pose_ld
 // floats a row, ppg points per pose row) it also runs the input gradients
 // and writes d_pts (n_pts, 3), d_dirs (n_pts / spr, 3) and the rot / trn
@@ -954,7 +1395,8 @@ int posegen_field_bwd(int n_pts, const int* layout, int n_layout, const void* w,
   using namespace posegen;
   Layout L;
   const bool inputs = pts != nullptr;
-  if (!read_layout(layout, n_layout, &L) || n_pts <= 0 || !view_groups_ok(n_pts, n_vgroups, vppg)) {
+  if (!read_layout(layout, n_layout, &L) || n_pts <= 0 ||
+      !view_groups_ok(n_pts, n_vgroups, vppg)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (inputs && (dirs == nullptr || poses == nullptr || d_pts == nullptr || d_dirs == nullptr ||
@@ -969,34 +1411,51 @@ int posegen_field_bwd(int n_pts, const int* layout, int n_layout, const void* w,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto s = static_cast<cudaStream_t>(stream);
+  const auto* W = static_cast<const bf16*>(w);
   const auto* ep = static_cast<const bf16*>(e_pts);
   const auto* ev = static_cast<const bf16*>(e_view);
-  const int n_tiles = n_tiles_of(n_pts);
+  cudaError_t e;
 
-  const size_t smem = bwd_smem_bytes(L);
-  cudaError_t e = set_smem(field_bwd_tile_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  RowBias vb;
-  vb.ld = n_vgroups > 1 ? kViewWidth : 0;
-  vb.ppg = vppg;
-  vb.n_pts = n_pts;
-  field_bwd_tile_kernel<<<n_tiles, kThreads, smem, s>>>(n_pts, L, static_cast<const bf16*>(w), b,
-                                                        bview, vb, g, ep, ev, S);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  {  // (a)
+    BwdMaps M{};
+    if (!bwd_maps(L, n_pts, W, ep, ev, S, &M)) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = bwd_smem_bytes(L);
+    if ((e = set_smem(field_bwd_sm90_kernel, smem)) != cudaSuccess) return static_cast<int>(e);
+    RowBias vb;
+    vb.ld = n_vgroups > 1 ? kViewWidth : 0;
+    vb.ppg = vppg;
+    vb.n_pts = n_pts;
+    field_bwd_sm90_kernel<<<n_tiles_a(n_pts), kAThreads, smem, s>>>(M, n_pts, L, W, b, bview, vb,
+                                                                     g, S);
+    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  }
 
-  GemmJobs J{};
-  if (gemm_jobs(L, S, ep, ev, d_w, &J) != 0) return static_cast<int>(cudaErrorInvalidValue);
-  J.part = S.gemm_part;
-  J.splits = splits_of(n_pts);
-  J.chunk = ((n_pts + J.splits - 1) / J.splits + kGK - 1) / kGK * kGK;
-  J.n_pts = n_pts;
-  wgrad_gemm_kernel<<<dim3(J.n_tiles, J.splits), kGThreads, 0, s>>>(J);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  wgrad_reduce_kernel<<<J.n_tiles, 256, 0, s>>>(J);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  {  // (b)
+    WgradJobs J{};
+    if (gemm_jobs(L, S, n_pts, ep, ev, d_w, &J, true) != 0) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    J.part = S.gemm_part;
+    J.splits = splits_of(n_pts);
+    J.chunk = chunk_of(n_pts);
+    J.n_pts = n_pts;
+    const size_t smem = wgrad_smem_bytes();
+    if ((e = set_smem(wgrad_sm90_kernel, smem)) != cudaSuccess) return static_cast<int>(e);
+    int dev = 0, n_sm = 0;
+    if ((e = cudaGetDevice(&dev)) != cudaSuccess ||
+        (e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
+      return static_cast<int>(e);
+    }
+    const int n_items = J.n_tiles * J.splits;
+    wgrad_sm90_kernel<<<min(n_items, n_sm), kAThreads, smem, s>>>(J);
+    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+    wgrad_reduce_kernel<<<dim3(J.n_tiles, kBM / kReduceRows), 256, 0, s>>>(J);
+    if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  }
 
   const int nb = n_bias(L);
-  bias_reduce_kernel<<<(nb + 255) / 256, 256, 0, s>>>(S.bias_part, n_tiles, L, d_b);
+  bias_reduce_kernel<<<(nb + 255) / 256, 256, 0, s>>>(S.bias_part, static_cast<int>(S.p_pad / 64),
+                                                      L, d_b);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   const int nck = view_chunks(vppg);
   vbias_part_kernel<<<dim3(n_vgroups, nck), kViewWidth, 0, s>>>(S.gzv32, n_pts, vppg, nck,
@@ -1008,10 +1467,11 @@ int posegen_field_bwd(int n_pts, const int* layout, int n_layout, const void* w,
   // (c) the input gradients, from (a)'s cotangents
   const size_t smem_in = input_smem_bytes(L);
   if ((e = set_smem(field_bwd_input_kernel, smem_in)) != cudaSuccess) return static_cast<int>(e);
+  const int n_tiles = n_tiles_of(n_pts);
   const int n_slots = pose_slots(ppg);
   field_bwd_input_kernel<<<n_tiles, kThreads, smem_in, s>>>(
-      n_pts, spr, pts, dirs, poses, pose_ld, ppg, n_slots, L, static_cast<const bf16*>(w), S,
-      S.pose_part, d_pts, S.d_dirs_pt);
+      n_pts, spr, pts, dirs, poses, pose_ld, ppg, n_slots, L, W, S, S.pose_part, d_pts,
+      S.d_dirs_pt);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   pose_reduce_kernel<<<n_pts / ppg, 128, 0, s>>>(S.pose_part, n_pts, ppg, n_slots, d_poses,
                                                  pose_ld);

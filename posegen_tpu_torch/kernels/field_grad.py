@@ -32,7 +32,7 @@ for a CUDA tensor it launches its kernel or raises.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -117,15 +117,130 @@ def field_stash_plain(pts, dirs, spr: int, poses, net: FieldNet, bview,
     return raw, e_pts.to(mm_dtype), e_view.to(mm_dtype)
 
 
+def _bwd_forward_backward(e_pts, e_view, g, net: FieldNet, bview, mm_dtype: torch.dtype):
+    """The recompute and the backprop of `field_bwd_plain`, in float32: the
+    trunk's layer outputs and pre-activations, feat, hv, and every layer's
+    pre-activation cotangent (operands of each product rounded to mm_dtype)."""
+    L = net.layout
+    P = e_pts.shape[0]
+    layers, (wa, _), (wf, bf), (wv, _), (wr, _) = _unpack(net)
+
+    def mm(a, w):  # a (P, in) @ w (out, in)^T
+        return _mm(a, w, mm_dtype)
+
+    def tn(gg, w):  # (P, out) @ w (out, in) -> (P, in): an input cotangent
+        return gg.to(mm_dtype).float() @ w.to(mm_dtype).float()
+
+    e_pts, e_view = e_pts.float(), e_view.float()
+    h, hs, pres = e_pts, [], []
+    for i, (w, b) in enumerate(layers):
+        if i > 0 and i - 1 == L.skip:
+            z = mm(e_pts, w[:, :L.pc]) + mm(h, w[:, L.pc:]) + b
+        else:
+            z = mm(h, w) + b
+        pres.append(z)
+        h = torch.relu(z)
+        hs.append(h)
+    feat = mm(h, wf) + bf
+    zv = (mm(feat, wv[:, :WIDTH]) + mm(e_view, wv[:, WIDTH:WIDTH + L.vc])
+          + _view_bias_rows(bview, P))
+    hv = torch.relu(zv)
+
+    g = g.float()
+    g_zv = torch.where(zv > 0, tn(g[:, :3], wr), 0.0)
+    g_feat = tn(g_zv, wv[:, :WIDTH])
+    g_h = tn(g_feat, wf) + tn(g[:, 3:4], wa)
+    gz = [None] * L.depth
+    for i in reversed(range(L.depth)):
+        gz[i] = torch.where(pres[i] > 0, g_h, 0.0)
+        if i > 0:
+            w = layers[i][0]
+            g_h = tn(gz[i], w[:, L.pc:] if i - 1 == L.skip else w)
+    return hs, feat, hv, gz, g_feat, g_zv, g
+
+
+def field_bwd_workspace_plain(e_pts, e_view, g, net: FieldNet, bview,
+                              mm_dtype: torch.dtype = torch.float32):
+    """Plain version of the backward kernel's pass (a): what it writes to
+    its workspace, as the kernel lays it out, rounded to mm_dtype (P rows):
+    hs (depth, P, 256) each trunk layer's output after its ReLU, feat
+    (P, 256), hv (P, 128) the view layer's output after its ReLU, gz (depth,
+    P, 256) each trunk layer's pre-activation cotangent, gfeat (P, 256) the
+    feature layer's cotangent, gzv (P, 128) the view layer's pre-activation
+    cotangent, ghead (P, 16) [g_alpha | g_r g_g g_b | 0 ...]; and, summed
+    from the float32 cotangents as the kernel's f32 partials are, d_b (n_b,)
+    (the view bias slot zero) and d_bview (Gb, 128) per view-bias group."""
+    L = net.layout
+    P = e_pts.shape[0]
+    hs, feat, hv, gz, g_feat, g_zv, g = _bwd_forward_backward(e_pts, e_view, g, net, bview,
+                                                              mm_dtype)
+    d_b = g.new_zeros(L.n_b)
+    for i in range(L.depth):
+        d_b[L.b_layers[i]:L.b_layers[i] + WIDTH] = gz[i].sum(0)
+    d_b[L.b_feat:L.b_feat + WIDTH] = g_feat.sum(0)
+    d_b[L.b_alpha:L.b_alpha + 1] = g[:, 3:4].sum(0)
+    d_b[L.b_rgb:L.b_rgb + 3] = g[:, :3].sum(0)
+    ghead = g.new_zeros(P, 16)
+    ghead[:, 0] = g[:, 3]
+    ghead[:, 1:4] = g[:, :3]
+    return {
+        "hs": torch.stack(hs).to(mm_dtype), "feat": feat.to(mm_dtype), "hv": hv.to(mm_dtype),
+        "gz": torch.stack(gz).to(mm_dtype), "gfeat": g_feat.to(mm_dtype),
+        "gzv": g_zv.to(mm_dtype), "ghead": ghead.to(mm_dtype),
+        "d_b": d_b, "d_bview": g_zv.reshape(bview.shape[0], -1, VIEW_WIDTH).sum(1),
+    }
+
+
+def wgrad_products(ws, e_pts, e_view, layout: NetLayout):
+    """The backward kernel's pass (b) products, (name, G (P, out), H (P, in),
+    weight offset, row stride of its matrix): each weight gradient is
+    G^T H over the points, read from the workspace
+    `ws` (`field_bwd_workspace_plain`'s dict, or the kernel's own regions)
+    and the stashes."""
+    L = layout
+    hs, gz = ws["hs"], ws["gz"]
+    out = []
+    for i in range(L.depth):
+        ldo = L.layer_in(i)
+        if i == 0:
+            out.append((f"layer{i}", gz[i], e_pts, L.w_layers[i], ldo))
+        elif i - 1 == L.skip:
+            out.append((f"layer{i}.e_pts", gz[i], e_pts, L.w_layers[i], ldo))
+            out.append((f"layer{i}.h", gz[i], hs[i - 1], L.w_layers[i] + L.pc, ldo))
+        else:
+            out.append((f"layer{i}", gz[i], hs[i - 1], L.w_layers[i], ldo))
+    ldv = WIDTH + L.vcp
+    return out + [
+        ("feature", ws["gfeat"], hs[L.depth - 1], L.w_feat, WIDTH),
+        ("view.feat", ws["gzv"], ws["feat"], L.w_view, ldv),
+        ("view.e_view", ws["gzv"], e_view, L.w_view + WIDTH, ldv),
+        ("alpha", ws["ghead"][:, 0:1], hs[L.depth - 1], L.w_alpha, WIDTH),
+        ("rgb", ws["ghead"][:, 1:4], ws["hv"], L.w_rgb, VIEW_WIDTH),
+    ]
+
+
+def field_wgrad_plain(ws, e_pts, e_view, layout: NetLayout) -> torch.Tensor:
+    """Plain version of the backward kernel's pass (b): every weight
+    gradient G^T H of `wgrad_products`, float32 products of the workspace's
+    values, into (n_w,) in the packed layout (the view head's pad columns
+    zero)."""
+    d_w = e_pts.new_zeros(layout.n_w, dtype=torch.float32)
+    for _, gg, x, off, ldo in wgrad_products(ws, e_pts, e_view, layout):
+        prod = gg.float().T @ x.float()
+        d_w.as_strided(prod.shape, (ldo, 1), off).copy_(prod)
+    return d_w
+
+
 def field_bwd_plain(e_pts, e_view, g, net: FieldNet, bview,
                     mm_dtype: torch.dtype = torch.float32, input_grads: bool = False):
     """Plain version of the backward kernel, step by step (not autograd):
-    recompute the trunk and heads from the stashed encodings, backprop the
-    (P, 4) output cotangent g through the rgb, view, feature and alpha heads
-    and the trunk (the skip layer's two column segments), and sum every
-    weight and bias gradient over the points. The operands of every product
-    round to mm_dtype, as the JAX kernel's _mm_nt / _mm_tn do; bias sums run
-    on the float32 cotangents.
+    pass (a), `field_bwd_workspace_plain` (recompute the trunk and heads from
+    the stashed encodings, backprop the (P, 4) output cotangent g through the
+    rgb, view, feature and alpha heads and the trunk, the skip layer's two
+    column segments), then pass (b), `field_wgrad_plain` (every weight
+    gradient summed over the points). The operands of every product round to
+    mm_dtype, as the JAX kernel's _mm_nt / _mm_tn do; bias sums run on the
+    float32 cotangents.
 
     -> (d_w (n_w,), d_b (n_b,), d_bview (Gb, 128)) float32 in the packed
     layout; the view bias slot of d_b and the view head's pad columns stay
@@ -134,77 +249,19 @@ def field_bwd_plain(e_pts, e_view, g, net: FieldNet, bview,
     0's and the skip consumer's pre-activation cotangents through their
     e_pts columns, and the view layer's through its e_view columns."""
     L = net.layout
-    P = e_pts.shape[0]
-    layers, (wa, _), (wf, bf), (wv, _), (wr, _) = _unpack(net)
+    ws = field_bwd_workspace_plain(e_pts, e_view, g, net, bview, mm_dtype)
+    d_w = field_wgrad_plain(ws, e_pts.to(mm_dtype), e_view.to(mm_dtype), L)
+    if not input_grads:
+        return d_w, ws["d_b"], ws["d_bview"]
+    layers, _, _, (wv, _), _ = _unpack(net)
 
-    def mm(a, w):  # a (P, in) @ w (out, in)^T
-        return _mm(a, w, mm_dtype)
-
-    def nt(gg, x):  # (P, out)^T @ (P, in) -> (out, in): a weight gradient
-        return gg.to(mm_dtype).float().T @ x.to(mm_dtype).float()
-
-    def tn(gg, w):  # (P, out) @ w (out, in) -> (P, in): an input cotangent
+    def tn(gg, w):
         return gg.to(mm_dtype).float() @ w.to(mm_dtype).float()
 
-    # forward recompute, keeping each layer's input and pre-activation
-    e_pts, e_view = e_pts.float(), e_view.float()
-    h, inputs, pres = e_pts, [], []
-    for i, (w, b) in enumerate(layers):
-        inputs.append(h)
-        if i > 0 and i - 1 == L.skip:
-            z = mm(e_pts, w[:, :L.pc]) + mm(h, w[:, L.pc:]) + b
-        else:
-            z = mm(h, w) + b
-        pres.append(z)
-        h = torch.relu(z)
-    feat = mm(h, wf) + bf
-    zv = (mm(feat, wv[:, :WIDTH]) + mm(e_view, wv[:, WIDTH:WIDTH + L.vc])
-          + _view_bias_rows(bview, P))
-    hv = torch.relu(zv)
-
-    d_w = e_pts.new_zeros(L.n_w)
-    d_b = e_pts.new_zeros(L.n_b)
-
-    def put(off, grad):
-        d_w[off:off + grad.numel()] = grad.reshape(-1)
-
-    g = g.float()
-    g_rgb, g_alpha = g[:, :3], g[:, 3:4]
-    put(L.w_rgb, nt(g_rgb, hv))
-    d_b[L.b_rgb:L.b_rgb + 3] = g_rgb.sum(0)
-    g_zv = torch.where(zv > 0, tn(g_rgb, wr), 0.0)
-    d_wv = e_pts.new_zeros(VIEW_WIDTH, WIDTH + L.vcp)
-    d_wv[:, :WIDTH] = nt(g_zv, feat)
-    d_wv[:, WIDTH:WIDTH + L.vc] = nt(g_zv, e_view)
-    put(L.w_view, d_wv)
-    d_bview = g_zv.reshape(bview.shape[0], -1, VIEW_WIDTH).sum(1)
-    g_feat = tn(g_zv, wv[:, :WIDTH])
-    put(L.w_feat, nt(g_feat, h))
-    d_b[L.b_feat:L.b_feat + WIDTH] = g_feat.sum(0)
-    put(L.w_alpha, nt(g_alpha, h))
-    d_b[L.b_alpha:L.b_alpha + 1] = g_alpha.sum(0)
-    g_h = tn(g_feat, wf) + tn(g_alpha, wa)
-
-    g_e_pts = None
-    for i in reversed(range(L.depth)):
-        w = layers[i][0]
-        g_z = torch.where(pres[i] > 0, g_h, 0.0)
-        d_b[L.b_layers[i]:L.b_layers[i] + WIDTH] = g_z.sum(0)
-        if i > 0 and i - 1 == L.skip:
-            put(L.w_layers[i], torch.cat([nt(g_z, e_pts), nt(g_z, inputs[i])], 1))
-            g_h = tn(g_z, w[:, L.pc:])
-            if input_grads:
-                g_e_pts = tn(g_z, w[:, :L.pc])
-        else:
-            put(L.w_layers[i], nt(g_z, inputs[i]))
-            if i > 0:
-                g_h = tn(g_z, w)
-            elif input_grads:
-                g0 = tn(g_z, w)
-                g_e_pts = g0 if g_e_pts is None else g0 + g_e_pts
-    if not input_grads:
-        return d_w, d_b, d_bview
-    return d_w, d_b, d_bview, g_e_pts, tn(g_zv, wv[:, WIDTH:WIDTH + L.vc])
+    g_e_pts = tn(ws["gz"][0], layers[0][0])
+    if L.skip >= 0:
+        g_e_pts = g_e_pts + tn(ws["gz"][L.skip + 1], layers[L.skip + 1][0][:, :L.pc])
+    return d_w, ws["d_b"], ws["d_bview"], g_e_pts, tn(ws["gzv"], wv[:, WIDTH:WIDTH + L.vc])
 
 
 def encode_bwd_plain(pts, dirs, spr: int, poses, g_e_pts, g_e_view, nf_kp: int,
@@ -300,6 +357,57 @@ def encode_bwd_plain(pts, dirs, spr: int, poses, g_e_pts, g_e_view, nf_kp: int,
 # ---------------------------------------------------------------------------
 
 
+# Kernel 4's plan on Hopper (csrc/field_grad.cu): pass (a) runs 128 points
+# per block, its weights through a ring of 3 stages (2 past depth 8); pass
+# (b) sums dW over a fixed split of the points.
+SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block can take
+A_TILE = 128  # points per block of pass (a)
+MASK_LAYER_BYTES = 4096  # pass (a)'s ReLU mask bits of one layer
+WGRAD_MAX_SPLITS = 16
+WGRAD_CHUNK = 64  # points per staged step of pass (b)
+
+
+def _bwd_plan_bytes(layout: NetLayout, w_stages: int) -> int:
+    return (1024 + 4 * A_TILE * 128 + w_stages * 32768 + 2 * 16384
+            + layout.depth * MASK_LAYER_BYTES + 2 * (w_stages + 2) * 8)
+
+
+def bwd_w_stages(layout: NetLayout) -> int:
+    """Pass (a)'s weight ring stages (csrc/field_grad.cu bwd_w_stages)."""
+    return 3 if _bwd_plan_bytes(layout, 3) <= SMEM_LIMIT else 2
+
+
+def bwd_smem_bytes(layout: NetLayout) -> int:
+    """Pass (a)'s dynamic shared memory (csrc/field_grad.cu bwd_smem_bytes):
+    1,024 alignment slack, the 128 x 256 bf16 tile (65,536), the weight ring
+    (32,768 a stage), the encoding ring (2 x 16,384; in the backward also
+    the column-sum scratch and the output cotangent), one 4,096-byte ReLU
+    mask per trunk layer and the rings' mbarriers: 230,480 at depth 8."""
+    return _bwd_plan_bytes(layout, bwd_w_stages(layout))
+
+
+def field_bwd_refusal(layout: NetLayout) -> Optional[str]:
+    """Why the backward kernel does not take this layout, or None: its pass
+    (a) plan must fit one block's shared memory (every layout `net_layout`
+    builds does; its row strides are whole 16-byte TMA strides too)."""
+    need = bwd_smem_bytes(layout)
+    if need > SMEM_LIMIT:
+        return (f"netdepth={layout.depth}: the backward's pass (a) needs {need} bytes of shared "
+                f"memory ({MASK_LAYER_BYTES} of ReLU mask bits per layer), more than the "
+                f"{SMEM_LIMIT} an H100 block can take")
+    return None
+
+
+def wgrad_split_plan(n_pts: int) -> Tuple[int, int]:
+    """Pass (b)'s split of the point axis (csrc/field_grad.cu splits_of,
+    chunk_of) -> (splits, chunk): split s sums points [s chunk, min(n_pts,
+    (s + 1) chunk)), chunk a whole number of 64-point steps; the reduce adds
+    the splits' partial products in split order."""
+    splits = max(1, min(WGRAD_MAX_SPLITS, n_pts // 2048))
+    chunk = -(-(-(-n_pts // splits)) // WGRAD_CHUNK) * WGRAD_CHUNK
+    return splits, chunk
+
+
 def _bf16_weights(net: FieldNet) -> torch.Tensor:
     """The kernels' bf16 copy of the float32 packed weights."""
     return net.w.detach().to(torch.bfloat16).contiguous()
@@ -342,15 +450,57 @@ def fused_field_stash(pts: torch.Tensor, dirs: torch.Tensor, spr: int,
     return raw, e_pts, e_view
 
 
+class BwdWorkspace(NamedTuple):
+    """The backward kernel's workspace on the card: its bytes and the
+    regions pass (a) writes, as views of P rows in the layout of
+    `field_bwd_workspace_plain`, bf16 (hs, feat, hv, gz, gfeat, gzv,
+    ghead)."""
+
+    buf: torch.Tensor
+    regions: Dict[str, torch.Tensor]
+
+
+def bwd_workspace(n_pts: int, layout: NetLayout, n_vgroups: int, ppg: int,
+                  device) -> BwdWorkspace:
+    """A workspace for `field_backward` on n_pts points of a CUDA device,
+    its view bias in n_vgroups groups; ppg > 0 (points per pose group) sizes
+    it for the input gradients too."""
+    from posegen_tpu_torch.kernels import build
+
+    lib = build.load()
+    off = (ctypes.c_longlong * 9)()
+    n_ws = lib.posegen_field_bwd_workspace(n_pts, *_layout_arg(layout), n_vgroups,
+                                           n_pts // max(n_vgroups, 1), ppg, off)
+    if n_ws <= 0:
+        raise ValueError(f"field_bwd: no workspace for {n_pts} points, {n_vgroups} view groups")
+    buf = torch.empty(n_ws, dtype=torch.uint8, device=device)
+    p_pad = off[0]
+
+    def region(k, *shape):
+        n = 2 * p_pad * (shape[0] if len(shape) == 2 else 1) * shape[-1]
+        return buf[off[k]:off[k] + n].view(torch.bfloat16).view(*shape[:-1], p_pad, shape[-1])
+
+    D, P = layout.depth, n_pts
+    return BwdWorkspace(buf, {
+        "hs": region(1, D, WIDTH)[:, :P], "feat": region(2, WIDTH)[:P],
+        "hv": region(3, VIEW_WIDTH)[:P], "gz": region(4, D, WIDTH)[:, :P],
+        "gfeat": region(5, WIDTH)[:P], "gzv": region(6, VIEW_WIDTH)[:P],
+        "ghead": region(7, 16)[:P]})
+
+
 def field_backward(g: torch.Tensor, e_pts: torch.Tensor, e_view: torch.Tensor,
-                   net: FieldNet, bview: torch.Tensor, inputs: Optional[FieldInputs] = None):
+                   net: FieldNet, bview: torch.Tensor, inputs: Optional[FieldInputs] = None,
+                   workspace: Optional[BwdWorkspace] = None):
     """Backward of one net from the stash -> (d_w (n_w,), d_b (n_b,),
     d_bview (Gb, 128)) float32 (see `field_bwd_plain`). g is the (P, 4)
     output cotangent. With `inputs` (the forward's pts, dirs, spr and poses)
     it runs the input-gradient branch too and returns (d_w, d_b, d_bview,
     d_pts (P, 3), d_dirs (P / spr, 3), d_poses (G, n_pose)) (see
     `encode_bwd_plain`); the weight gradients are the same either way. On
-    CUDA every gradient is bit-identical from launch to launch."""
+    CUDA every gradient is bit-identical from launch to launch; a layout the
+    kernel does not take raises (`field_bwd_refusal`). `workspace` (CUDA
+    only, from `bwd_workspace`) is the kernel's scratch, in which pass (a)'s
+    regions are left for the caller; a new one is made when None."""
     L = net.layout
     P = e_pts.shape[0]
     if (g.shape != (P, 4) or e_pts.shape != (P, L.pc) or e_view.shape != (P, L.vc)
@@ -363,6 +513,8 @@ def field_backward(g: torch.Tensor, e_pts: torch.Tensor, e_view: torch.Tensor,
             raise ValueError(f"inputs: {inputs.pts.shape[0]} points, stash {P}")
         _check_operands(inputs.pts, inputs.dirs, inputs.spr, inputs.poses, net, bview)
     if not g.is_cuda:
+        if workspace is not None:
+            raise ValueError("workspace: the kernel's, for CUDA tensors only")
         if inputs is None:
             return field_bwd_plain(e_pts, e_view, g, net, bview)
         *grads, g_ep, g_ev = field_bwd_plain(e_pts, e_view, g, net, bview, input_grads=True)
@@ -376,25 +528,26 @@ def field_backward(g: torch.Tensor, e_pts: torch.Tensor, e_view: torch.Tensor,
                         ("biases", net.b, torch.float32), ("view bias", bview, torch.float32)):
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name}: need a contiguous {dt} tensor on {dev}")
+    reason = field_bwd_refusal(L)
+    if reason is not None:
+        raise ValueError(f"field_bwd: {reason}")
     Gb = bview.shape[0]
     d_w = torch.zeros(L.n_w, dtype=torch.float32, device=dev)
     d_b = torch.zeros(L.n_b, dtype=torch.float32, device=dev)
     d_bview = torch.zeros((Gb, VIEW_WIDTH), dtype=torch.float32, device=dev)
-    ins = None
+    ins = ()
     if inputs is not None:
         pts, dirs, spr, poses = inputs
         ins = (torch.empty((P, 3), dtype=torch.float32, device=dev),
                torch.empty((dirs.shape[0], 3), dtype=torch.float32, device=dev),
                torch.zeros(poses.shape, dtype=torch.float32, device=dev))
     if P == 0:
-        return (d_w, d_b, d_bview) if ins is None else (d_w, d_b, d_bview, *ins)
+        return (d_w, d_b, d_bview, *ins)
+    ppg = P // inputs.poses.shape[0] if inputs is not None else 0
+    if workspace is None:
+        workspace = bwd_workspace(P, L, Gb, ppg, dev)
     lib = build.load()
     layout, n_layout = _layout_arg(L)
-    ppg = P // inputs.poses.shape[0] if inputs is not None else 0
-    n_ws = lib.posegen_field_bwd_workspace(P, layout, n_layout, Gb, P // Gb, ppg)
-    if n_ws <= 0:
-        raise ValueError(f"field_bwd: no workspace for {P} points, {Gb} view groups")
-    ws = torch.empty(n_ws, dtype=torch.uint8, device=dev)
     w16 = _bf16_weights(net)
     null = ctypes.c_void_p(None)
     if inputs is None:
@@ -402,17 +555,17 @@ def field_backward(g: torch.Tensor, e_pts: torch.Tensor, e_view: torch.Tensor,
     else:
         in_args = (_ptr(pts), _ptr(dirs), spr, _ptr(poses), poses.shape[1], ppg,
                    *(_ptr(t) for t in ins))
+    buf = workspace.buf
     with torch.cuda.device(dev):
         rc = lib.posegen_field_bwd(
             P, layout, n_layout, _ptr(w16), _ptr(net.b), _ptr(bview), Gb, P // Gb, _ptr(g),
-            _ptr(e_pts), _ptr(e_view), _ptr(ws), n_ws, _ptr(d_w), _ptr(d_b), _ptr(d_bview),
-            *in_args, _stream(),
+            _ptr(e_pts), _ptr(e_view), _ptr(buf), buf.numel(), _ptr(d_w), _ptr(d_b),
+            _ptr(d_bview), *in_args, _stream(),
         )
     build.check(lib, rc, "field_bwd")
     LAUNCHES["field_bwd"] += 1
-    if ins is None:
-        return d_w, d_b, d_bview
-    LAUNCHES["field_bwd_inputs"] += 1
+    if inputs is not None:
+        LAUNCHES["field_bwd_inputs"] += 1
     return (d_w, d_b, d_bview, *ins)
 
 
