@@ -8,16 +8,22 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
 
   1. build    compile the kernels from posegen_tpu_torch/kernels/csrc with
               nvcc (the build's seconds and each kernel's registers and
-              spills printed); no kernel spills, the SASS of kernel 4's
-              passes (a) and (b) holds wgmma (HGMMA) and TMA (UTMALDG;
-              UTMASTG in pass (a)) by cuobjdump, and pass (a)'s shared-memory
-              plan and pass (b)'s split of the points agree between the
-              library and their mirrors in field_grad.py;
-  2. kernels  at the flagship render's shapes (8192 rays, 64 + 16 samples)
-              and at one ragged size (a last tile of 16 points),
-              fused_dual against dual_plain and fused_field (full and
-              density_only) against field_plain, bf16 operands on both
-              sides, elementwise |kernel - plain| <= 1e-3 + 2e-2 |plain|;
+              spills printed); no kernel spills, the SASS of the eval
+              kernels (field.cu, all three modes) and of kernel 4's passes
+              (a) and (b) holds wgmma (HGMMA) and TMA (UTMALDG; UTMASTG in
+              pass (a)) by cuobjdump, and the library's plans equal their
+              Python mirrors: the shared memory of the eval kernels, the
+              stash kernel, pass (a) and the variant kernel, the eval
+              kernels' scratch slot and persistent grid, pass (b)'s split;
+  2. kernels  at the flagship render's shapes (8192 rays, 64 + 16 samples),
+              at ragged sizes whose 128-point tiles outnumber the card's
+              SMs (131,056 points) and do not (16,016, and one tile of 48),
+              on a depth-16 net and on the multires 4 / multires_views 2
+              layout of configs/: fused_dual against dual_plain and
+              fused_field (full and density_only) against field_plain,
+              bf16 operands on both sides, elementwise |kernel - plain| <=
+              1e-3 + 2e-2 |plain|, density_only's sigma equal to the full
+              kernel's;
   3. render   render_rays on make_problem(RaycastConfig(), 8192 rays) with
               coarse_rgb False (dual + field) and True (field x 2): the
               launch counters prove the kernels ran, rgb_map is finite and
@@ -32,8 +38,9 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               x 16 rays x 64 and x 80 samples) and at one ragged size (3
               groups, a last tile of 16 points, a view bias per group),
               fused_field_stash against field_stash_plain (raw and both
-              stashes, the elementwise rule of phase 2; its raw equal to
-              fused_field's bit for bit on one group) and field_backward
+              stashes, the elementwise rule of phase 2; its raw, the WMMA
+              body's, against fused_field's on one group by the same rule)
+              and field_backward
               against field_bwd_plain, bf16 operands on both sides, each
               gradient tensor to ||kernel - plain||_2 <= GRAD_TOL ||plain||_2,
               and two backward launches bit-identical; then each pass of
@@ -87,7 +94,8 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               at each tile on a ragged grouped problem (3 groups x 7 rays x
               80 samples; a tile may straddle groups), against variant_plain
               with bf16 operands to the elementwise rule of phase 2 (the
-              encode probe also to relative L2 <= ENC_SUM_TOL); then the
+              encode probe also to relative L2 <= ENC_SUM_TOL), and base at
+              tile 64 against fused_field by the same rule; then the
               harness's sweep over tiles 32, 64 and 128 from launch counts
               of 0: every (case, tile) that fits launched chain + 3 times,
               with its time beside its bound; and the plain version's time.
@@ -133,9 +141,17 @@ VARIANT_TILE = 64  # kernel 2's tile: the harness's cases are held at it
 # few channels, 2^-8 of one channel each
 ENC_SUM_TOL = 1e-3
 TRAIN_STEPS = 5
-# the redesigned passes of kernel 4 and the instructions their SASS must hold
-SM90_KERNELS = {"field_bwd_sm90_kernel": ("HGMMA", "UTMALDG", "UTMASTG"),
+# the Hopper kernels (by a part of their mangled names: the eval kernel's
+# three modes, kernel 4's passes (a) and (b)) and the instructions their SASS
+# must hold
+SM90_KERNELS = {"eval_sm90_kernelILi0E": ("HGMMA", "UTMALDG"),
+                "eval_sm90_kernelILi1E": ("HGMMA", "UTMALDG"),
+                "eval_sm90_kernelILi2E": ("HGMMA", "UTMALDG"),
+                "field_bwd_sm90_kernel": ("HGMMA", "UTMALDG", "UTMASTG"),
                 "wgrad_sm90_kernel": ("HGMMA", "UTMALDG")}
+# the eval kernels' persistent walk against eval_tile_walk: (points, slots)
+EVAL_WALKS = ((1, 132), (127, 132), (128, 132), (129, 132), (16016, 132), (131056, 132),
+              (524288, 132), (300, 2))
 PASS_A_KERNELS = ("field_bwd_sm90_kernel",)
 PASS_B_KERNELS = ("wgrad_sm90_kernel", "wgrad_reduce_kernel")
 # pass (a)'s workspace against field_bwd_workspace_plain: the forward's
@@ -276,7 +292,7 @@ def compare(name: str, got, ref) -> float:
 
 
 def check_build(build) -> None:
-    """No kernel spills; the redesigned passes of kernel 4 issue wgmma
+    """No kernel spills; the Hopper kernels (SM90_KERNELS) issue wgmma
     (HGMMA) and TMA (UTMALDG, and UTMASTG for pass (a)) in their SASS
     (cuobjdump)."""
     import re
@@ -304,6 +320,34 @@ def check_build(build) -> None:
         print(f"  SASS {kernel}: " + ", ".join(f"{op} x{n}" for op, n in counts.items())
               + f", {n_instr} instructions ({16 * n_instr} bytes); ptxas {regs[0]} registers, "
               f"spills {regs[1]} / {regs[2]} bytes")
+
+
+def check_plans(lib, F, FG) -> None:
+    """The library's plans against their Python mirrors: the shared memory
+    of the eval kernels (the same at every layout), the stash kernel, pass
+    (a) and the variant kernel at each tile, the eval kernels' scratch slot,
+    at several depths and multires; the eval kernels' persistent grid."""
+    from posegen_tpu_torch.kernels import variants as V
+
+    for depth, mr, mv in ((8, 7, 4), (9, 7, 4), (16, 7, 4), (1, 7, 0), (8, 4, 2), (8, 7, 7),
+                          (8, 15, 4)):
+        L0 = F.net_layout(depth, mr, mv)
+        args = F._layout_arg(L0)
+        for name, got, want in (
+            ("eval shared memory", lib.posegen_field_eval_smem(*args), F.eval_smem_bytes(L0)),
+            ("eval slot", lib.posegen_field_eval_slot_bytes(*args), F.eval_slot_bytes(L0)),
+            ("stash shared memory", lib.posegen_field_stash_smem(*args), FG.stash_smem_bytes(L0)),
+            ("pass (a) shared memory", lib.posegen_field_bwd_smem(*args), FG.bwd_smem_bytes(L0)),
+        ) + tuple((f"variant shared memory at tile {t}{' density_only' if d else ''}",
+                   lib.posegen_field_variant_smem(t, int(d), *args),
+                   V.variant_smem_bytes(L0, t, d)) for t in V.TILES for d in (False, True)):
+            check(got == want, f"{name} at depth {depth}, multires {mr} / {mv}: library {got}, "
+                               f"Python {want}")
+    for n_pts, n_slots in EVAL_WALKS:
+        grid = lib.posegen_field_eval_grid(n_pts, n_slots)
+        check(grid == len(F.eval_tile_walk(n_pts, n_slots)),
+              f"eval grid on {n_pts} points, {n_slots} slots: library {grid}, "
+              f"field.py {len(F.eval_tile_walk(n_pts, n_slots))}")
 
 
 def main() -> int:
@@ -334,7 +378,9 @@ def run(torch) -> int:
     from posegen_tpu_torch.kernels import field_grad as FG
     from posegen_tpu_torch.models.nerf import nerf_apply
     from posegen_tpu_torch.ops import sampling as samp
-    from posegen_tpu_torch.render.raycast import RaycastConfig, encode_inputs, render_rays
+    from posegen_tpu_torch.render.raycast import (
+        RaycastConfig, encode_inputs, init_raycaster, render_rays,
+    )
     from posegen_tpu_torch.utils.fixtures import make_problem
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -348,18 +394,15 @@ def run(torch) -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s ({build.library_path().name})")
     check_build(build)
     lib = build.load()
-    for depth in (8, 9, 16):
-        L0 = F.net_layout(depth, 7, 4)
-        check(lib.posegen_field_bwd_smem(*F._layout_arg(L0)) == FG.bwd_smem_bytes(L0),
-              f"pass (a)'s shared-memory plan at depth {depth} differs between the library "
-              "and field_grad.py")
+    check_plans(lib, F, FG)
     chunk = ctypes.c_int()
     for n_pts in (1, 63, 2047, 2048, 4097, 6000, 131072, 163840, 196608, 245760):
         splits = lib.posegen_field_bwd_splits(n_pts, ctypes.byref(chunk))
         check((splits, chunk.value) == FG.wgrad_split_plan(n_pts),
               f"pass (b)'s split of {n_pts} points: library {(splits, chunk.value)}, "
               f"field_grad.py {FG.wgrad_split_plan(n_pts)}")
-    print("  pass (a)'s shared-memory plan and pass (b)'s split plan: library == field_grad.py")
+    print("  the plans: shared memory of the eval, stash, pass (a) and variant kernels, the eval "
+          "kernels' slot and grid, pass (b)'s split: library == Python")
 
     # 2. kernels against their plain versions, at the render's shapes -------
     cfg = RaycastConfig()
@@ -379,38 +422,51 @@ def run(torch) -> int:
             pts = (rays_o[:, None] + rays_d[:, None] * z[..., None]).reshape(-1, 3).contiguous()
             shapes[tag] = (pts, rays_d, n_s)
         n_s = cfg.N_importance
-        shapes["ragged"] = (shapes["importance"][0][:N_RAGGED * n_s],
-                            rays_d[:N_RAGGED].contiguous(), n_s)
+        imp_pts = shapes["importance"][0]
+        # 128-point tiles: 1,024 (the last of 112 points) over the card's
+        # SMs; 126 (the last of 16) and one tile of 48 under them
+        shapes["ragged_many"] = (imp_pts[:(N_RAYS - 1) * n_s], rays_d[:N_RAYS - 1].contiguous(),
+                                 n_s)
+        shapes["ragged"] = (imp_pts[:N_RAGGED * n_s], rays_d[:N_RAGGED].contiguous(), n_s)
+        shapes["one_tile"] = (imp_pts[:3 * n_s], rays_d[:3].contiguous(), n_s)
         bf16 = torch.bfloat16
+        # (tag, points, dirs, samples per ray, pose, coarse net, fine net)
+        cases = [(tag, *shapes[tag], pose, net_c, net_f)
+                 for tag in ("coarse", "importance", "fine", "ragged_many", "ragged", "one_tile")]
+        for tag, kw, n_rays in (("depth16", dict(netdepth=16), 2048),
+                                ("multires4_views2", dict(multires=4, multires_views=2), 1000)):
+            cfg_x = RaycastConfig(**kw)
+            params_x = init_raycaster(cfg_x, torch.Generator().manual_seed(SEED), device=DEVICE)
+            L_x = F.net_layout(cfg_x.netdepth, cfg_x.multires, cfg_x.multires_views)
+            cases.append((tag, imp_pts[:n_rays * n_s], rays_d[:n_rays].contiguous(), n_s,
+                          F.pack_pose(ctx.skts[0], params["embed_kp"], cfg_x.multires,
+                                      cfg_x.multires_views),
+                          F.prepare_net(params_x["coarse"], L_x),
+                          F.prepare_net(params_x["fine"], L_x)))
 
-        err_dual = 0.0
-        for tag in ("coarse", "ragged"):
-            pts, dirs, n_s = shapes[tag]
-            kc, kf = F.fused_dual(pts, dirs, n_s, pose, net_c, net_f)
-            pc, pf = F.dual_plain(pts, dirs, n_s, pose, net_c, net_f, mm_dtype=bf16)
+        err_dual = err_field = 0.0
+        for tag, pts, dirs, n_s, pose_t, nc, nf in cases:
+            L_t = nf.layout
+            kc, kf = F.fused_dual(pts, dirs, n_s, pose_t, nc, nf)
+            pc, pf = F.dual_plain(pts, dirs, n_s, pose_t, nc, nf, mm_dtype=bf16)
+            kfull = F.fused_field(pts, dirs, n_s, pose_t, nf)
+            kden = F.fused_field(pts, dirs, n_s, pose_t, nf, density_only=True)
+            pfull = F.field_plain(pts, dirs, n_s, pose_t, nf, mm_dtype=bf16)
+            pden = F.field_plain(pts, dirs, n_s, pose_t, nf, density_only=True, mm_dtype=bf16)
             torch.cuda.synchronize()
             e_c, e_f = compare(f"dual coarse {tag}", kc, pc), compare(f"dual fine {tag}", kf, pf)
-            check(float(kc[:, :3].abs().max()) == 0.0, "dual: coarse rgb rows not zero")
-            err_dual = max(err_dual, e_c, e_f)
-            print(f"kernel dual vs dual_plain, {pts.shape[0]} points: max|diff| "
-                  f"coarse {e_c:.3e}, fine {e_f:.3e}")
-
-        err_field = 0.0
-        for tag in ("importance", "coarse", "fine", "ragged"):
-            pts, dirs, n_s = shapes[tag]
-            kfull = F.fused_field(pts, dirs, n_s, pose, net_f)
-            kden = F.fused_field(pts, dirs, n_s, pose, net_f, density_only=True)
-            pfull = F.field_plain(pts, dirs, n_s, pose, net_f, mm_dtype=bf16)
-            pden = F.field_plain(pts, dirs, n_s, pose, net_f, density_only=True, mm_dtype=bf16)
-            torch.cuda.synchronize()
+            check(float(kc[:, :3].abs().max()) == 0.0, f"dual {tag}: coarse rgb rows not zero")
             e_full = compare(f"field {tag}", kfull, pfull)
             e_den = compare(f"field density_only {tag}", kden, pden)
             check(bool(torch.equal(kden[:, 3], kfull[:, 3])),
                   f"field {tag}: density_only sigma differs from the full kernel's")
-            check(float(kden[:, :3].abs().max()) == 0.0, "density_only: rgb rows not zero")
+            check(float(kden[:, :3].abs().max()) == 0.0, f"density_only {tag}: rgb rows not zero")
+            err_dual = max(err_dual, e_c, e_f)
             err_field = max(err_field, e_full, e_den)
-            print(f"kernel field vs field_plain, {pts.shape[0]} points: max|diff| "
-                  f"full {e_full:.3e}, density_only {e_den:.3e}")
+            print(f"kernels vs plain, {tag} ({pts.shape[0]} points, {-(-pts.shape[0] // 128)} "
+                  f"tiles, depth {L_t.depth}, multires {L_t.nf_kp} / {L_t.nf_view}): max|diff| "
+                  f"dual coarse {e_c:.3e}, fine {e_f:.3e}; field full {e_full:.3e}, density_only "
+                  f"{e_den:.3e} (its sigma == full's)")
 
     # 3. the main path, through the launch counters -------------------------
     expected = {False: {"dual": 1, "field": 1, "field_stash": 0, "field_bwd": 0,
@@ -673,15 +729,16 @@ def train_phases(torch, card: str):
             err["field_bwd_pass_a"] = max(err["field_bwd_pass_a"], e_a)
             err["field_bwd_pass_b"] = max(err["field_bwd_pass_b"], e_b)
 
-        # one group: the stash kernel's raw is the field kernel's, bit for bit
+        # one group: the stash kernel (the WMMA body) and the field kernel (the
+        # wgmma body) compute one function; they sum in different orders
         pts, dirs, n_s, poses_t, bview_t, _ = cases["coarse"]
         n1 = rpg * n_s
         raw1, _, _ = FG.fused_field_stash(pts[:n1], dirs[:rpg], n_s, poses_t[:1], net, bview_t)
         ref1 = F.fused_field(pts[:n1], dirs[:rpg], n_s, poses_t[0],
                              F.FieldNet(net.w.to(bf16), net.b, L))
         torch.cuda.synchronize()
-        check(torch.equal(raw1, ref1), "field_stash raw differs from fused_field's on one group")
-        print("kernel field_stash raw == fused_field raw bit for bit on one group")
+        e1 = compare("field_stash raw vs fused_field on one group", raw1, ref1)
+        print(f"kernel field_stash raw vs fused_field raw on one group: max|diff| {e1:.3e}")
 
     # 6. the train step -----------------------------------------------------
     tcfg = TrainConfig(rays_per_image=rpg, use_background=True)
@@ -1162,18 +1219,18 @@ def variant_phases(torch, card: str):
                   f"{ragged.pts.shape[0]} points, {ragged.poses.shape[0]} groups): max|diff| "
                   + ", ".join(msg))
 
-        # base at kernel 2's tile is kernel 2's code: on the harness's
-        # problem, given one direction per ray of S points, fused_field
-        # computes the same raw bit for bit; their times, taken in turns
+        # base at kernel 2's tile is kernel 2's function on the WMMA body:
+        # on the harness's problem, given one direction per ray of S points,
+        # fused_field (the wgmma body) computes it in another summation
+        # order; their times, taken in turns
         S = prob.pts.shape[0] // N_RAYS
         ray_dirs = prob.dirs[::S].contiguous()
         field2 = lambda: F.fused_field(prob.pts, ray_dirs, S, prob.poses[0], prob.net)
         base64 = lambda: V.variant_field(*prob, tile=VARIANT_TILE)
-        same = torch.equal(field2(), base64())
-        check(same, f"variant base at tile {VARIANT_TILE} differs from fused_field")
+        e_base = compare(f"variant base at tile {VARIANT_TILE} vs fused_field", base64(), field2())
         turns = [cuda_ms(f, VARIANT_CHAIN) for f in (field2, base64, base64, field2)]
-        print(f"variant base at tile {VARIANT_TILE} == fused_field bit for bit on the harness's "
-              f"problem; ms in turns (field, variant, variant, field): "
+        print(f"variant base at tile {VARIANT_TILE} vs fused_field on the harness's problem: "
+              f"max|diff| {e_base:.3e}; ms in turns (field, variant, variant, field): "
               f"{', '.join(f'{t:.3f}' for t in turns)} [{card}]")
 
         # the harness's sweep: the main path of this phase

@@ -24,7 +24,7 @@ from typing import Dict, Optional, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "posegen_tpu_torch"
 SOURCES = ("field.cu", "field_grad.cu", "field_variants.cu")
-HEADERS = ("field.cuh", "sm90.cuh")
+HEADERS = ("field.cuh", "sm90.cuh", "sm90_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -101,10 +101,19 @@ def load() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build()))
     P, I = ctypes.c_void_p, ctypes.c_int
     IA = ctypes.POINTER(ctypes.c_int)
-    lib.posegen_field.argtypes = [P, P, I, I, P, IA, I, P, P, P, I, P]
+    LL = ctypes.c_longlong
+    lib.posegen_field.argtypes = [P, P, I, I, P, IA, I, P, P, P, I, P, LL, P]
     lib.posegen_field.restype = I
-    lib.posegen_dual.argtypes = [P, P, I, I, P, IA, I, P, P, P, P, P, P, P]
+    lib.posegen_dual.argtypes = [P, P, I, I, P, IA, I, P, P, P, P, P, P, P, LL, P]
     lib.posegen_dual.restype = I
+    for name in ("posegen_field_eval_smem", "posegen_field_eval_slot_bytes",
+                 "posegen_field_stash_smem"):
+        getattr(lib, name).argtypes = [IA, I]
+        getattr(lib, name).restype = LL
+    lib.posegen_field_eval_grid.argtypes = [I, I]
+    lib.posegen_field_eval_grid.restype = I
+    lib.posegen_field_variant_smem.argtypes = [I, I, IA, I]
+    lib.posegen_field_variant_smem.restype = LL
     lib.posegen_field_stash.argtypes = [P, P, I, I, P, I, I, IA, I, P, P, P, I, I, P, P, P, P]
     lib.posegen_field_stash.restype = I
     lib.posegen_field_bwd_workspace.argtypes = [I, IA, I, I, I, I,

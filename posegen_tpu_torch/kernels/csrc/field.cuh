@@ -1,6 +1,8 @@
-// Device code shared by the fused field kernels (field.cu): the per-point
-// skeleton encode and the MLP body, written once and instantiated by the
-// full, density-only and dual kernels.
+// Device code shared by the port's field kernels: the Layout record and its
+// reader, and the WMMA body, the per-point skeleton encode and the MLP,
+// written once and instantiated by the stash kernel (field_grad.cu) and the
+// A/B harness's variant kernel (field_variants.cu). The eval kernels
+// (field.cu) run encode_tile's arithmetic and the MLP on wgmma instead.
 //
 // Replaces the shared body of the Pallas kernels in
 // posegen_tpu/kernels/field.py: encode_intermediates / _kp_side (:264-374)
@@ -29,7 +31,7 @@ using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
 constexpr int kJoints = 24;
-constexpr int kTile = 64;           // points per block of field.cu and field_grad.cu; the
+constexpr int kTile = 64;           // points per block of the stash kernel; the
                                     // shared body takes any multiple of 16 (TILE below)
 constexpr int kMTiles = kTile / 16;  // 16-row MMA tiles per block
 constexpr int kWarps = 8;

@@ -1,5 +1,5 @@
 // The field kernel's A/B variants for Hopper (sm_90a), bound to Python
-// through a plain C interface (ctypes), like field.cu.
+// through a plain C interface (ctypes), like field.cu and field_grad.cu.
 //
 //   posegen_field_variant  replaces tools/exp_kernel_variants.py::variant_field
 //                          (:269): kernel 2's encode + MLP on points grouped by
@@ -288,7 +288,7 @@ __device__ void encode_sums(const Layout& L, const bf16* e_pts, const bf16* e_vi
 
 // ---------------------------------------------------------------------------
 // MLP and heads on ROWS points: kThreads / ROWS threads per point in the
-// heads (field.cu's 4 at ROWS 64); thread q of a point writes output
+// heads (the stash kernel's 4 at ROWS 64); thread q of a point writes output
 // columns q, q + kThreads / ROWS, ... (rgb 0-2, sigma 3).
 // ---------------------------------------------------------------------------
 template <int ROWS, bool kView>
@@ -484,6 +484,21 @@ int posegen_field_variant_blocks(int tile, int density_only, const int* layout, 
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(POSEGEN_VARIANT_DISPATCH(tile, !density_only, blocks_per_sm, L, blocks));
+}
+
+// Bytes of dynamic shared memory of the (tile, density_only) kernel at this
+// layout (0: invalid layout or tile).
+long long posegen_field_variant_smem(int tile, int density_only, const int* layout,
+                                     int n_layout) {
+  using namespace posegen;
+  Layout L;
+  if (!read_layout(layout, n_layout, &L)) return 0;
+  const bool view = !density_only;
+  const size_t smem = tile == 32    ? smem_bytes<32>(L, view)
+                      : tile == 64  ? smem_bytes<64>(L, view)
+                      : tile == 128 ? smem_bytes<128>(L, view)
+                                    : 0;
+  return static_cast<long long>(smem);
 }
 
 }  // extern "C"

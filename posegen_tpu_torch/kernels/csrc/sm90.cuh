@@ -105,6 +105,12 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
+// Generic-proxy writes to global memory made visible to the async proxy (a
+// later TMA load of them), and its earlier reads ordered before later writes.
+__device__ __forceinline__ void fence_async_global() {
+  asm volatile("fence.proxy.async.global;" ::: "memory");
+}
+
 // A barrier among `n` threads (a multiple of 32) under id 1..15.
 __device__ __forceinline__ void bar_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");

@@ -10,9 +10,12 @@ render path:
   fused_dual   <- posegen_tpu/kernels/field.py::_dual_kernel (one encode,
                   coarse density + fine full raw)
 
-Each point's encodings are built in the kernel and never reach device
-memory: per point only (3,) of position, the ray's (3,) direction and the
-(4,) raw output cross it. Channels are joint-major, the order of
+Each point's encodings are built in the kernel, once per launch: a
+persistent grid of at most one block per SM encodes each 128-point tile into
+the block's slot of an L2-resident scratch (`eval_slot_bytes`; the wrapper
+allocates one slot per SM), from which TMA streams them to the tensor cores.
+Per point only (3,) of position, the ray's (3,) direction and the (4,) raw
+output cross device memory. Channels are joint-major, the order of
 `render.raycast.encode_inputs`, so the JAX weights load without a row
 permutation.
 
@@ -46,7 +49,7 @@ import ctypes
 import dataclasses
 import math
 import warnings
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -103,7 +106,15 @@ def field_flops(layout: "NetLayout", density_only: bool) -> int:
 
 
 def fused_config_disqualification(cfg) -> Optional[str]:
-    """First config flag that disqualifies the fused kernels, or None."""
+    """First config flag that disqualifies the fused kernels, or None.
+
+    Beyond the JAX gate's flags (posegen_tpu/kernels/field.py:75-112): a net
+    that `net_layout` refuses (a depth outside 1..MAX_DEPTH, or the skip
+    after the last layer at depth 5) and a layout that the eval kernels'
+    plan refuses (`field_eval_refusal`). The JAX kernels take those nets; the
+    port's callers run the plain pipeline for them instead, a difference of
+    route, not of result. The trainer also consults the training kernels'
+    plans (`field_grad.train_refusal`)."""
     checks = (
         (cfg.kp_dist_type == "reldist",
          f"kp_dist_type={cfg.kp_dist_type!r} (kernel needs 'reldist')"),
@@ -134,7 +145,11 @@ def fused_config_disqualification(cfg) -> Optional[str]:
     for ok, reason in checks:
         if not ok:
             return reason
-    return None
+    try:
+        layout = net_layout(cfg.netdepth, cfg.multires, cfg.multires_views)
+    except ValueError as e:
+        return str(e)
+    return field_eval_refusal(layout)
 
 
 def fused_disqualification(cfg, ctx, net_params: Dict) -> Optional[str]:
@@ -285,6 +300,61 @@ def net_layout(depth: int, nf_kp: int, nf_view: int) -> NetLayout:
         b_rgb=b_rgb, w_layers=tuple(w_layers), b_layers=tuple(b_layers),
         n_w=w_off, n_b=b_off,
     )
+
+
+# ---------------------------------------------------------------------------
+# The kernels' plans on Hopper (csrc/field.cu, csrc/field.cuh)
+# ---------------------------------------------------------------------------
+
+SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block can take
+EVAL_TILE = 128  # points per tile of the eval kernels
+_POSE_BYTES = 1536  # csrc/field.cuh kPoseBytes: the pose operand, 128-aligned
+
+
+def eval_smem_bytes(layout: NetLayout) -> int:
+    """The eval kernels' dynamic shared memory (csrc/field.cu
+    eval_smem_bytes): 1,024 alignment slack, the 128 x 256 bf16 activation
+    tile (65,536), the weight ring (3 x 32,768), the encoding ring (2 x
+    16,384), the pose operand (1,536), the heads' weights (2,048) and 11
+    mbarriers: 201,304 bytes at every layout, since no region depends on
+    the depth or the encodings' widths."""
+    return 1024 + 65_536 + 3 * 32_768 + 2 * 16_384 + _POSE_BYTES + 2048 + 11 * 8
+
+
+def eval_slot_bytes(layout: NetLayout) -> int:
+    """Bytes of one block's slot of the eval kernels' scratch: 128 rows of
+    e_pts (pc) and of e_view (vc) bf16 (276,480 at the flagship)."""
+    return 2 * EVAL_TILE * (layout.pc + layout.vc)
+
+
+def field_eval_refusal(layout: NetLayout) -> Optional[str]:
+    """Why the eval kernels do not take this layout, or None: its octave
+    weights must fit the pose operand. Their shared-memory plan
+    (`eval_smem_bytes`) fits one block at every layout."""
+    if layout.nf_kp + layout.nf_view > MAX_OCTAVES:
+        return (f"multires + multires_views = {layout.nf_kp + layout.nf_view}: the kernels' "
+                f"pose operand holds {MAX_OCTAVES} octave weights")
+    return None
+
+
+def eval_tile_walk(n_pts: int, n_slots: int) -> List[List[range]]:
+    """The eval kernels' persistent walk (csrc/field.cu eval_grid): a grid of
+    min(tiles, n_slots) blocks, block b taking tiles b, b + grid, ... of
+    EVAL_TILE points -> each block's point ranges, in its order."""
+    n_tiles = -(-n_pts // EVAL_TILE)
+    grid = min(n_tiles, n_slots)
+    return [[range(t * EVAL_TILE, min(n_pts, (t + 1) * EVAL_TILE))
+             for t in range(b, n_tiles, grid)] for b in range(grid)]
+
+
+def body_smem_bytes(layout: NetLayout, tile: int, with_view: bool) -> int:
+    """Dynamic shared memory of one block of the WMMA body (csrc/field.cuh
+    smem_bytes; the stash and variant kernels): the pose row, tile rows of
+    x_pts, x_views (with_view) and the activations, all bf16 and padded by
+    8, and 8 warps' f32 scratch: 184,832 bytes at the flagship and tile 64."""
+    L = layout
+    row = (L.pc + 8) + (L.vcp + 8 if with_view else 0) + (WIDTH + 8)
+    return _POSE_BYTES + 2 * tile * row + 4 * 8 * 256
 
 
 class FieldNet(NamedTuple):
@@ -606,6 +676,18 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
+def _eval_launch_operands(where: str, layout: NetLayout, device):
+    """Refuse a layout the eval kernels do not take; else their scratch: one
+    slot per SM of the card (the most blocks the persistent grid runs),
+    sized by the layout and the card, never by the points."""
+    reason = field_eval_refusal(layout)
+    if reason is not None:
+        raise ValueError(f"{where}: {reason}")
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    scratch = torch.empty(n_sm * eval_slot_bytes(layout), dtype=torch.uint8, device=device)
+    return scratch, ctypes.c_longlong(scratch.numel())
+
+
 def fused_field(pts: torch.Tensor, dirs: torch.Tensor, spr: int,
                 pose: torch.Tensor, net: FieldNet,
                 density_only: bool = False) -> torch.Tensor:
@@ -624,9 +706,11 @@ def fused_field(pts: torch.Tensor, dirs: torch.Tensor, spr: int,
         return out
     layout, n_layout = _layout_arg(net.layout)
     with torch.cuda.device(pts.device):
+        scratch, n_scratch = _eval_launch_operands("fused_field", net.layout, pts.device)
         rc = lib.posegen_field(
             _ptr(pts), _ptr(dirs), pts.shape[0], spr, _ptr(pose), layout,
             n_layout, _ptr(net.w), _ptr(net.b), _ptr(out), int(density_only),
+            _ptr(scratch), n_scratch,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     build.check(lib, rc, "field")
@@ -651,10 +735,11 @@ def fused_dual(pts: torch.Tensor, dirs: torch.Tensor, spr: int,
         return out_c, out_f
     layout, n_layout = _layout_arg(net_f.layout)
     with torch.cuda.device(pts.device):
+        scratch, n_scratch = _eval_launch_operands("fused_dual", net_f.layout, pts.device)
         rc = lib.posegen_dual(
             _ptr(pts), _ptr(dirs), pts.shape[0], spr, _ptr(pose), layout,
             n_layout, _ptr(net_c.w), _ptr(net_c.b), _ptr(net_f.w),
-            _ptr(net_f.b), _ptr(out_c), _ptr(out_f),
+            _ptr(net_f.b), _ptr(out_c), _ptr(out_f), _ptr(scratch), n_scratch,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     build.check(lib, rc, "dual")

@@ -44,10 +44,12 @@ from posegen_tpu_torch.kernels.field import (
     FieldNet,
     NetLayout,
     POSE_FLOATS,
+    SMEM_LIMIT,
     _layout_arg,
     _mm,
     _ptr,
     _unpack,
+    body_smem_bytes,
     encode_plain,
     mlp_plain,
 )
@@ -357,10 +359,41 @@ def encode_bwd_plain(pts, dirs, spr: int, poses, g_e_pts, g_e_view, nf_kp: int,
 # ---------------------------------------------------------------------------
 
 
+# The stash kernel's plan (csrc/field_grad.cu): field.cuh's WMMA body at 64
+# points per block, with the view encodings.
+STASH_TILE = 64
+
+
+def stash_smem_bytes(layout: NetLayout) -> int:
+    """The stash kernel's dynamic shared memory (csrc/field_grad.cu
+    posegen_field_stash_smem: `field.body_smem_bytes` at tile 64 with the
+    view encodings): 184,832 bytes at the flagship; it grows with multires
+    and multires_views."""
+    return body_smem_bytes(layout, STASH_TILE, True)
+
+
+def field_stash_refusal(layout: NetLayout) -> Optional[str]:
+    """Why the stash kernel does not take this layout, or None: its 64
+    points' encodings and activations must fit one block's shared memory
+    (240,128 bytes at multires 7 / multires_views 7 and 233,984 at 15 / 4 do
+    not)."""
+    need = stash_smem_bytes(layout)
+    if need > SMEM_LIMIT:
+        return (f"multires={layout.nf_kp}, multires_views={layout.nf_view}: the stash kernel "
+                f"needs {need} bytes of shared memory ({STASH_TILE} points' encodings and "
+                f"activations), more than the {SMEM_LIMIT} an H100 block can take")
+    return None
+
+
+def train_refusal(layout: NetLayout) -> Optional[str]:
+    """Why the training kernels (the stash kernel and the backward) do not
+    take this layout, or None."""
+    return field_stash_refusal(layout) or field_bwd_refusal(layout)
+
+
 # Kernel 4's plan on Hopper (csrc/field_grad.cu): pass (a) runs 128 points
 # per block, its weights through a ring of 3 stages (2 past depth 8); pass
 # (b) sums dW over a fixed split of the points.
-SMEM_LIMIT = 232_448  # bytes of shared memory one H100 block can take
 A_TILE = 128  # points per block of pass (a)
 MASK_LAYER_BYTES = 4096  # pass (a)'s ReLU mask bits of one layer
 WGRAD_MAX_SPLITS = 16
@@ -429,6 +462,9 @@ def fused_field_stash(pts: torch.Tensor, dirs: torch.Tensor, spr: int,
     from posegen_tpu_torch.kernels import build
 
     L = net.layout
+    reason = field_stash_refusal(L)
+    if reason is not None:
+        raise ValueError(f"field_stash: {reason}")
     P, G, Gb = pts.shape[0], poses.shape[0], bview.shape[0]
     dev = pts.device
     raw = torch.empty((P, 4), dtype=torch.float32, device=dev)

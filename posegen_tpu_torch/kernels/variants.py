@@ -45,7 +45,7 @@ from posegen_tpu_torch.kernels.field import (
     LAUNCHES,
     N_JOINTS,
     POSE_FLOATS,
-    WIDTH,
+    SMEM_LIMIT,
     FieldNet,
     NetLayout,
     _check_operands,
@@ -53,26 +53,36 @@ from posegen_tpu_torch.kernels.field import (
     _no_grad_operands,
     _ptr,
     bf16_round,
+    body_smem_bytes,
     encode_plain,
     mlp_plain,
 )
 
 TILES = (32, 64, 128)  # points per block the kernel is built for
-# csrc/field.cuh: the shared-memory layout of the field kernels' body
-_PAD, _POSE_BYTES, _WARPS, _SCRATCH_FLOATS = 8, 1536, 8, 256
 
 EncodeOnly = Union[bool, str]
 
 
 def variant_smem_bytes(layout: NetLayout, tile: int, density_only: bool = False) -> int:
-    """Dynamic shared memory of one block (csrc/field.cuh smem_bytes): the
-    pose row, tile rows of x_pts, x_views (unless density_only) and the
-    activations, all bf16 and padded by 8, and 8 warps' f32 scratch. At the
-    flagship widths: 184,832 bytes at tile 64, 97,280 at 32, 359,936 at 128
-    (189,952 density-only)."""
-    L = layout
-    row = (L.pc + _PAD) + (0 if density_only else L.vcp + _PAD) + (WIDTH + _PAD)
-    return _POSE_BYTES + 2 * tile * row + 4 * _WARPS * _SCRATCH_FLOATS
+    """Dynamic shared memory of one block (csrc/field_variants.cu
+    posegen_field_variant_smem, `field.body_smem_bytes`): the pose row, tile
+    rows of x_pts, x_views (unless density_only) and the activations, all
+    bf16 and padded by 8, and 8 warps' f32 scratch. At the flagship widths:
+    184,832 bytes at tile 64, 97,280 at 32, 359,936 at 128 (189,952
+    density-only)."""
+    return body_smem_bytes(layout, tile, not density_only)
+
+
+def variant_smem_refusal(layout: NetLayout, tile: int,
+                         density_only: bool = False) -> Optional[str]:
+    """Why the kernel at this tile does not fit one block's shared memory at
+    this layout, or None (at the flagship widths, tile 128 with the view is
+    refused)."""
+    need = variant_smem_bytes(layout, tile, density_only)
+    if need > SMEM_LIMIT:
+        return (f"tile={tile}: needs {need:,} bytes of shared memory per block, more than the "
+                f"{SMEM_LIMIT:,} an H100 block can take")
+    return None
 
 
 def variant_refusal(layout: NetLayout, tile: int, skips: Sequence[int] = (4,),
@@ -249,6 +259,9 @@ def variant_field(pts: torch.Tensor, dirs: torch.Tensor, poses: torch.Tensor, ne
                  mxenc=mxenc)
     if not pts.is_cuda:
         return variant_plain(pts, dirs, poses, net, **flags)
+    reason = variant_smem_refusal(net.layout, tile, density_only)
+    if reason is not None:
+        raise ValueError(f"variant_field: {reason}")
     from posegen_tpu_torch.kernels import build
 
     lib = build.load()

@@ -344,18 +344,20 @@ def render_rays(
       ctx, rays contiguous per group), "full" the same with input gradients,
       False the plain pipeline; None =
       auto: the eval kernels for CUDA tensors whose config/pose passes the
-      gate.
+      gate. True and auto both fall back to the plain pipeline, with a
+      one-time named warning, where the gate (`fused_disqualification`)
+      refuses the config or pose.
     Returns rgb_map/disp_map/acc_map/alpha (+ *0 coarse copies).
     """
     perturb = cfg.perturb if perturb is None else perturb
     raw_noise_std = cfg.raw_noise_std if raw_noise_std is None else raw_noise_std
-    if use_fused is None:
+    if use_fused is True or (use_fused is None and rays_o.is_cuda):
+        reason = fused.fused_disqualification(cfg, ctx, params["coarse"])
+        use_fused = reason is None
+        if reason is not None:
+            fused.warn_fused_fallback("render_rays", reason)
+    elif use_fused is None:
         use_fused = False
-        if rays_o.is_cuda:
-            reason = fused.fused_disqualification(cfg, ctx, params["coarse"])
-            use_fused = reason is None
-            if reason is not None:
-                fused.warn_fused_fallback("render_rays", reason)
     act = density_activation(cfg.nerf_cfg)
     dn = det_noise or {}
 

@@ -27,7 +27,8 @@ from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
-from posegen_tpu_torch.kernels.field import fused_config_disqualification
+from posegen_tpu_torch.kernels.field import fused_config_disqualification, net_layout
+from posegen_tpu_torch.kernels.field_grad import train_refusal
 from posegen_tpu_torch.ops import embedding as emb_mod
 from posegen_tpu_torch.pose.opt import (
     PoseOptConfig, _canon_bones, kp_reg_loss, mpjpc_stat, pose_apply, temporal_loss,
@@ -261,13 +262,17 @@ def _fused_train_mode(cfg: RaycastConfig, tcfg: TrainConfig, params: Dict,
                       batch: Dict[str, torch.Tensor]):
     """"train" ("full" with opt_pose: input gradients too) when the
     trainable kernels apply, else False: enabled (fused_train, or by default
-    CUDA tensors), a config that passes the gate, one view layer, and rays
-    that divide evenly into the batch's pose groups (kp_idx rows with
-    opt_pose, skts rows without; JAX trainer.py:235-270)."""
+    CUDA tensors), a config that passes the gate and whose layout the
+    training kernels' plans take (`field_grad.train_refusal`; the JAX
+    kernels take any, so this is a difference of route), one view layer,
+    and rays that divide evenly into the batch's pose groups (kp_idx rows
+    with opt_pose, skts rows without; JAX trainer.py:235-270)."""
     enabled = tcfg.fused_train
     if enabled is None:
         enabled = batch["rays_o"].is_cuda
     if not enabled or fused_config_disqualification(cfg) is not None:
+        return False
+    if train_refusal(net_layout(cfg.netdepth, cfg.multires, cfg.multires_views)) is not None:
         return False
     if len(params["coarse"].get("views_linears", [0])) != 1:
         return False
