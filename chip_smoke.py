@@ -9,12 +9,15 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
   1. build    compile the kernels from posegen_tpu_torch/kernels/csrc with
               nvcc (the build's seconds and each kernel's registers and
               spills printed); no kernel spills, the SASS of the eval
-              kernels (field.cu, all three modes) and of kernel 4's passes
-              (a) and (b) holds wgmma (HGMMA) and TMA (UTMALDG; UTMASTG in
-              pass (a)) by cuobjdump, and the library's plans equal their
-              Python mirrors: the shared memory of the eval kernels, the
-              stash kernel, pass (a) and the variant kernel, the eval
+              kernel (field.cu, all four modes: full, density-only, dual
+              and the stash) and of kernel 4's passes (a) and (b) holds
+              wgmma (HGMMA) and TMA (UTMALDG; UTMASTG in pass (a)) by
+              cuobjdump, and the library's plans equal their Python
+              mirrors: the shared memory of the eval kernels, the stash
+              kernel, passes (a) and (c) and the variant kernel, the eval
               kernels' scratch slot and persistent grid, pass (b)'s split;
+              at a layout pass (c) refuses, field_backward with inputs
+              raises its named ValueError before any launch;
   2. kernels  at the flagship render's shapes (8192 rays, 64 + 16 samples),
               at ragged sizes whose 128-point tiles outnumber the card's
               SMs (131,056 points) and do not (16,016, and one tile of 48),
@@ -38,9 +41,12 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               x 16 rays x 64 and x 80 samples) and at one ragged size (3
               groups, a last tile of 16 points, a view bias per group),
               fused_field_stash against field_stash_plain (raw and both
-              stashes, the elementwise rule of phase 2; its raw, the WMMA
-              body's, against fused_field's on one group by the same rule)
-              and field_backward
+              stashes, the elementwise rule of phase 2; also at multires
+              7 / 7 and 15 / 4, whose kp octaves 8 and up hold to relative
+              L2 <= ENC_SUM_TOL (compare_kp_ladder), and on groups smaller
+              than a tile, 80 and 8 points, with a view-bias row each; its
+              raw bit-identical to fused_field's on one group, the same
+              body) and field_backward
               against field_bwd_plain, bf16 operands on both sides, each
               gradient tensor to ||kernel - plain||_2 <= GRAD_TOL ||plain||_2,
               and two backward launches bit-identical; then each pass of
@@ -140,13 +146,17 @@ VARIANT_TILE = 64  # kernel 2's tile: the harness's cases are held at it
 # contraction of the double-angle recurrence, flips the bf16 rounding of a
 # few channels, 2^-8 of one channel each
 ENC_SUM_TOL = 1e-3
+# the first kp octave whose phase-5 stash channels hold to ENC_SUM_TOL, not
+# the elementwise rule (compare_kp_ladder): the flagship's are 0-6
+DEEP_OCTAVE = 8
 TRAIN_STEPS = 5
 # the Hopper kernels (by a part of their mangled names: the eval kernel's
-# three modes, kernel 4's passes (a) and (b)) and the instructions their SASS
+# four modes, kernel 4's passes (a) and (b)) and the instructions their SASS
 # must hold
 SM90_KERNELS = {"eval_sm90_kernelILi0E": ("HGMMA", "UTMALDG"),
                 "eval_sm90_kernelILi1E": ("HGMMA", "UTMALDG"),
                 "eval_sm90_kernelILi2E": ("HGMMA", "UTMALDG"),
+                "eval_sm90_kernelILi3E": ("HGMMA", "UTMALDG"),
                 "field_bwd_sm90_kernel": ("HGMMA", "UTMALDG", "UTMASTG"),
                 "wgrad_sm90_kernel": ("HGMMA", "UTMALDG")}
 # the eval kernels' persistent walk against eval_tile_walk: (points, slots)
@@ -291,6 +301,35 @@ def compare(name: str, got, ref) -> float:
     return float(err.max())
 
 
+def compare_kp_ladder(name: str, got, ref, nf_kp: int) -> float:
+    """e_pts by the elementwise rule, but for the kp octaves from
+    DEEP_OCTAVE up, which hold to relative L2 <= ENC_SUM_TOL over their
+    columns: the double-angle recurrence doubles a rounding difference with
+    each octave (an ulp of the card's and PyTorch's f32 sin / cos, or an FMA
+    contraction, is 2^14 ulp at octave 14 of multires 15), so a deep
+    octave's channel near 0 can leave the elementwise rule on any two f32
+    evaluations. The channels past the rule are counted and printed."""
+    import torch
+
+    deep = slice(24 * (1 + 2 * DEEP_OCTAVE), 24 * (1 + 2 * nf_kp))
+    if nf_kp <= DEEP_OCTAVE:
+        return compare(name, got, ref)
+    keep = torch.ones(got.shape[1], dtype=torch.bool, device=got.device)
+    keep[deep] = False
+    e = compare(f"{name} (octaves below {DEEP_OCTAVE})", got[:, keep], ref[:, keep])
+    g, r = got[:, deep], ref[:, deep]
+    check(bool(torch.isfinite(g).all()), f"{name}: kernel output not finite")
+    e_l2 = rel_l2(g, r)
+    check(e_l2 <= ENC_SUM_TOL, f"{name} octaves {DEEP_OCTAVE}-{nf_kp - 1}: relative L2 "
+                               f"{e_l2:.3e} > {ENC_SUM_TOL}")
+    bad = ((g - r).abs() > ATOL + RTOL * r.abs()).nonzero()
+    octaves = sorted({DEEP_OCTAVE + int(c) // 48 for c in bad[:, 1].tolist()})
+    print(f"  {name}: octaves {DEEP_OCTAVE}-{nf_kp - 1} relative L2 {e_l2:.3e}, max|diff| "
+          f"{float((g - r).abs().max()):.3e}, {bad.shape[0]} of {g.numel()} channels past the "
+          f"elementwise rule (octaves {octaves})")
+    return e
+
+
 def check_build(build) -> None:
     """No kernel spills; the Hopper kernels (SM90_KERNELS) issue wgmma
     (HGMMA) and TMA (UTMALDG, and UTMASTG for pass (a)) in their SASS
@@ -324,9 +363,10 @@ def check_build(build) -> None:
 
 def check_plans(lib, F, FG) -> None:
     """The library's plans against their Python mirrors: the shared memory
-    of the eval kernels (the same at every layout), the stash kernel, pass
-    (a) and the variant kernel at each tile, the eval kernels' scratch slot,
-    at several depths and multires; the eval kernels' persistent grid."""
+    of the eval kernels (the same at every layout), the stash kernel,
+    passes (a) and (c) and the variant kernel at each tile, the eval
+    kernels' scratch slot, at several depths and multires; the eval
+    kernels' persistent grid."""
     from posegen_tpu_torch.kernels import variants as V
 
     for depth, mr, mv in ((8, 7, 4), (9, 7, 4), (16, 7, 4), (1, 7, 0), (8, 4, 2), (8, 7, 7),
@@ -338,6 +378,8 @@ def check_plans(lib, F, FG) -> None:
             ("eval slot", lib.posegen_field_eval_slot_bytes(*args), F.eval_slot_bytes(L0)),
             ("stash shared memory", lib.posegen_field_stash_smem(*args), FG.stash_smem_bytes(L0)),
             ("pass (a) shared memory", lib.posegen_field_bwd_smem(*args), FG.bwd_smem_bytes(L0)),
+            ("pass (c) shared memory", lib.posegen_field_bwd_input_smem(*args),
+             FG.input_smem_bytes(L0)),
         ) + tuple((f"variant shared memory at tile {t}{' density_only' if d else ''}",
                    lib.posegen_field_variant_smem(t, int(d), *args),
                    V.variant_smem_bytes(L0, t, d)) for t in V.TILES for d in (False, True)):
@@ -348,6 +390,30 @@ def check_plans(lib, F, FG) -> None:
         check(grid == len(F.eval_tile_walk(n_pts, n_slots)),
               f"eval grid on {n_pts} points, {n_slots} slots: library {grid}, "
               f"field.py {len(F.eval_tile_walk(n_pts, n_slots))}")
+
+
+def check_input_refusal(torch, F, FG) -> None:
+    """At multires 9 / multires_views 4, whose pass (c) plan outgrows a
+    block, field_backward with inputs raises the named ValueError before any
+    launch (the weights-only backward takes the layout)."""
+    L = F.net_layout(8, 9, 4)
+    reason = FG.field_input_refusal(L)
+    check(reason is not None, "pass (c): multires 9 / 4 not refused")
+    P, spr = 128, 8
+    z = lambda *shape, dt=torch.float32: torch.zeros(shape, dtype=dt, device=DEVICE)
+    net = F.FieldNet(z(L.n_w), z(L.n_b), L)
+    ins = FG.FieldInputs(z(P, 3), z(P // spr, 3), spr, z(1, F.POSE_FLOATS + L.nf_kp + L.nf_view))
+    before = dict(F.LAUNCHES)
+    try:
+        FG.field_backward(z(P, 4), z(P, L.pc, dt=torch.bfloat16), z(P, L.vc, dt=torch.bfloat16),
+                          net, z(1, F.VIEW_WIDTH), ins)
+    except ValueError as e:
+        check(str(e) == f"field_bwd_inputs: {reason}", f"pass (c) refusal: {e}")
+    else:
+        raise SmokeFailure("field_backward(inputs=...) launched at a layout pass (c) refuses")
+    check(dict(F.LAUNCHES) == before, "pass (c) refusal: a kernel launched")
+    print(f"  pass (c) at multires 9 / 4 ({FG.input_smem_bytes(L)} bytes): field_backward with "
+          "inputs raises its ValueError before any launch")
 
 
 def main() -> int:
@@ -401,8 +467,9 @@ def run(torch) -> int:
         check((splits, chunk.value) == FG.wgrad_split_plan(n_pts),
               f"pass (b)'s split of {n_pts} points: library {(splits, chunk.value)}, "
               f"field_grad.py {FG.wgrad_split_plan(n_pts)}")
-    print("  the plans: shared memory of the eval, stash, pass (a) and variant kernels, the eval "
-          "kernels' slot and grid, pass (b)'s split: library == Python")
+    print("  the plans: shared memory of the eval, stash, pass (a), pass (c) and variant kernels, "
+          "the eval kernels' slot and grid, pass (b)'s split: library == Python")
+    check_input_refusal(torch, F, FG)
 
     # 2. kernels against their plain versions, at the render's shapes -------
     cfg = RaycastConfig()
@@ -582,15 +649,15 @@ def run(torch) -> int:
     # field_backward call (its launch count); their bounds add up to the
     # backward's, and design_floor_ms is the two-pass design's workspace
     # traffic at the memory rate
-    for name, counter, replaces in (
-        ("field_stash", "field_stash", "posegen_tpu/kernels/field_grad.py:252"),
-        ("field_bwd_pass_a", "field_bwd", "posegen_tpu/kernels/field_grad.py:340"),
-        ("field_bwd_pass_b", "field_bwd", "posegen_tpu/kernels/field_grad.py:340"),
+    for name, counter, src, replaces in (
+        ("field_stash", "field_stash", "field.cu", "posegen_tpu/kernels/field_grad.py:252"),
+        ("field_bwd_pass_a", "field_bwd", "field_grad.cu", "posegen_tpu/kernels/field_grad.py:340"),
+        ("field_bwd_pass_b", "field_bwd", "field_grad.cu", "posegen_tpu/kernels/field_grad.py:340"),
     ):
         _, _, _, k_ms, p_ms, b_ms, b_by = train_rows[(name, "coarse")]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": "posegen_tpu_torch/kernels/csrc/field_grad.cu", "replaces": replaces,
+            "source": f"posegen_tpu_torch/kernels/csrc/{src}", "replaces": replaces,
             "launches": train_launches[counter], "max_abs_err": train_err[name], "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": train_library.get((name, "coarse")),
@@ -729,16 +796,34 @@ def train_phases(torch, card: str):
             err["field_bwd_pass_a"] = max(err["field_bwd_pass_a"], e_a)
             err["field_bwd_pass_b"] = max(err["field_bwd_pass_b"], e_b)
 
-        # one group: the stash kernel (the WMMA body) and the field kernel (the
-        # wgmma body) compute one function; they sum in different orders
+        for tag, (pts, dirs, n_s, poses_t, bview_t, net_t) in stash_cases(
+                torch, F, cases, net, batch["skts"], gen).items():
+            raw, e_pts, e_view = FG.fused_field_stash(pts, dirs, n_s, poses_t, net_t, bview_t)
+            p_raw, p_ep, p_ev = FG.field_stash_plain(pts, dirs, n_s, poses_t, net_t, bview_t,
+                                                     mm_dtype=bf16)
+            torch.cuda.synchronize()
+            Lt = net_t.layout
+            e = max(compare(f"field_stash raw {tag}", raw, p_raw),
+                    compare_kp_ladder(f"field_stash e_pts {tag}", e_pts.float(), p_ep.float(),
+                                      Lt.nf_kp),
+                    compare(f"field_stash e_view {tag}", e_view.float(), p_ev.float()))
+            err["field_stash"] = max(err["field_stash"], e)
+            print(f"kernel field_stash vs plain, {tag} ({pts.shape[0]} points, "
+                  f"{poses_t.shape[0]} groups of {pts.shape[0] // poses_t.shape[0]}, "
+                  f"{bview_t.shape[0]} view-bias rows, multires {Lt.nf_kp} / {Lt.nf_view}): "
+                  f"max|diff| {e:.3e}")
+
+        # one group: the stash mode and the field kernel's full mode run one
+        # body on one function
         pts, dirs, n_s, poses_t, bview_t, _ = cases["coarse"]
         n1 = rpg * n_s
         raw1, _, _ = FG.fused_field_stash(pts[:n1], dirs[:rpg], n_s, poses_t[:1], net, bview_t)
         ref1 = F.fused_field(pts[:n1], dirs[:rpg], n_s, poses_t[0],
                              F.FieldNet(net.w.to(bf16), net.b, L))
         torch.cuda.synchronize()
-        e1 = compare("field_stash raw vs fused_field on one group", raw1, ref1)
-        print(f"kernel field_stash raw vs fused_field raw on one group: max|diff| {e1:.3e}")
+        check(bool(torch.equal(raw1, ref1)), "field_stash raw vs fused_field on one group: not "
+              f"bit-identical (max|diff| {float((raw1 - ref1).abs().max()):.3e})")
+        print("kernel field_stash raw vs fused_field raw on one group: bit-identical")
 
     # 6. the train step -----------------------------------------------------
     tcfg = TrainConfig(rays_per_image=rpg, use_background=True)
@@ -867,6 +952,36 @@ def train_phases(torch, card: str):
               f"bound {b_ms:.3f} ms ({b_by}, {b_ms / k_ms:.1%} of it), plain {p_ms:.3f} ms "
               f"[{card}]")
     return rows, err, launches, library, floors
+
+
+def stash_cases(torch, F, cases, net, skts, gen):
+    """Phase 5's further stash cases -> {tag: (pts, dirs, samples per ray,
+    poses, view bias, net)}: the train batch's first 4 groups x 16 rays x 64
+    samples on random nets at multires 7 / 7 and 15 / 4, and groups smaller
+    than a tile on `net`, the flagship's (12 groups of one ray x 80 samples, and
+    40 of one ray x 8), each with its own view-bias row."""
+    from posegen_tpu_torch.render.raycast import RaycastConfig, init_raycaster
+
+    out = {}
+    pts, dirs, n_s, poses, bview, _ = cases["coarse"]
+    G = 4
+    n_r = G * RAYS_PER_GROUP
+    for mr, mv in ((7, 7), (15, 4)):
+        cfg = RaycastConfig(multires=mr, multires_views=mv)
+        v = init_raycaster(cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
+        L = F.net_layout(cfg.netdepth, mr, mv)
+        bv = F.group_view_bias(v["fine"], L)
+        bv = bv + 0.1 * torch.randn((G, F.VIEW_WIDTH), generator=gen).to(DEVICE)
+        out[f"multires{mr}_views{mv}"] = (
+            pts[:n_r * n_s].contiguous(), dirs[:n_r].contiguous(), n_s,
+            F.pack_poses(skts[:G], v["embed_kp"], mr, mv), bv.contiguous(),
+            F.pack_net_f32(v["fine"], L))
+    pts_f, dirs_f, n_f, poses_f, bview_f, _ = cases["fine"]
+    for tag, G, spr in (("groups_of_80", 12, n_f), ("groups_of_8", 40, 8)):
+        bv = bview_f[:1] + 0.1 * torch.randn((G, F.VIEW_WIDTH), generator=gen).to(DEVICE)
+        out[tag] = (pts_f.view(-1, n_f, 3)[:G, :spr].reshape(-1, 3).contiguous(),
+                    dirs_f[:G].contiguous(), spr, poses_f[:G].contiguous(), bv.contiguous(), net)
+    return out
 
 
 def backward_pass_checks(torch, FG, L, tag, g, e_pts, e_view, net, bview, ws, d_w):
@@ -1164,6 +1279,15 @@ def pose_phases(torch, card: str):
                       + 4 * poses_t.numel()) + 2 * (2 * F.WIDTH * L.pc + F.VIEW_WIDTH * L.vc))
             b_ms, b_by = bound(input_bwd_flops(L) * P, nbytes)
             rows[tag] = ("field_bwd_inputs", tag, P, k_ms, p_ms, b_ms, b_by)
+            # the stash kernel at the pose step's shapes (framecodes: a view
+            # bias row per group), beside its bound as phase 6 counts it
+            s_ms = cuda_ms(lambda: FG.fused_field_stash(pts, dirs, n_s, poses_t, net, bview_t), 10)
+            s_bytes = (12 * P + 12 * dirs.shape[0] + 4 * poses_t.numel() + 2 * L.n_w + 4 * L.n_b
+                       + 4 * bview_t.numel() + 16 * P + 2 * (L.pc + L.vc) * P)
+            s_b, s_by = bound(F.field_flops(L, False) * P, s_bytes)
+            print(f"timing kernel field_stash pose {tag} ({P} points, {G} groups, 2 launches per "
+                  f"step): {s_ms:.3f} ms, bound {s_b:.3f} ms ({s_by}, {s_b / s_ms:.1%} of it) "
+                  f"[{card}]")
             parts = ", ".join(f"{n.split('(')[0]} {ms:.3f}" for n, ms, _ in branch)
             print(f"timing kernel field_bwd_inputs {tag} ({P} points, {G} groups, 2 launches per "
                   f"step): {k_ms:.3f} ms ({parts}; the whole backward {sum(k[1] for k in kern):.3f}"

@@ -124,8 +124,9 @@ def load() -> ctypes.CDLL:
     lib.posegen_field_bwd.restype = I
     lib.posegen_field_bwd_splits.argtypes = [I, IA]
     lib.posegen_field_bwd_splits.restype = I
-    lib.posegen_field_bwd_smem.argtypes = [IA, I]
-    lib.posegen_field_bwd_smem.restype = ctypes.c_longlong
+    for name in ("posegen_field_bwd_smem", "posegen_field_bwd_input_smem"):
+        getattr(lib, name).argtypes = [IA, I]
+        getattr(lib, name).restype = LL
     lib.posegen_field_variant.argtypes = [P, P, I, P, I, I, IA, I, P, P, P, I, I, I, I, I, P]
     lib.posegen_field_variant.restype = I
     lib.posegen_field_variant_blocks.argtypes = [I, I, IA, I, ctypes.POINTER(ctypes.c_int)]

@@ -1,17 +1,23 @@
-// Fused skeleton-encode + NeRF MLP eval kernels for Hopper (sm_90a), bound
-// to Python through a plain C interface (ctypes).
+// Fused skeleton-encode + NeRF MLP kernels for Hopper (sm_90a), bound to
+// Python through a plain C interface (ctypes).
 //
-//   posegen_field  replaces posegen_tpu/kernels/field.py::_field_kernel
-//                  (full raw, or density_only: trunk + alpha head only)
-//   posegen_dual   replaces posegen_tpu/kernels/field.py::_dual_kernel
-//                  (one encode, coarse trunk + alpha head and the full fine net)
+//   posegen_field        replaces posegen_tpu/kernels/field.py::_field_kernel
+//                        (full raw, or density_only: trunk + alpha head only)
+//   posegen_dual         replaces posegen_tpu/kernels/field.py::_dual_kernel
+//                        (one encode, coarse trunk + alpha head and the full
+//                        fine net)
+//   posegen_field_stash  replaces posegen_tpu/kernels/field_grad.py::
+//                        _field_fwd_stash_kernel (the full net on grouped
+//                        poses, its bf16 encodings written out for the
+//                        backward, csrc/field_grad.cu)
 //
 // Bound on an H100: operations. The flagship field evaluation is 1,723,648
 // FLOP per point and the dual one 3,084,032, against 40-56 bytes of input and
-// output per point; at 989 TFLOP/s (bf16 dense) that is 1.74 ns and 3.12 ns
-// per point.
+// output per point (the stash adds 2,160 bytes of encodings written); at 989
+// TFLOP/s (bf16 dense) that is 1.74 ns and 3.12 ns per point (the stash's
+// bytes 0.64 ns at 3.35 TB/s).
 //
-// One template, three instantiations (kFull, kDensity, kDual), on the
+// One template, four instantiations (kFull, kDensity, kDual, kStash), on the
 // 128-point tile of sm90_tile.cuh (kernel 4's pass (a) design): a persistent
 // grid of min(tiles, slots) blocks, each of two consumer warpgroups and one
 // producer warp, walks the tiles blockIdx.x, + gridDim.x, ... For each tile:
@@ -42,6 +48,15 @@
 // past n_pts encode a copy of the last point and are never stored.
 // kDensity runs kFull's trunk and alpha head code: its sigma is kFull's, bit
 // for bit.
+//
+// kStash is kFull with three differences. Point p reads pose row p / ppg of
+// a table (each row its rotations, translations, cutoffs, tau and octave
+// weights; read per point through L1, so a tile may straddle any number of
+// groups) and adds view-bias row p / vppg in the view layer. Its slots are
+// the outputs: tile t encodes into rows 128 t .. of e_pts (n_pts, pc) and
+// e_view (n_pts, vc), so no slot is reused and the grid is min(tiles, SMs).
+// Rows past n_pts are neither encoded nor stored; TMA reads them as zeros.
+// On one group its raw is kFull's, bit for bit.
 
 #include <limits.h>
 
@@ -51,7 +66,20 @@
 
 namespace posegen {
 
-enum Mode { kFull = 0, kDensity = 1, kDual = 2 };
+enum Mode { kFull = 0, kDensity = 1, kDual = 2, kStash = 3 };
+
+// Whether net k of the mode runs the feature and view layers and rgb head.
+__host__ __device__ constexpr bool full_net(int mode, int k) {
+  return mode == kFull || mode == kStash || (mode == kDual && k == 1);
+}
+
+// kStash's grouped operands: point p reads pose row p / ppg (rows pose_ld
+// floats apart) and view-bias row p / vppg of bview (rows vb_ld floats
+// apart; vb_ld == 0: one row for every point).
+struct Groups {
+  const float* bview;
+  int pose_ld, ppg, vb_ld, vppg;
+};
 
 // Shared memory (bytes, from a 1,024-aligned base): the tile 65,536 | weight
 // ring 3 x 32,768 | encoding ring 2 x 16,384 | pose operand 1,536 | head
@@ -102,7 +130,7 @@ template <int MODE>
 __device__ void eval_produce(const EvalMaps& M, const Layout& L, int n_tiles, const Ring& R,
                              uint32_t slot_bar) {
   const int nk_p = (L.pc + 63) / 64, nk_v = (L.vc + 63) / 64;
-  const int row0 = blockIdx.x * kATile;  // the block's slot
+  int row0 = blockIdx.x * kATile;  // the block's slot (kStash: the tile's rows)
   int it = 0, ie = 0, n = 0;
   bool ready = false;
   auto issue = [&](const CUtensorMap* wm, int nbox, int kc, int wrow, const CUtensorMap* em) {
@@ -128,6 +156,7 @@ __device__ void eval_produce(const EvalMaps& M, const Layout& L, int n_tiles, co
   };
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x, ++n) {
     ready = false;
+    if (MODE == kStash) row0 = t * kATile;
     for (int k = 0; k < (MODE == kDual ? 2 : 1); ++k) {
       const NetMaps& N = M.net[k];
       for (int i = 0; i < L.depth; ++i) {
@@ -140,7 +169,7 @@ __device__ void eval_produce(const EvalMaps& M, const Layout& L, int n_tiles, co
           for (int kc = 0; kc < 4; ++kc) issue(&N.w256, 4, kc, L.w_layer[i] / kWidth, nullptr);
         }
       }
-      if (MODE == kFull || (MODE == kDual && k == 1)) {
+      if (full_net(MODE, k)) {
         for (int kc = 0; kc < 4; ++kc) issue(&N.w256, 4, kc, L.w_feat / kWidth, nullptr);
         for (int kc = 0; kc < 4; ++kc) issue(&N.wv_f, 2, kc, 0, nullptr);
         for (int kc = 0; kc < nk_v; ++kc) issue(&N.wv_e, 2, kc, 0, &M.ev);
@@ -162,23 +191,32 @@ __device__ __forceinline__ void st_bf16x4(bf16* p, float a, float b, float c, fl
 }
 
 // The encodings of the 64 points from p0 (rows past n_pts repeat the last
-// point) into 64 slot rows: e_pts rows of pc and, with kView, e_view rows of
-// vc bf16, in encode_tile's channel order and arithmetic (field.cuh). Work
-// item (p, q) is point p's joints 4q .. 4q + 3: their kp channels in 8-byte
-// vectors of 4 joints, their reldir and view channels in three vectors of 12
-// (joint, axis) values; a warpgroup's 128 threads take 3 items each.
-template <bool kView>
+// point; with kRows they are skipped) into 64 slot rows: e_pts rows of pc
+// and, with kView, e_view rows of vc bf16, in encode_tile's channel order and
+// arithmetic (field.cuh). `pose` is the one pose in shared memory or, with
+// kRows, a table whose row gp / ppg (pose_ld floats apart) point gp reads.
+// Work item (p, q) is point p's joints 4q .. 4q + 3: their kp channels in
+// 8-byte vectors of 4 joints, their reldir and view channels in three vectors
+// of 12 (joint, axis) values; a warpgroup's 128 threads take 3 items each.
+template <bool kView, bool kRows>
 __device__ __forceinline__ void encode_slot(const float* __restrict__ pts,
                                             const float* __restrict__ dirs, int n_pts, int spr,
-                                            int p0, const float* s_pose, const Layout& L,
-                                            bf16* __restrict__ e_pts, bf16* __restrict__ e_view,
-                                            int t) {
+                                            int p0, const float* pose, int pose_ld, int ppg,
+                                            const Layout& L, bf16* __restrict__ e_pts,
+                                            bf16* __restrict__ e_view, int t) {
   const int kc = kJoints * (1 + 2 * L.nf_kp);
-  const float tau = s_pose[kJoints * 13];
+  const float* s_pose = pose;
+  float tau = s_pose[kJoints * 13];
   const float* sw = s_pose + kPoseFloats;  // kp octaves, then view octaves
   for (int item = t; item < 64 * 6; item += 128) {
     const int p = item / 6, q = item - 6 * p;
+    if (kRows && p0 + p >= n_pts) break;  // items run in point order
     const int gp = min(p0 + p, n_pts - 1);
+    if (kRows) {
+      s_pose = pose + static_cast<size_t>(gp / ppg) * pose_ld;
+      tau = s_pose[kJoints * 13];
+      sw = s_pose + kPoseFloats;
+    }
     const float x = __ldg(pts + 3 * gp), y = __ldg(pts + 3 * gp + 1), z = __ldg(pts + 3 * gp + 2);
     float w[4], s[4], c[4], vw[4], u[12];
 #pragma unroll
@@ -290,8 +328,9 @@ __device__ __forceinline__ void head_dot(const float (&v)[128], const bf16* w, i
   s[1] = b;
 }
 
-// out0 / w0 / b0: the net (kFull, kDensity) or the coarse net (kDual);
-// out1 / w1 / b1: the fine net of kDual. ep / ev: the scratch's slots.
+// out0 / w0 / b0: the net (kFull, kDensity, kStash) or the coarse net
+// (kDual); out1 / w1 / b1: the fine net of kDual. ep / ev: the scratch's
+// slots (kStash: the stashes). pose: the one pose (kStash: the table of G).
 template <int MODE>
 __global__ void __launch_bounds__(kAThreads, 1)
     eval_sm90_kernel(const __grid_constant__ EvalMaps M, const float* __restrict__ pts,
@@ -300,7 +339,7 @@ __global__ void __launch_bounds__(kAThreads, 1)
                      const bf16* __restrict__ w0, const float* __restrict__ b0,
                      const bf16* __restrict__ w1, const float* __restrict__ b1,
                      bf16* __restrict__ ep, bf16* __restrict__ ev, float* __restrict__ out0,
-                     float* __restrict__ out1) {
+                     float* __restrict__ out1, const Groups G) {
   constexpr bool kView = MODE != kDensity;
   constexpr int kNets = MODE == kDual ? 2 : 1;
   extern __shared__ unsigned char smem_raw[];
@@ -326,7 +365,9 @@ __global__ void __launch_bounds__(kAThreads, 1)
     sm90::fence_mbar_init();
   }
   const int n_pose = kPoseFloats + L.nf_kp + L.nf_view;
-  for (int i = threadIdx.x; i < n_pose; i += kAThreads) s_pose[i] = pose[i];
+  if (MODE != kStash) {
+    for (int i = threadIdx.x; i < n_pose; i += kAThreads) s_pose[i] = pose[i];
+  }
   {
     const int t = threadIdx.x;
     uint4* h = reinterpret_cast<uint4*>(s_head);
@@ -361,14 +402,22 @@ __global__ void __launch_bounds__(kAThreads, 1)
 
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const int p0 = t * kATile;
+    bf16* ep_t = ep_w;
+    bf16* ev_t = ev_w;
+    if (MODE == kStash) {  // the tile's own rows of the stashes
+      ep_t = ep + static_cast<size_t>(p0 + 64 * f.wg) * L.pc;
+      ev_t = ev + static_cast<size_t>(p0 + 64 * f.wg) * L.vc;
+    }
     sm90::fence_async_global();
-    encode_slot<kView>(pts, dirs, n_pts, spr, p0 + 64 * f.wg, s_pose, L, ep_w, ev_w, f.t);
+    encode_slot<kView, MODE == kStash>(pts, dirs, n_pts, spr, p0 + 64 * f.wg,
+                                       MODE == kStash ? pose : s_pose, G.pose_ld, G.ppg, L, ep_t,
+                                       ev_t, f.t);
     sm90::fence_async_global();
     sm90::bar_sync(1 + f.wg, 128);
     if (f.t == 0) sm90::mbar_arrive(slot_bar);
 
     for (int k = 0; k < kNets; ++k) {
-      const bool full = MODE == kFull || (MODE == kDual && k == 1);
+      const bool full = full_net(MODE, k);
       const float* __restrict__ B = k ? b1 : b0;
       float* __restrict__ out = k ? out1 : out0;
       float alpha[2] = {0.f, 0.f};
@@ -403,14 +452,23 @@ __global__ void __launch_bounds__(kAThreads, 1)
       if (full) {  // the view layer on [feat | e_view], then the rgb head
         consume<128, 0>(acc, 4, false, tile, true, it, ie, R, f.wg);
         consume<128, 0>(acc, nk_v, true, 0, false, it, ie, R, f.wg);
+        // the view bias of rows r0 and r0 + 8: the packed b's, or (kStash)
+        // each row's group row of G.bview
         const float* bview = B + L.b_view + 2 * quad;
+        const float* bview8 = bview;
+        if (MODE == kStash) {
+          const int r = min(p0 + f.r0, n_pts - 1), r8 = min(p0 + f.r0 + 8, n_pts - 1);
+          bview = G.bview + static_cast<size_t>(r / G.vppg) * G.vb_ld + 2 * quad;
+          bview8 = G.bview + static_cast<size_t>(r8 / G.vppg) * G.vb_ld + 2 * quad;
+        }
 #pragma unroll
         for (int j = 0; j < 16; ++j) {
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const float bb = __ldg(bview + 8 * j + e);
+            const float bb8 = MODE == kStash ? __ldg(bview8 + 8 * j + e) : bb;
             acc[4 * j + e] = fmaxf(acc[4 * j + e] + bb, 0.f);
-            acc[4 * j + e + 2] = fmaxf(acc[4 * j + e + 2] + bb, 0.f);
+            acc[4 * j + e + 2] = fmaxf(acc[4 * j + e + 2] + bb8, 0.f);
           }
         }
 #pragma unroll
@@ -485,7 +543,7 @@ static int launch(const float* pts, const float* dirs, int n_pts, int spr, const
   const cudaError_t e = set_smem(eval_sm90_kernel<MODE>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   eval_sm90_kernel<MODE><<<eval_grid(n_pts, n_slots), kAThreads, smem, stream>>>(
-      M, pts, dirs, n_pts, spr, pose, L, W0, b0, W1, b1, ep, ev, out0, out1);
+      M, pts, dirs, n_pts, spr, pose, L, W0, b0, W1, b1, ep, ev, out0, out1, Groups{});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -530,6 +588,51 @@ long long posegen_field_eval_smem(const int* layout, int n_layout) {
   Layout L;
   if (!read_layout(layout, n_layout, &L)) return 0;
   return static_cast<long long>(eval_smem_bytes());
+}
+
+// raw (n_pts, 4) f32 and the stashes e_pts (n_pts, pc), e_view (n_pts, vc)
+// bf16 of one net on grouped poses: point p reads pose row p / ppg of
+// `poses` (rows pose_ld floats apart, each as field.py pack_pose) and view
+// bias row p / vppg of bview (n_vgroups rows of 128; its single row when
+// n_vgroups == 1). w bf16 and b f32 packed per `layout` (b's view bias slot
+// is not read). Returns a cudaError_t code (0 = launched).
+int posegen_field_stash(const float* pts, const float* dirs, int n_pts, int spr,
+                        const float* poses, int pose_ld, int ppg, const int* layout, int n_layout,
+                        const void* w, const float* b, const float* bview, int n_vgroups,
+                        int vppg, float* out, void* e_pts, void* e_view, void* stream) {
+  using namespace posegen;
+  Layout L;
+  if (!read_layout(layout, n_layout, &L) || n_pts <= 0 || spr <= 0 || ppg <= 0 ||
+      pose_ld < kPoseFloats + L.nf_kp + L.nf_view || !view_groups_ok(n_pts, n_vgroups, vppg)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // the maps cover the stashes (n_pts rows); one block per SM at most
+  const auto* W = static_cast<const bf16*>(w);
+  auto* ep = static_cast<bf16*>(e_pts);
+  auto* ev = static_cast<bf16*>(e_view);
+  EvalMaps M{};
+  if (!net_maps(L, W, &M.net[0]) || !sm90::make_map(&M.ep, ep, L.pc, n_pts, L.pc, kATile) ||
+      !sm90::make_map(&M.ev, ev, L.vc, n_pts, L.vc, kATile)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = eval_smem_bytes();
+  cudaError_t e = set_smem(eval_sm90_kernel<kStash>, smem);
+  int dev = 0, n_sm = 0;
+  if (e != cudaSuccess || (e = cudaGetDevice(&dev)) != cudaSuccess ||
+      (e = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess) {
+    return static_cast<int>(e);
+  }
+  const Groups G{bview, pose_ld, ppg, n_vgroups > 1 ? kViewWidth : 0, vppg};
+  eval_sm90_kernel<kStash><<<eval_grid(n_pts, n_sm), kAThreads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      M, pts, dirs, n_pts, spr, poses, L, W, b, nullptr, nullptr, ep, ev, out, nullptr, G);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of dynamic shared memory the stash kernel takes for this layout (0:
+// invalid layout): the eval kernels' plan, which it shares.
+long long posegen_field_stash_smem(const int* layout, int n_layout) {
+  return posegen_field_eval_smem(layout, n_layout);
 }
 
 // Bytes of one slot of the eval kernels' scratch for this layout (0: invalid).

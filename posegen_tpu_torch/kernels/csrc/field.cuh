@@ -1,8 +1,9 @@
 // Device code shared by the port's field kernels: the Layout record and its
 // reader, and the WMMA body, the per-point skeleton encode and the MLP,
-// written once and instantiated by the stash kernel (field_grad.cu) and the
-// A/B harness's variant kernel (field_variants.cu). The eval kernels
-// (field.cu) run encode_tile's arithmetic and the MLP on wgmma instead.
+// written once and instantiated by the A/B harness's variant kernel
+// (field_variants.cu); the backward's pass (c) (field_grad.cu) uses its
+// products and tile. The eval and stash kernels (field.cu) run encode_tile's
+// arithmetic and the MLP on wgmma instead.
 //
 // Replaces the shared body of the Pallas kernels in
 // posegen_tpu/kernels/field.py: encode_intermediates / _kp_side (:264-374)
@@ -31,8 +32,8 @@ using bf16 = __nv_bfloat16;
 namespace wmma = nvcuda::wmma;
 
 constexpr int kJoints = 24;
-constexpr int kTile = 64;           // points per block of the stash kernel; the
-                                    // shared body takes any multiple of 16 (TILE below)
+constexpr int kTile = 64;           // points per block of pass (c); the shared
+                                    // body takes any multiple of 16 (TILE below)
 constexpr int kMTiles = kTile / 16;  // 16-row MMA tiles per block
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -207,20 +208,26 @@ __device__ __forceinline__ void gemm_segment(FragC (&acc)[TILE / 16][NT], const 
   }
 }
 
-// Per-row bias rows (the training kernels' per-pose-group view bias): row r
-// of the block at p0 adds bias row min(p0 + r, n_pts - 1) / ppg, rows ld
-// floats apart. ld == 0: one bias row for every point.
+// Per-row bias rows (the backward's per-pose-group view bias): point p adds
+// bias row p / ppg, rows ld floats apart. ld == 0: one bias row for every
+// point.
 struct RowBias {
-  int ld = 0, p0 = 0, ppg = 1, n_pts = 1;
+  int ld = 0, ppg = 1;
 };
+
+// n_pts points in n_vgroups view-bias groups of vppg points: the last group
+// holds at least one point.
+static inline bool view_groups_ok(int n_pts, int n_vgroups, int vppg) {
+  return n_vgroups >= 1 && vppg >= 1 && static_cast<long long>(n_vgroups) * vppg >= n_pts &&
+         static_cast<long long>(n_vgroups - 1) * vppg < n_pts;
+}
 
 // acc + bias (+ ReLU) -> bf16 rows of `out` (row stride kHLd), through the
 // warp's f32 scratch tile (the accumulator's register layout is opaque).
 template <int NT, int TILE = kTile>
 __device__ __forceinline__ void store_tile(FragC (&acc)[TILE / 16][NT],
                                            const float* __restrict__ bias, bool relu,
-                                           bf16* out, int n0, float* scratch,
-                                           const RowBias rb = RowBias{}) {
+                                           bf16* out, int n0, float* scratch) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int im = 0; im < TILE / 16; ++im) {
@@ -230,11 +237,7 @@ __device__ __forceinline__ void store_tile(FragC (&acc)[TILE / 16][NT],
       __syncwarp();
       for (int e = lane; e < 256; e += 32) {
         const int n = n0 + 16 * jn + (e & 15);
-        const float* brow =
-            rb.ld ? bias + static_cast<size_t>(min(rb.p0 + 16 * im + (e >> 4), rb.n_pts - 1) /
-                                               rb.ppg) * rb.ld
-                  : bias;
-        float v = scratch[e] + brow[n];
+        float v = scratch[e] + bias[n];
         if (relu) v = fmaxf(v, 0.f);
         out[(16 * im + (e >> 4)) * kHLd + n] = __float2bfloat16(v);
       }
@@ -248,7 +251,7 @@ __device__ __forceinline__ void store_tile(FragC (&acc)[TILE / 16][NT],
 template <int NT, int TILE = kTile>
 __device__ void dense(const bf16* A1, int lda1, int K1, const bf16* A2, int lda2, int K2,
                       const bf16* __restrict__ W, const float* __restrict__ bias, bool relu,
-                      bf16* out, float* scratch, const RowBias rb = RowBias{}) {
+                      bf16* out, float* scratch) {
   const int warp = threadIdx.x >> 5;
   const int n0 = warp * NT * 16;
   FragC acc[TILE / 16][NT];
@@ -261,7 +264,7 @@ __device__ void dense(const bf16* A1, int lda1, int K1, const bf16* A2, int lda2
   gemm_segment<NT, TILE>(acc, A1, lda1, K1, W, ldw, n0);
   gemm_segment<NT, TILE>(acc, A2, lda2, K2, W + K1, ldw, n0);
   __syncthreads();
-  store_tile<NT, TILE>(acc, bias, relu, out, n0, scratch + warp * kScratch, rb);
+  store_tile<NT, TILE>(acc, bias, relu, out, n0, scratch + warp * kScratch);
   __syncthreads();
 }
 

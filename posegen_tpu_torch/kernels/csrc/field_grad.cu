@@ -1,10 +1,10 @@
 // Training kernels of the fused field for Hopper (sm_90a), bound to Python
 // through a plain C interface (ctypes).
 //
-//   posegen_field_stash  replaces posegen_tpu/kernels/field_grad.py::
-//                        _field_fwd_stash_kernel: the field kernel's full
-//                        forward on grouped poses, plus its bf16 encodings
-//                        written out for the backward.
+// (The train step's forward, posegen_field_stash, replaces
+// posegen_tpu/kernels/field_grad.py::_field_fwd_stash_kernel: it is the eval
+// kernel's stash mode, in field.cu.)
+//
 //   posegen_field_bwd    replaces posegen_tpu/kernels/field_grad.py::
 //                        _field_bwd_kernel: every weight and bias gradient
 //                        of one net, and the view bias gradient per pose
@@ -13,12 +13,12 @@
 //                        input_grads branch (_encode_backward): d_pts,
 //                        d_dirs per ray and d_rot / d_trn per pose group.
 //
-// Bound on an H100: operations. The forward is 1,723,648 FLOP per point and
-// the backward 5,167,104 (the JAX kernels' counts), against 2,160 bytes of
-// stash per point written and read back; at 989 TFLOP/s bf16 dense that is
-// 1.74 ns and 5.22 ns per point against 0.64 ns of stash traffic at
-// 3.35 TB/s. The two-pass backward below also moves its workspace, 10,416
-// bytes per point written by (a) and 11,920 (with the stash) read by (b):
+// Bound on an H100: operations. The backward is 5,167,104 FLOP per point
+// (the JAX kernel's count), against 2,160 bytes of stash per point read
+// back; at 989 TFLOP/s bf16 dense that is 5.22 ns per point against 0.64 ns
+// of stash traffic at 3.35 TB/s. The two-pass backward below also moves its
+// workspace, 10,416 bytes per point written by (a) and 11,920 (with the
+// stash) read by (b):
 // 3.1 ns and 3.6 ns per point at 3.35 TB/s. That is a floor of this design,
 // not of the function: above (b)'s 1.74 ns share of the operations, below
 // the 5.22 ns that bounds the whole backward.
@@ -62,62 +62,6 @@
 #include "sm90_tile.cuh"
 
 namespace posegen {
-
-// ---------------------------------------------------------------------------
-// Kernel 3: the field kernel's full forward + the stashed encodings
-// ---------------------------------------------------------------------------
-
-// The full field evaluation on field.cuh's WMMA body, on grouped poses: point
-// p reads pose row p / ppg and view bias row p / vppg (one row when vb.ld ==
-// 0). On a single group its raw is posegen_field's (field.cu, on wgmma),
-// summed in another order.
-__global__ void __launch_bounds__(kThreads, 1)
-    field_stash_kernel(const float* __restrict__ pts, const float* __restrict__ dirs, int n_pts,
-                       int spr, const float* __restrict__ poses, int pose_ld, int ppg,
-                       const Layout L, const bf16* __restrict__ W, const float* __restrict__ B,
-                       const float* __restrict__ bview, RowBias vb, float* __restrict__ out,
-                       bf16* __restrict__ ep_out, bf16* __restrict__ ev_out) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* e_pts = reinterpret_cast<bf16*>(smem + kPoseBytes);
-  bf16* e_view = e_pts + kTile * pts_ld(L);
-  bf16* h = e_view + kTile * view_ld(L);
-  float* scratch = reinterpret_cast<float*>(h + kTile * kHLd);
-
-  const int p0 = blockIdx.x * kTile;
-  encode_tile<true>(pts, dirs, n_pts, spr, p0, poses, L, e_pts, e_view, pose_ld, ppg);
-  __syncthreads();
-
-  // the stash: each row pc / 8 and vc / 8 16-byte vectors, rows < n_pts
-  const int rows = min(kTile, n_pts - p0);
-  const int vp = L.pc / 8, vv = L.vc / 8;
-  for (int t = threadIdx.x; t < rows * vp; t += kThreads) {
-    const int r = t / vp, c = t - r * vp;
-    reinterpret_cast<uint4*>(ep_out + static_cast<size_t>(p0 + r) * L.pc)[c] =
-        reinterpret_cast<const uint4*>(e_pts + r * pts_ld(L))[c];
-  }
-  for (int t = threadIdx.x; t < rows * vv; t += kThreads) {
-    const int r = t / vv, c = t - r * vv;
-    reinterpret_cast<uint4*>(ev_out + static_cast<size_t>(p0 + r) * L.vc)[c] =
-        reinterpret_cast<const uint4*>(e_view + r * view_ld(L))[c];
-  }
-
-  const int p = threadIdx.x >> 2, q = threadIdx.x & 3;
-  const int gp = p0 + p;
-  trunk(L, W, B, e_pts, h, scratch);
-  const float alpha = row_dot(h + p * kHLd, W + L.w_alpha, kWidth) + B[L.b_alpha];
-  dense<2>(nullptr, 0, 0, h, kHLd, kWidth, W + L.w_feat, B + L.b_feat, false, h, scratch);
-  vb.p0 = p0;
-  dense<1>(h, kHLd, kWidth, e_view, view_ld(L), L.vcp, W + L.w_view, bview, true, h, scratch,
-           vb);
-  float v = alpha;
-  if (q < 3) {
-    const bf16* row = h + p * kHLd;
-    const bf16* wr = W + L.w_rgb + q * kViewWidth;
-    v = B[L.b_rgb + q];
-    for (int k = 0; k < kViewWidth; ++k) v += __bfloat162float(row[k]) * __bfloat162float(wr[k]);
-  }
-  if (gp < n_pts) out[4 * gp + q] = v;
-}
 
 // ---------------------------------------------------------------------------
 // Kernel 4 (a): per-tile recompute + backprop into the workspace
@@ -182,9 +126,9 @@ constexpr int kVbRows = 256;  // rows per view-bias chunk
 // slack at depth 8 (bwd_smem_bytes). Deeper nets, whose masks take more,
 // run a two-stage weight ring.
 //
-// The recompute sums in wgmma order, not the stash kernel's WMMA order, so
-// its activations may differ from the forward's in the last bit of bf16 (the
-// JAX kernel recomputes too). Rows past n_pts read zero encodings and a zero
+// The recompute need not sum in the stash kernel's order, so its
+// activations may differ from the forward's in the last bit of bf16 (the JAX
+// kernel recomputes too). Rows past n_pts read zero encodings and a zero
 // cotangent: their cotangents and sums are exactly 0.
 constexpr uint32_t kMaskLayer = 4 * 256 * 4;             // 4 words x 256 consumer threads
 
@@ -1185,43 +1129,9 @@ static size_t carve(const Layout& L, int n_pts, int n_vgroups, int vppg, int ppg
   return off;
 }
 
-static bool view_groups_ok(int n_pts, int n_vgroups, int vppg) {
-  return n_vgroups >= 1 && vppg >= 1 && static_cast<long long>(n_vgroups) * vppg >= n_pts &&
-         static_cast<long long>(n_vgroups - 1) * vppg < n_pts;
-}
-
 }  // namespace posegen
 
 extern "C" {
-
-// raw (n_pts, 4) f32 and the stashes e_pts (n_pts, pc), e_view (n_pts, vc)
-// bf16 of one net on grouped poses: point p reads pose row p / ppg of
-// `poses` (rows pose_ld floats apart, each as field.py pack_pose) and view
-// bias row p / vppg of bview (n_vgroups rows of 128; its single row when
-// n_vgroups == 1). w bf16 and b f32 packed per `layout` (b's view bias slot
-// is not read). Returns a cudaError_t code (0 = launched).
-int posegen_field_stash(const float* pts, const float* dirs, int n_pts, int spr,
-                        const float* poses, int pose_ld, int ppg, const int* layout, int n_layout,
-                        const void* w, const float* b, const float* bview, int n_vgroups,
-                        int vppg, float* out, void* e_pts, void* e_view, void* stream) {
-  using namespace posegen;
-  Layout L;
-  if (!read_layout(layout, n_layout, &L) || n_pts <= 0 || spr <= 0 || ppg <= 0 ||
-      pose_ld < kPoseFloats + L.nf_kp + L.nf_view || !view_groups_ok(n_pts, n_vgroups, vppg)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const size_t smem = smem_bytes(L, true);
-  cudaError_t e = set_smem(field_stash_kernel, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  RowBias vb;
-  vb.ld = n_vgroups > 1 ? kViewWidth : 0;
-  vb.ppg = vppg;
-  vb.n_pts = n_pts;
-  field_stash_kernel<<<n_tiles_of(n_pts), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      pts, dirs, n_pts, spr, poses, pose_ld, ppg, L, static_cast<const bf16*>(w), b, bview, vb,
-      out, static_cast<bf16*>(e_pts), static_cast<bf16*>(e_view));
-  return static_cast<int>(cudaGetLastError());
-}
 
 // Bytes of workspace posegen_field_bwd needs for these sizes (0: invalid);
 // ppg > 0, the points per pose group, sizes it for the input gradients.
@@ -1256,15 +1166,6 @@ int posegen_field_bwd_splits(int n_pts, int* chunk) {
   return splits_of(n_pts);
 }
 
-// Bytes of dynamic shared memory the stash kernel takes for this layout (0:
-// invalid layout): field.cuh's smem_bytes with the view encodings.
-long long posegen_field_stash_smem(const int* layout, int n_layout) {
-  using namespace posegen;
-  Layout L;
-  if (!read_layout(layout, n_layout, &L)) return 0;
-  return static_cast<long long>(smem_bytes(L, true));
-}
-
 // Bytes of dynamic shared memory the backward's pass (a) takes for this
 // layout (0: invalid layout).
 long long posegen_field_bwd_smem(const int* layout, int n_layout) {
@@ -1272,6 +1173,17 @@ long long posegen_field_bwd_smem(const int* layout, int n_layout) {
   Layout L;
   if (!read_layout(layout, n_layout, &L)) return 0;
   return static_cast<long long>(bwd_smem_bytes(L));
+}
+
+// Bytes of dynamic shared memory the backward's input-gradient pass (c)
+// takes for this layout (0: invalid layout); past an H100 block's 232,448
+// posegen_field_bwd with pts fails to launch it (field_grad.py
+// field_input_refusal refuses such a layout first).
+long long posegen_field_bwd_input_smem(const int* layout, int n_layout) {
+  using namespace posegen;
+  Layout L;
+  if (!read_layout(layout, n_layout, &L)) return 0;
+  return static_cast<long long>(input_smem_bytes(L));
 }
 
 // Weight-only backward of one net from the stash: g (n_pts, 4) f32 output
@@ -1326,7 +1238,6 @@ int posegen_field_bwd(int n_pts, const int* layout, int n_layout, const void* w,
     RowBias vb;
     vb.ld = n_vgroups > 1 ? kViewWidth : 0;
     vb.ppg = vppg;
-    vb.n_pts = n_pts;
     field_bwd_sm90_kernel<<<n_tiles_a(n_pts), kAThreads, smem, s>>>(M, n_pts, L, W, b, bview, vb,
                                                                      g, S);
     if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);

@@ -19,9 +19,9 @@ output cross device memory. Channels are joint-major, the order of
 `render.raycast.encode_inputs`, so the JAX weights load without a row
 permutation.
 
-The trainable pair (kernels/field_grad.py, csrc/field_grad.cu) shares this
-module's gate, operands and plain versions; `fused_run_net(trainable=True)`
-routes to it.
+The trainable pair (kernels/field_grad.py; its forward is the eval kernel's
+stash mode, its backward csrc/field_grad.cu) shares this module's gate,
+operands and plain versions; `fused_run_net(trainable=True)` routes to it.
 
 Operands. `prepare_net` packs one net for the eval kernels: every matrix
 transposed to (out, in) and flattened into one bf16 buffer, every bias into
@@ -349,7 +349,7 @@ def eval_tile_walk(n_pts: int, n_slots: int) -> List[List[range]]:
 
 def body_smem_bytes(layout: NetLayout, tile: int, with_view: bool) -> int:
     """Dynamic shared memory of one block of the WMMA body (csrc/field.cuh
-    smem_bytes; the stash and variant kernels): the pose row, tile rows of
+    smem_bytes; the variant kernel): the pose row, tile rows of
     x_pts, x_views (with_view) and the activations, all bf16 and padded by
     8, and 8 warps' f32 scratch: 184,832 bytes at the flagship and tile 64."""
     L = layout

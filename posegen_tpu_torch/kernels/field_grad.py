@@ -3,13 +3,14 @@ backward for the weights and, on request, for the inputs, plain versions,
 wrappers and the autograd Function (port of
 posegen_tpu/kernels/field_grad.py).
 
-Two CUDA kernels (csrc/field_grad.cu) replace the two Pallas kernels of the
-train step:
+Two CUDA kernels replace the two Pallas kernels of the train step:
 
   fused_field_stash <- posegen_tpu/kernels/field_grad.py::_field_fwd_stash_kernel
                        (the field kernel's full forward on grouped poses,
-                       plus e_pts (P, pc) and e_view (P, vc) bf16 written out)
-  field_backward    <- posegen_tpu/kernels/field_grad.py::_field_bwd_kernel:
+                       plus e_pts (P, pc) and e_view (P, vc) bf16 written out:
+                       the eval kernel's stash mode, csrc/field.cu)
+  field_backward    <- posegen_tpu/kernels/field_grad.py::_field_bwd_kernel
+                       (csrc/field_grad.cu):
                        every weight and bias gradient summed over all points,
                        the view bias gradient per pose group; with `inputs`
                        (its input_grads branch, pose refinement) also the
@@ -49,8 +50,9 @@ from posegen_tpu_torch.kernels.field import (
     _mm,
     _ptr,
     _unpack,
-    body_smem_bytes,
     encode_plain,
+    eval_smem_bytes,
+    field_eval_refusal,
     mlp_plain,
 )
 
@@ -359,36 +361,27 @@ def encode_bwd_plain(pts, dirs, spr: int, poses, g_e_pts, g_e_view, nf_kp: int,
 # ---------------------------------------------------------------------------
 
 
-# The stash kernel's plan (csrc/field_grad.cu): field.cuh's WMMA body at 64
-# points per block, with the view encodings.
-STASH_TILE = 64
-
-
 def stash_smem_bytes(layout: NetLayout) -> int:
-    """The stash kernel's dynamic shared memory (csrc/field_grad.cu
-    posegen_field_stash_smem: `field.body_smem_bytes` at tile 64 with the
-    view encodings): 184,832 bytes at the flagship; it grows with multires
-    and multires_views."""
-    return body_smem_bytes(layout, STASH_TILE, True)
+    """The stash kernel's dynamic shared memory (csrc/field.cu
+    posegen_field_stash_smem): the eval kernels' plan, `field.eval_smem_bytes`
+    (201,304 bytes at every layout), since it is their stash mode; it stages
+    no pose rows (each point reads its row through L1)."""
+    return eval_smem_bytes(layout)
 
 
 def field_stash_refusal(layout: NetLayout) -> Optional[str]:
-    """Why the stash kernel does not take this layout, or None: its 64
-    points' encodings and activations must fit one block's shared memory
-    (240,128 bytes at multires 7 / multires_views 7 and 233,984 at 15 / 4 do
-    not)."""
-    need = stash_smem_bytes(layout)
-    if need > SMEM_LIMIT:
-        return (f"multires={layout.nf_kp}, multires_views={layout.nf_view}: the stash kernel "
-                f"needs {need} bytes of shared memory ({STASH_TILE} points' encodings and "
-                f"activations), more than the {SMEM_LIMIT} an H100 block can take")
-    return None
+    """Why the stash kernel does not take this layout, or None: what the eval
+    kernels refuse (`field.field_eval_refusal`: more than 64 octave
+    weights)."""
+    return field_eval_refusal(layout)
 
 
-def train_refusal(layout: NetLayout) -> Optional[str]:
-    """Why the training kernels (the stash kernel and the backward) do not
-    take this layout, or None."""
-    return field_stash_refusal(layout) or field_bwd_refusal(layout)
+def train_refusal(layout: NetLayout, input_grads: bool = False) -> Optional[str]:
+    """Why the training kernels (the stash kernel and the backward; with
+    input_grads also the backward's pass (c)) do not take this layout, or
+    None."""
+    return (field_stash_refusal(layout) or field_bwd_refusal(layout)
+            or (field_input_refusal(layout) if input_grads else None))
 
 
 # Kernel 4's plan on Hopper (csrc/field_grad.cu): pass (a) runs 128 points
@@ -428,6 +421,39 @@ def field_bwd_refusal(layout: NetLayout) -> Optional[str]:
         return (f"netdepth={layout.depth}: the backward's pass (a) needs {need} bytes of shared "
                 f"memory ({MASK_LAYER_BYTES} of ReLU mask bits per layer), more than the "
                 f"{SMEM_LIMIT} an H100 block can take")
+    return None
+
+
+# Pass (c)'s plan (csrc/field_grad.cu input_smem_bytes): 64 points per
+# block on field.cuh's WMMA products.
+INPUT_TILE = 64
+_STATE_FLOATS = 6  # floats per (point, joint) of pass (c)'s chain rule
+
+
+def input_smem_bytes(layout: NetLayout) -> int:
+    """Pass (c)'s dynamic shared memory (csrc/field_grad.cu input_smem_bytes,
+    posegen_field_bwd_input_smem): the larger of [gz0 | gz5 (64 x 264 bf16
+    each) | g_e_pts (64 x pc f32)] and [gzv (64 x 136 bf16) | g_e_view (64 x
+    vcp f32)], then the chain rule's state (64 x 24 x 6 f32) and the points'
+    pts and dirs (64 x 6 f32): 223,744 bytes at multires 7 / multires_views 4,
+    241,152 at 9 / 4."""
+    T, L = INPUT_TILE, layout
+    kp = 2 * 2 * T * (WIDTH + 8) + 4 * T * L.pc
+    view = 2 * T * (VIEW_WIDTH + 8) + 4 * T * L.vcp
+    return max(kp, view) + 4 * (T * N_JOINTS * _STATE_FLOATS + T * 6)
+
+
+def field_input_refusal(layout: NetLayout) -> Optional[str]:
+    """Why the backward's input-gradient pass (c) does not take this layout,
+    or None: its 64 points' cotangents and encoding gradients must fit one
+    block's shared memory (multires 9 / multires_views 4 needs 241,152 bytes,
+    any multires with 5 view octaves at least 260,608)."""
+    need = input_smem_bytes(layout)
+    if need > SMEM_LIMIT:
+        return (f"multires={layout.nf_kp}, multires_views={layout.nf_view}: the backward's "
+                f"input-gradient pass (c) needs {need} bytes of shared memory ({INPUT_TILE} "
+                f"points' cotangents and encoding gradients), more than the {SMEM_LIMIT} an "
+                "H100 block can take")
     return None
 
 
@@ -534,7 +560,8 @@ def field_backward(g: torch.Tensor, e_pts: torch.Tensor, e_view: torch.Tensor,
     d_pts (P, 3), d_dirs (P / spr, 3), d_poses (G, n_pose)) (see
     `encode_bwd_plain`); the weight gradients are the same either way. On
     CUDA every gradient is bit-identical from launch to launch; a layout the
-    kernel does not take raises (`field_bwd_refusal`). `workspace` (CUDA
+    kernel does not take raises (`field_bwd_refusal`, and with `inputs`
+    `field_input_refusal`). `workspace` (CUDA
     only, from `bwd_workspace`) is the kernel's scratch, in which pass (a)'s
     regions are left for the caller; a new one is made when None."""
     L = net.layout
@@ -567,6 +594,9 @@ def field_backward(g: torch.Tensor, e_pts: torch.Tensor, e_view: torch.Tensor,
     reason = field_bwd_refusal(L)
     if reason is not None:
         raise ValueError(f"field_bwd: {reason}")
+    reason = field_input_refusal(L) if inputs is not None else None
+    if reason is not None:
+        raise ValueError(f"field_bwd_inputs: {reason}")
     Gb = bview.shape[0]
     d_w = torch.zeros(L.n_w, dtype=torch.float32, device=dev)
     d_b = torch.zeros(L.n_b, dtype=torch.float32, device=dev)

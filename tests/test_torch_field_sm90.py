@@ -5,7 +5,8 @@ formulas, and the persistent grid's walk over the tiles.
 
 The kernels run only on the card; there chip_smoke.py holds each plan here
 against the library's export (posegen_field_eval_smem, ..._slot_bytes,
-..._eval_grid, posegen_field_stash_smem, posegen_field_variant_smem)."""
+..._eval_grid, posegen_field_stash_smem, posegen_field_bwd_input_smem,
+posegen_field_variant_smem)."""
 
 import dataclasses
 import functools
@@ -31,8 +32,10 @@ N_RAYS = 4
 TINY = dict(N_samples=8, N_importance=4)
 EVAL = dict(perturb=0.0, raw_noise_std=0.0)
 FLAGSHIP_SMEM = 201_304  # the eval kernels' plan at every layout
-# the layouts whose stash plan outgrows an H100 block: (multires, multires_views) -> bytes
-STASH_TOO_BIG = {(7, 7): 240_128, (15, 4): 233_984}
+# layouts that the stash kernel's WMMA plan refused (240,128 and 233,984 bytes)
+# and its stash mode of the eval kernel takes; the backward's pass (c) refuses
+# them: (multires, multires_views) -> its bytes
+PASS_C_TOO_BIG = {(7, 7): 334_336, (15, 4): 314_880}
 
 
 @functools.lru_cache(maxsize=None)
@@ -94,9 +97,10 @@ def test_render_falls_back_once_and_matches_jax(depth):
 
 
 def test_train_mode_is_plain_where_the_kernels_refuse():
-    """_fused_train_mode: False at depth 17 and at the two layouts whose
-    stash plan outgrows a block, with fused_train on; the kernels' route at
-    the flagship."""
+    """_fused_train_mode with fused_train on: False at depth 17; at the two
+    layouts that the stash kernel takes and pass (c) does not, "train"
+    without opt_pose and False with it; the kernels' route at the
+    flagship."""
     params = {"coarse": {"views_linears": [0]}}
     batch = {"rays_o": torch.zeros(8, 3), "skts": torch.zeros(2, 24, 4, 4),
              "kp_idx": torch.zeros(2, dtype=torch.long)}
@@ -105,32 +109,40 @@ def test_train_mode_is_plain_where_the_kernels_refuse():
     assert tt._fused_train_mode(tr.RaycastConfig(), dataclasses.replace(on, opt_pose=True),
                                 params, batch) == "full"
     refused = [tr.RaycastConfig(netdepth=17), tr.RaycastConfig(netdepth=17, netdepth_fine=17)]
-    refused += [tr.RaycastConfig(multires=m, multires_views=v) for m, v in STASH_TOO_BIG]
     for cfg in refused:
         assert tt._fused_train_mode(cfg, on, params, batch) is False
+        assert tt._fused_train_mode(cfg, dataclasses.replace(on, opt_pose=True), params,
+                                    batch) is False
+    for m, v in PASS_C_TOO_BIG:
+        cfg = tr.RaycastConfig(multires=m, multires_views=v)
+        assert tt._fused_train_mode(cfg, on, params, batch) == "train"
         assert tt._fused_train_mode(cfg, dataclasses.replace(on, opt_pose=True), params,
                                     batch) is False
 
 
 def test_stash_plan_and_refusal():
-    """The stash kernel's plan (field.cuh smem_bytes at 64 points with the
-    view): 184,832 bytes at the flagship; the two layouts past the block's
-    232,448 refused with their sizes; the eval kernels take both."""
+    """The stash kernel's plan is the eval kernels' (it is their stash mode):
+    201,304 bytes at the flagship and at the two layouts its WMMA plan
+    refused, which the stash and the weights-only backward now take; there
+    pass (c) refuses, with its size, so input-gradient training does not;
+    octave weights past 64 are refused as the eval kernels refuse them."""
     L = tfield.net_layout(8, 7, 4)
-    assert tgrad.stash_smem_bytes(L) == 184_832 and tgrad.field_stash_refusal(L) is None
-    assert tgrad.train_refusal(L) is None
-    for (m, v), need in STASH_TOO_BIG.items():
+    assert tgrad.stash_smem_bytes(L) == FLAGSHIP_SMEM and tgrad.field_stash_refusal(L) is None
+    assert tgrad.train_refusal(L) is None and tgrad.train_refusal(L, input_grads=True) is None
+    for (m, v), need in PASS_C_TOO_BIG.items():
         Lb = tfield.net_layout(8, m, v)
-        assert tgrad.stash_smem_bytes(Lb) == need
-        reason = tgrad.field_stash_refusal(Lb)
+        assert tgrad.stash_smem_bytes(Lb) == FLAGSHIP_SMEM
+        assert tgrad.field_stash_refusal(Lb) is None and tgrad.train_refusal(Lb) is None
+        reason = tgrad.train_refusal(Lb, input_grads=True)
         assert f"needs {need} bytes" in reason and f"multires={m}" in reason
-        assert tgrad.train_refusal(Lb) == reason
+        assert reason == tgrad.field_input_refusal(Lb)
         assert tfield.field_eval_refusal(Lb) is None
         assert tfield.fused_config_disqualification(
             tr.RaycastConfig(multires=m, multires_views=v)) is None
-    assert tgrad.stash_smem_bytes(tfield.net_layout(8, 4, 2)) == 129_536
-    # the formula: pose | 64 rows of (pc + 8) + (vcp + 8) + (256 + 8) bf16 | scratch
-    assert tgrad.stash_smem_bytes(L) == 1536 + 2 * 64 * (440 + 664 + 264) + 8192
+    assert tgrad.stash_smem_bytes(tfield.net_layout(8, 4, 2)) == FLAGSHIP_SMEM
+    Lx = tfield.net_layout(8, 40, 30)
+    assert tgrad.field_stash_refusal(Lx) == tfield.field_eval_refusal(Lx)
+    assert "70" in tgrad.train_refusal(Lx)
 
 
 def test_eval_plan_fits_every_depth_and_layout():
