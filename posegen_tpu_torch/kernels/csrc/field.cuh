@@ -1,9 +1,9 @@
 // Device code shared by the port's field kernels: the Layout record and its
 // reader, and the WMMA body, the per-point skeleton encode and the MLP,
 // written once and instantiated by the A/B harness's variant kernel
-// (field_variants.cu); the backward's pass (c) (field_grad.cu) uses its
-// products and tile. The eval and stash kernels (field.cu) run encode_tile's
-// arithmetic and the MLP on wgmma instead.
+// (field_variants.cu); the chain-rule kernel of the backward's pass (c)
+// (field_grad.cu) uses its tile. The eval and stash kernels (field.cu) run
+// encode_tile's arithmetic and the MLP on wgmma instead.
 //
 // Replaces the shared body of the Pallas kernels in
 // posegen_tpu/kernels/field.py: encode_intermediates / _kp_side (:264-374)

@@ -40,22 +40,27 @@
 //       a fixed order by wgrad_reduce_kernel; bias and view-bias sums
 //       likewise. Two launches on the same inputs give bit-identical
 //       gradients.
-//   (c) field_bwd_input_kernel (input gradients only): one block per 64
-//       points reads layer 0's, the skip consumer's and the view layer's
-//       pre-activation cotangents from (a)'s workspace, forms the encodings'
-//       cotangents g_e_pts = gz0 W0 + gz5 W5[:, :pc] and g_e_view =
-//       gzv Wv[:, 256:] on the tensor cores (bf16 operands, f32 sums, as
-//       the JAX kernel's _mm_tn), recomputes the encode from pts, dirs and
-//       the point's pose row in f32, and runs the encode's chain rule per
-//       (point, joint). d_pts is written per point; d_dirs per point, then
-//       ray_sum_kernel sums each ray's samples in order; d_rot / d_trn as
-//       per-tile partials for each pose group the tile touches, summed in
-//       tile order by pose_reduce_kernel. No atomics: two launches agree bit
-//       for bit, and passes (a) and (b) are the weights-only launch's own.
-//       Bound: 608,256 FLOP per point of products (2 (256 pc + 256 pc +
-//       128 vcp) at multires 7 / 4) against ~1.3 KB of workspace reads, so
-//       operations at ~0.6 ns per point; the encode's chain rule adds ~150
-//       transcendental and ~3,000 FMA per point on the CUDA cores.
+//   (c) input gradients only, two kernels. input_sm90_kernel: one block per
+//       128 points forms the encodings' cotangents g_e_pts = gz0 W0 +
+//       gz5 W5[:, :pc] and g_e_view = gzv Wv[:, 256:] from layer 0's, the
+//       skip consumer's and the view layer's pre-activation cotangents in
+//       (a)'s workspace, on wgmma with TMA-staged operands (bf16 operands,
+//       f32 sums, as the JAX kernel's _mm_tn), into two f32 workspace
+//       regions. input_chain_kernel: one block per 64 points reads them,
+//       recomputes the encode from pts, dirs and the point's pose row in
+//       f32, and runs the encode's chain rule per (point, joint). d_pts is
+//       written per point; d_dirs per point, then ray_sum_kernel sums each
+//       ray's samples in order; d_rot / d_trn as per-tile partials for each
+//       pose group the tile touches, summed in tile order by
+//       pose_reduce_kernel. No atomics: two launches agree bit for bit, and
+//       passes (a) and (b) are the weights-only launch's own. Bound: 608,256
+//       FLOP per point of products (2 (256 pc + 256 pc + 128 vc) at multires
+//       7 / 4) against ~1.3 KB of workspace reads, so operations at ~0.6 ns
+//       per point; the encode's chain rule adds ~150 transcendental and
+//       ~3,000 FMA per point on the CUDA cores. The f32 regions between the
+//       two kernels are this design's, not the function's: 4 (pc + vc)
+//       bytes per point written and read again, 2.6 ns per point at 3.35
+//       TB/s at multires 7 / 4, its floor.
 
 #include "field.cuh"
 #include "sm90.cuh"
@@ -83,6 +88,8 @@ struct Workspace {
   float* vb_part;    // (view groups, view chunks, 128)
   float* d_dirs_pt;  // (p_pad, 3) d_dirs per point (input gradients only)
   float* pose_part;  // (n_tiles, pose slots, 24 x 12) d_rot | d_trn per tile and group
+  float* g_ep;       // (p_pad, pc) g_e_pts in f32 (input gradients only)
+  float* g_ev;       // (p_pad, vc) g_e_view in f32 (input gradients only)
   size_t p_pad;
 };
 
@@ -663,93 +670,172 @@ __global__ void vbias_sum_kernel(const float* __restrict__ vb_part, int nck,
 // Kernel 4 (c): input gradients through the encode (input_grads branch)
 // ---------------------------------------------------------------------------
 
-using FragBr = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
+// Pass (c), step 1 on Hopper: the encodings' cotangents g_e_pts = gz0 W0 +
+// gz_skip W_skip[:, :pc] (p_pad x pc) and g_e_view = gzv Wv[:, 256:256 + vc]
+// (p_pad x vc), f32, into the workspace. It is pass (a)'s backward product
+// with another N: a block of kATile points runs two consumer warpgroups of
+// 64 points each and one producer warp; the producer streams the block's
+// rows of gz / gzv in 64-wide K chunks (two 64-row boxes of pass (a)'s
+// workspace maps) through the encoding ring and, for each, a 64 x 256 slab
+// of the weights (pass (a)'s w[0], w_skip_e and w_view_e boxes) through the
+// weight ring; the consumers run wgmma m64n256k16 with A K-major from the
+// encoding slab and B MN-major from the weight slab (consume<256, 1>), N in
+// chunks of 256 columns. Weight boxes that start past pc (vc) are not
+// loaded: their columns of the last chunk are not stored, and the box that
+// straddles the edge reads TMA's zero fill. The f32 outputs are what bounds
+// the kernel (4 (pc + vc) bytes a point against 2 (2 x 256 + 128) read): a
+// warpgroup writes each 64 x 32 piece of its accumulators into one of its
+// staging buffers (128-byte swizzled, so its 8 rows of a store land in 8
+// bank groups) and one thread stores it by TMA, which writes whole lines
+// and clips the columns past pc (vc), while the warpgroup goes on. The plan
+// is the rings, the staging buffers and the barriers, the same at every
+// layout (input_sm90_smem_bytes).
+constexpr int kInWStages = 3;
+constexpr int kInN = 256;             // output columns per accumulator chunk
+constexpr int kOutBufs = 4;           // staging buffers per warpgroup
+constexpr uint32_t kOutBuf = 64 * 128;  // 64 rows x 32 f32: one TMA box
 
-// acc[kTile, NT*16 per warp] += A[kTile, K] @ W[K, :] with W row-major (k, n)
-// at W[k * ldw + n]: the W^T products of the backward (W is stored (out, in),
-// so its rows are the forward's outputs).
-template <int NT>
-__device__ __forceinline__ void gemm_segment_t(FragC (&acc)[kMTiles][NT], const bf16* A, int lda,
-                                               int K, const bf16* __restrict__ W, int ldw,
-                                               int n0) {
-  FragBr b[NT], bn[NT];
-#pragma unroll
-  for (int jn = 0; jn < NT; ++jn) wmma::load_matrix_sync(b[jn], W + n0 + 16 * jn, ldw);
-  for (int k = 0; k < K; k += 16) {
-    if (k + 16 < K) {
-#pragma unroll
-      for (int jn = 0; jn < NT; ++jn) {
-        wmma::load_matrix_sync(bn[jn], W + static_cast<size_t>(k + 16) * ldw + n0 + 16 * jn,
-                               ldw);
-      }
+__host__ __device__ inline size_t input_sm90_smem_bytes() {
+  return 1024 + kInWStages * kSlabW + kEStages * kSlabE + 2 * kOutBufs * kOutBuf +
+         2 * (kInWStages + kEStages) * sizeof(uint64_t);
+}
+
+// The skip consumer (trunk layer skip + 1), or -1 when the skip is the last layer.
+__host__ __device__ inline int skip_consumer(const Layout& L) {
+  return L.skip >= 0 && L.skip + 1 < L.depth ? L.skip + 1 : -1;
+}
+
+// input_sm90_kernel's tensor maps: pass (a)'s (w0 = its w[0]), and the two
+// f32 regions in boxes of 64 points x 32 columns.
+struct InputMaps {
+  CUtensorMap w0, w_skip_e, w_view_e, gz, gzv, gep, gev;
+};
+
+__device__ void input_produce(const InputMaps& M, const Layout& L, int p0, int P, const Ring& R) {
+  int it = 0, ie = 0;
+  auto issue = [&](const CUtensorMap* wm, int n0, int width, int kc, const CUtensorMap* am,
+                   int row) {
+    const int s = it % R.ws, se = ie % kEStages;
+    const int nbox = min(4, (width - n0 + 63) / 64);
+    sm90::mbar_wait(R.wempty(s), ((it / R.ws) & 1) ^ 1);
+    sm90::mbar_expect_tx(R.wfull(s), nbox * sm90::kBoxBytes);
+    for (int b = 0; b < nbox; ++b) {
+      sm90::tma_load_2d(R.wslab(s) + b * sm90::kBoxBytes, wm, R.wfull(s), n0 + 64 * b, 64 * kc);
     }
-#pragma unroll
-    for (int im = 0; im < kMTiles; ++im) {
-      FragA a;
-      wmma::load_matrix_sync(a, A + im * 16 * lda + k, lda);
-#pragma unroll
-      for (int jn = 0; jn < NT; ++jn) wmma::mma_sync(acc[im][jn], a, b[jn], acc[im][jn]);
+    sm90::mbar_wait(R.eempty(se), ((ie / kEStages) & 1) ^ 1);
+    sm90::mbar_expect_tx(R.efull(se), kSlabE);
+    for (int h = 0; h < 2; ++h) {
+      sm90::tma_load_2d(R.eslab(se) + h * kHalfBlock, am, R.efull(se), 64 * kc, row + 64 * h);
     }
-#pragma unroll
-    for (int jn = 0; jn < NT; ++jn) b[jn] = bn[jn];
+    ++it;
+    ++ie;
+  };
+  const int skip_layer = skip_consumer(L);
+  for (int n0 = 0; n0 < L.pc; n0 += kInN) {
+    for (int kc = 0; kc < 4; ++kc) issue(&M.w0, n0, L.pc, kc, &M.gz, p0);
+    if (skip_layer >= 0) {
+      for (int kc = 0; kc < 4; ++kc) issue(&M.w_skip_e, n0, L.pc, kc, &M.gz, skip_layer * P + p0);
+    }
+  }
+  for (int n0 = 0; n0 < L.vc; n0 += kInN) {
+    for (int kc = 0; kc < 2; ++kc) issue(&M.w_view_e, n0, L.vc, kc, &M.gzv, p0);
   }
 }
 
-// kTile rows of `width` bf16 from src (row stride src_ld) to dst (row stride
-// dst_ld): the workspace's rows into shared memory.
-__device__ __forceinline__ void copy_rows(const bf16* src, int src_ld, bf16* dst, int dst_ld,
-                                          int width) {
-  const int nv = width / 8;
-  for (int t = threadIdx.x; t < kTile * nv; t += kThreads) {
-    const int r = t / nv, c = t - r * nv;
-    reinterpret_cast<uint4*>(dst + static_cast<size_t>(r) * dst_ld)[c] =
-        reinterpret_cast<const uint4*>(src + static_cast<size_t>(r) * src_ld)[c];
+// The warpgroup's 64 rows of an accumulator chunk to `map` at (n0, row),
+// 32 columns a box through the staging buffers at `stage` (`nb` counts the
+// warpgroup's boxes); boxes that start past `width` are not stored.
+__device__ __forceinline__ void store_chunk(const float (&acc)[128], unsigned char* stage,
+                                            uint32_t stage_s, const CUtensorMap* map, int n0,
+                                            int width, int row, int& nb, const Frag& f) {
+  const int m = f.lane & 3;
+#pragma unroll
+  for (int q = 0; q < kInN / 32; ++q) {
+    if (n0 + 32 * q < width) {
+      const int b = nb++ % kOutBufs;
+      if (f.t == 0) sm90::tma_store_wait_read<kOutBufs - 1>();  // buffer b's last store read it
+      sm90::bar_sync(1 + f.wg, 128);
+      unsigned char* buf = stage + b * kOutBuf;
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = f.r0 - 64 * f.wg + 8 * h, i = 4 * (4 * q + jj) + 2 * h;
+          *reinterpret_cast<float2*>(buf + r * 128 + (((2 * jj + (m >> 1)) ^ (r & 7)) << 4) +
+                                     8 * (m & 1)) = make_float2(acc[i], acc[i + 1]);
+        }
+      }
+      sm90::fence_async_shared();
+      sm90::bar_sync(1 + f.wg, 128);
+      if (f.t == 0) {
+        sm90::tma_store_2d(map, stage_s + b * kOutBuf, n0 + 32 * q, row);
+        sm90::tma_store_commit();
+      }
+    }
   }
+}
+
+__global__ void __launch_bounds__(kAThreads, 1)
+    input_sm90_kernel(const __grid_constant__ InputMaps M, const Layout L, int P) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = sm90::smem_u32(smem_raw);
+  const uint32_t pad = ((raw + 1023) & ~1023u) - raw;
+  const uint32_t base = raw + pad;
+  const uint32_t ring_e = base + kInWStages * kSlabW, stage = ring_e + kEStages * kSlabE;
+  const Ring R{base, ring_e, stage + 2 * kOutBufs * kOutBuf, kInWStages};
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kInWStages; ++s) {
+      sm90::mbar_init(R.wfull(s), 1);
+      sm90::mbar_init(R.wempty(s), 2);
+    }
+    for (int s = 0; s < kEStages; ++s) {
+      sm90::mbar_init(R.efull(s), 1);
+      sm90::mbar_init(R.eempty(s), 2);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+  const int p0 = blockIdx.x * kATile;
+  if (threadIdx.x >= 256) {
+    sm90::reg_dealloc<40>();
+    if (threadIdx.x == 256) input_produce(M, L, p0, P, R);
+    return;
+  }
+  sm90::reg_alloc<232>();
+  const Frag f;
+  const uint32_t my_stage = stage + f.wg * kOutBufs * kOutBuf;
+  unsigned char* my_stage_p = smem_raw + (my_stage - raw);
+  const int row = p0 + 64 * f.wg;
+  const bool skip = skip_consumer(L) >= 0;
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  int it = 0, ie = 0, nb = 0;
+  for (int n0 = 0; n0 < L.pc; n0 += kInN) {
+    consume<256, 1>(acc, 4, true, 0, true, it, ie, R, f.wg);
+    if (skip) consume<256, 1>(acc, 4, true, 0, false, it, ie, R, f.wg);
+    store_chunk(acc, my_stage_p, my_stage, &M.gep, n0, L.pc, row, nb, f);
+  }
+  for (int n0 = 0; n0 < L.vc; n0 += kInN) {
+    consume<256, 1>(acc, 2, true, 0, true, it, ie, R, f.wg);
+    store_chunk(acc, my_stage_p, my_stage, &M.gev, n0, L.vc, row, nb, f);
+  }
+  if (f.t == 0) sm90::tma_store_wait_all();
 }
 
 constexpr int kPoseGrad = kJoints * 12;  // per group: d_rot (24 x 9) | d_trn (24 x 3), (j, e)
 constexpr int kState = 6;                // floats per (point, joint) of the chain rule
-constexpr int kViewLd = kViewWidth + kPad;
 
-// Shared memory of pass (c): [gz0 | gz5 | g_e_pts f32] then, reused,
-// [gzv | g_e_view f32]; the per-(point, joint) state; the points' pts, dirs.
-__host__ __device__ inline size_t input_region_bytes(const Layout& L) {
-  const size_t kp = sizeof(bf16) * 2 * kTile * kHLd + sizeof(float) * kTile * L.pc;
-  const size_t view = sizeof(bf16) * kTile * kViewLd + sizeof(float) * kTile * L.vcp;
-  return kp > view ? kp : view;
+// Pass (c), step 2: the chain rule's shared memory, the per-(point, joint)
+// state and the points' pts and dirs, 38,400 bytes at every layout.
+__host__ __device__ inline size_t input_chain_smem_bytes() {
+  return sizeof(float) * (kTile * kJoints * kState + kTile * 6);
 }
 
-__host__ __device__ inline size_t input_smem_bytes(const Layout& L) {
-  return input_region_bytes(L) + sizeof(float) * (kTile * kJoints * kState + kTile * 6);
-}
-
-// out[kTile, ncols] f32 (row stride ldo) = sum over segments of A[kTile, 256
-// or 128] @ W[:, col0 ...] (W row-major (k, n), row stride ldw): each warp
-// takes every kWarps-th 16-column tile.
-struct Segment {
-  const bf16* a;
-  int lda, K;
-  const bf16* w;
-  int ldw;
-};
-
-template <int NSeg>
-__device__ void input_products(const Segment (&seg)[NSeg], int ncols, float* out, int ldo) {
-  const int warp = threadIdx.x >> 5;
-  for (int ct = warp; ct < ncols / 16; ct += kWarps) {
-    FragC acc[kMTiles][1];
-#pragma unroll
-    for (int im = 0; im < kMTiles; ++im) wmma::fill_fragment(acc[im][0], 0.f);
-#pragma unroll
-    for (int q = 0; q < NSeg; ++q) {
-      gemm_segment_t<1>(acc, seg[q].a, seg[q].lda, seg[q].K, seg[q].w, seg[q].ldw, 16 * ct);
-    }
-#pragma unroll
-    for (int im = 0; im < kMTiles; ++im) {
-      wmma::store_matrix_sync(out + 16 * im * ldo + 16 * ct, acc[im][0], ldo,
-                              wmma::mem_row_major);
-    }
-  }
+// Pass (c)'s plan: the larger of its two kernels'.
+__host__ __device__ inline size_t input_smem_bytes() {
+  const size_t a = input_sm90_smem_bytes(), b = input_chain_smem_bytes();
+  return a > b ? a : b;
 }
 
 // The encode of point gp at joint j, as encode_tile computes it (f32).
@@ -772,28 +858,23 @@ __device__ __forceinline__ JointFrame joint_frame(const float* s_pose, int j, fl
   return f;
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-    field_bwd_input_kernel(int n_pts, int spr, const float* __restrict__ pts,
-                           const float* __restrict__ dirs, const float* __restrict__ poses,
-                           int pose_ld, int ppg, int n_slots, const Layout L,
-                           const bf16* __restrict__ W, const Workspace S,
-                           float* __restrict__ pose_part, float* __restrict__ d_pts,
-                           float* __restrict__ d_dirs_pt) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const size_t region = input_region_bytes(L);
-  bf16* a0 = reinterpret_cast<bf16*>(smem);  // kp products: gz0, gz5 tiles
-  bf16* a5 = a0 + kTile * kHLd;
-  float* g_ep = reinterpret_cast<float*>(a5 + kTile * kHLd);
-  bf16* av = reinterpret_cast<bf16*>(smem);  // view product: gzv tile
-  float* g_ev = reinterpret_cast<float*>(av + kTile * kViewLd);
-  float* state = reinterpret_cast<float*>(smem + region);  // (kTile, 24, kState)
-  float* s_x = state + kTile * kJoints * kState;           // (kTile, 3) pts
-  float* s_d = s_x + kTile * 3;                            // (kTile, 3) dirs
+// Pass (c), step 2: one block per kTile points reads each point's rows of
+// g_e_pts (G) and g_e_view (H) from the workspace, recomputes the encode
+// from pts, dirs and the point's pose row in f32, and runs the encode's
+// chain rule per (point, joint) on the CUDA cores. Its reads of G and H wait
+// on device memory, so four blocks share an SM (64 registers a thread,
+// 38,400 bytes of shared memory a block) to keep more of them in flight.
+__global__ void __launch_bounds__(kThreads, 4)
+    input_chain_kernel(int n_pts, int spr, const float* __restrict__ pts,
+                       const float* __restrict__ dirs, const float* __restrict__ poses,
+                       int pose_ld, int ppg, int n_slots, const Layout L, const Workspace S,
+                       float* __restrict__ pose_part, float* __restrict__ d_pts,
+                       float* __restrict__ d_dirs_pt) {
+  __shared__ float state[kTile * kJoints * kState];  // (kTile, 24, kState)
+  __shared__ float s_x[kTile * 3];                   // (kTile, 3) pts
+  __shared__ float s_d[kTile * 3];                   // (kTile, 3) dirs
 
   const int p0 = blockIdx.x * kTile;
-  const size_t row0 = p0;
-  const size_t P = S.p_pad;
-  const int skip_layer = L.skip >= 0 && L.skip + 1 < L.depth ? L.skip + 1 : -1;
   const int kc = kJoints * (1 + 2 * L.nf_kp);
 
   for (int t = threadIdx.x; t < kTile * 3; t += kThreads) {
@@ -801,20 +882,6 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int gp = min(p0 + r, n_pts - 1);
     s_x[t] = pts[3 * gp + c];
     s_d[t] = dirs[3 * (gp / spr) + c];
-  }
-
-  // ---- g_e_pts = gz0 @ W0 + gz5 @ W5[:, :pc] ----------------------------
-  copy_rows(S.gz + row0 * kWidth, kWidth, a0, kHLd, kWidth);
-  if (skip_layer >= 0) copy_rows(S.gz + (skip_layer * P + row0) * kWidth, kWidth, a5, kHLd,
-                                  kWidth);
-  __syncthreads();
-  if (skip_layer >= 0) {
-    const Segment seg[2] = {{a0, kHLd, kWidth, W + L.w_layer[0], L.pc},
-                            {a5, kHLd, kWidth, W + L.w_layer[skip_layer], L.pc + kWidth}};
-    input_products<2>(seg, L.pc, g_ep, L.pc);
-  } else {
-    const Segment seg[1] = {{a0, kHLd, kWidth, W + L.w_layer[0], L.pc}};
-    input_products<1>(seg, L.pc, g_ep, L.pc);
   }
   __syncthreads();
 
@@ -829,7 +896,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float* s_pose = poses + static_cast<size_t>((p0 + p) / ppg) * pose_ld;
     const float* sw = s_pose + kPoseFloats;
     const JointFrame f = joint_frame(s_pose, j, s_x[3 * p], s_x[3 * p + 1], s_x[3 * p + 2]);
-    const float* G = g_ep + p * L.pc;
+    const float* G = S.g_ep + static_cast<size_t>(p0 + p) * L.pc;
     const float g0 = G[j];
     float g_v = g0 * f.w, g_w = g0 * f.v;
     float s, c, fr = 1.f;
@@ -855,15 +922,6 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  // ---- g_e_view = gzv @ Wv[:, 256:256 + vcp] -----------------------------
-  copy_rows(S.gzv + row0 * kViewWidth, kViewWidth, av, kViewLd, kViewWidth);
-  __syncthreads();
-  {
-    const Segment seg[1] = {{av, kViewLd, kViewWidth, W + L.w_view + kWidth, kWidth + L.vcp}};
-    input_products<1>(seg, L.vcp, g_ev, L.vcp);
-  }
-  __syncthreads();
-
   // ---- view rows, the gate, |p_local| and the direction's norm ------------
   for (int t = threadIdx.x; t < kTile * kJoints; t += kThreads) {
     const int p = t / kJoints, j = t - p * kJoints;
@@ -877,7 +935,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float D[3] = {R[0] * dx + R[1] * dy + R[2] * dz, R[3] * dx + R[4] * dy + R[5] * dz,
                         R[6] * dx + R[7] * dy + R[8] * dz};
     const float dn_inv = rsqrtf(fmaxf(D[0] * D[0] + D[1] * D[1] + D[2] * D[2], 1e-24f));
-    const float* H = g_ev + p * L.vcp;
+    const float* H = S.g_ev + static_cast<size_t>(p0 + p) * L.vc;
     float g_w = st[1], g_dn[3], sq[3], cq[3];
 #pragma unroll
     for (int a = 0; a < 3; ++a) {
@@ -1090,12 +1148,18 @@ static bool bwd_maps(const Layout& L, int n_pts, const bf16* W, const bf16* ep, 
 
 // Carve the workspace; returns its size in bytes (base may be null to size
 // it). ppg > 0 (points per pose group) adds the input gradients' regions.
-// offsets, if given, receives each region's byte offset in carve order.
+// offsets, if given, receives each region's byte offset in carve order
+// (kRegions of them; -1 for the input gradients' without them).
+constexpr int kRegions = 15;
+
 static size_t carve(const Layout& L, int n_pts, int n_vgroups, int vppg, int ppg,
                     unsigned char* base, Workspace* S, long long* offsets = nullptr) {
   const size_t P = static_cast<size_t>(n_tiles_a(n_pts)) * kATile;
   size_t off = 0;
   int k = 0;
+  if (offsets != nullptr) {
+    for (int i = 0; i < kRegions; ++i) offsets[i] = -1;
+  }
   auto take = [&](size_t bytes) {
     if (offsets != nullptr) offsets[k++] = static_cast<long long>(off);
     unsigned char* p = base ? base + off : nullptr;
@@ -1121,10 +1185,14 @@ static size_t carve(const Layout& L, int n_pts, int n_vgroups, int vppg, int ppg
       take(sizeof(float) * n_vgroups * view_chunks(vppg) * kViewWidth));
   S->d_dirs_pt = nullptr;
   S->pose_part = nullptr;
+  S->g_ep = nullptr;
+  S->g_ev = nullptr;
   if (ppg > 0) {
     S->d_dirs_pt = reinterpret_cast<float*>(take(sizeof(float) * P * 3));
     S->pose_part = reinterpret_cast<float*>(
         take(sizeof(float) * n_tiles_of(n_pts) * pose_slots(ppg) * kPoseGrad));
+    S->g_ep = reinterpret_cast<float*>(take(sizeof(float) * P * L.pc));
+    S->g_ev = reinterpret_cast<float*>(take(sizeof(float) * P * L.vc));
   }
   return off;
 }
@@ -1135,9 +1203,11 @@ extern "C" {
 
 // Bytes of workspace posegen_field_bwd needs for these sizes (0: invalid);
 // ppg > 0, the points per pose group, sizes it for the input gradients.
-// regions, if not null, receives its layout: regions[0] = p_pad (rows of
-// every per-point region), regions[1..8] = byte offsets of hs, feat, hv,
-// gz, gfeat, gzv, ghead and gzv32 (see Workspace).
+// regions, if not null, receives its layout (16 values): regions[0] =
+// p_pad (rows of every per-point region), regions[1..15] = byte offsets of
+// hs, feat, hv, gz, gfeat, gzv, ghead, gzv32, bias_part, gemm_part,
+// vb_part, d_dirs_pt, pose_part, g_ep and g_ev (see Workspace; -1 for the
+// last four without input gradients).
 long long posegen_field_bwd_workspace(int n_pts, const int* layout, int n_layout, int n_vgroups,
                                       int vppg, int ppg, long long* regions) {
   using namespace posegen;
@@ -1147,11 +1217,11 @@ long long posegen_field_bwd_workspace(int n_pts, const int* layout, int n_layout
     return 0;
   }
   Workspace S;
-  long long offsets[16];
+  long long offsets[kRegions];
   const size_t bytes = carve(L, n_pts, n_vgroups, vppg, ppg, nullptr, &S, offsets);
   if (regions != nullptr) {
     regions[0] = static_cast<long long>(S.p_pad);
-    for (int k = 0; k < 8; ++k) regions[1 + k] = offsets[k];
+    for (int k = 0; k < kRegions; ++k) regions[1 + k] = offsets[k];
   }
   return static_cast<long long>(bytes);
 }
@@ -1175,15 +1245,14 @@ long long posegen_field_bwd_smem(const int* layout, int n_layout) {
   return static_cast<long long>(bwd_smem_bytes(L));
 }
 
-// Bytes of dynamic shared memory the backward's input-gradient pass (c)
-// takes for this layout (0: invalid layout); past an H100 block's 232,448
-// posegen_field_bwd with pts fails to launch it (field_grad.py
-// field_input_refusal refuses such a layout first).
+// Bytes of shared memory the backward's input-gradient pass (c) takes for
+// this layout, the larger of its two kernels' plans, the same at every
+// layout (0: invalid layout).
 long long posegen_field_bwd_input_smem(const int* layout, int n_layout) {
   using namespace posegen;
   Layout L;
   if (!read_layout(layout, n_layout, &L)) return 0;
-  return static_cast<long long>(input_smem_bytes(L));
+  return static_cast<long long>(input_smem_bytes());
 }
 
 // Weight-only backward of one net from the stash: g (n_pts, 4) f32 output
@@ -1229,10 +1298,10 @@ int posegen_field_bwd(int n_pts, const int* layout, int n_layout, const void* w,
   const auto* ep = static_cast<const bf16*>(e_pts);
   const auto* ev = static_cast<const bf16*>(e_view);
   cudaError_t e;
+  BwdMaps M{};  // pass (a)'s tensor maps; pass (c) reads its operands through some of them
+  if (!bwd_maps(L, n_pts, W, ep, ev, S, &M)) return static_cast<int>(cudaErrorInvalidValue);
 
   {  // (a)
-    BwdMaps M{};
-    if (!bwd_maps(L, n_pts, W, ep, ev, S, &M)) return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = bwd_smem_bytes(L);
     if ((e = set_smem(field_bwd_sm90_kernel, smem)) != cudaSuccess) return static_cast<int>(e);
     RowBias vb;
@@ -1277,13 +1346,21 @@ int posegen_field_bwd(int n_pts, const int* layout, int n_layout, const void* w,
   vbias_sum_kernel<<<n_vgroups, kViewWidth, 0, s>>>(S.vb_part, nck, d_bview);
   if ((e = cudaGetLastError()) != cudaSuccess || !inputs) return static_cast<int>(e);
 
-  // (c) the input gradients, from (a)'s cotangents
-  const size_t smem_in = input_smem_bytes(L);
-  if ((e = set_smem(field_bwd_input_kernel, smem_in)) != cudaSuccess) return static_cast<int>(e);
-  const int n_tiles = n_tiles_of(n_pts);
+  // (c) the input gradients, from (a)'s cotangents: the encodings'
+  // cotangents on the tensor cores, then the chain rule
+  InputMaps IM{M.w[0], M.w_skip_e, M.w_view_e, M.gz, M.gzv, {}, {}};
+  if (!sm90::make_map_f32(&IM.gep, S.g_ep, L.pc, S.p_pad, L.pc, 64) ||
+      !sm90::make_map_f32(&IM.gev, S.g_ev, L.vc, S.p_pad, L.vc, 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem_in = input_sm90_smem_bytes();
+  if ((e = set_smem(input_sm90_kernel, smem_in)) != cudaSuccess) return static_cast<int>(e);
+  input_sm90_kernel<<<n_tiles_a(n_pts), kAThreads, smem_in, s>>>(IM, L,
+                                                                  static_cast<int>(S.p_pad));
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   const int n_slots = pose_slots(ppg);
-  field_bwd_input_kernel<<<n_tiles, kThreads, smem_in, s>>>(
-      n_pts, spr, pts, dirs, poses, pose_ld, ppg, n_slots, L, W, S, S.pose_part, d_pts,
+  input_chain_kernel<<<n_tiles_of(n_pts), kThreads, 0, s>>>(
+      n_pts, spr, pts, dirs, poses, pose_ld, ppg, n_slots, L, S, S.pose_part, d_pts,
       S.d_dirs_pt);
   if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
   pose_reduce_kernel<<<n_pts / ppg, 128, 0, s>>>(S.pose_part, n_pts, ppg, n_slots, d_poses,

@@ -89,9 +89,11 @@ __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;" ::: "memory");
 }
 
-// Until the committed stores have read their shared memory.
+// Until at most N of the committed stores are still reading their shared
+// memory.
+template <int N = 0>
 __device__ __forceinline__ void tma_store_wait_read() {
-  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read %0;" ::"n"(N) : "memory");
 }
 
 // Until the committed stores are complete.
@@ -247,20 +249,34 @@ static inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A bf16 matrix of `rows` x `cols` (row stride `ld` elements) at `base`,
-// read and written in boxes of box_rows x 64 with the 128-byte swizzle;
-// elements past cols or rows read as zero. False when the encoder refuses.
-static inline bool make_map(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
-                            uint64_t ld, uint32_t box_rows) {
+// A matrix of `rows` x `cols` elements of `type` (`esize` bytes, row stride
+// `ld` elements) at `base`, read and written in boxes of box_rows rows of
+// 128 bytes with the 128-byte swizzle; elements past cols or rows read as
+// zero, and stores past them are dropped. False when the encoder refuses.
+static inline bool make_map_2d(CUtensorMap* map, CUtensorMapDataType type, uint32_t esize,
+                               const void* base, uint64_t cols, uint64_t rows, uint64_t ld,
+                               uint32_t box_rows) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr || base == nullptr) return false;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {ld * 2};
-  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint64_t strides[1] = {ld * esize};
+  const cuuint32_t box[2] = {128 / esize, box_rows};
   const cuuint32_t estr[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides, box,
-            estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return fn(map, type, 2, const_cast<void*>(base), dims, strides, box, estr,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// bf16, in boxes of box_rows x 64.
+static inline bool make_map(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
+                            uint64_t ld, uint32_t box_rows) {
+  return make_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, cols, rows, ld, box_rows);
+}
+
+// f32, in boxes of box_rows x 32.
+static inline bool make_map_f32(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
+                                uint64_t ld, uint32_t box_rows) {
+  return make_map_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, cols, rows, ld, box_rows);
 }
 
 }  // namespace sm90

@@ -376,12 +376,11 @@ def field_stash_refusal(layout: NetLayout) -> Optional[str]:
     return field_eval_refusal(layout)
 
 
-def train_refusal(layout: NetLayout, input_grads: bool = False) -> Optional[str]:
-    """Why the training kernels (the stash kernel and the backward; with
-    input_grads also the backward's pass (c)) do not take this layout, or
-    None."""
-    return (field_stash_refusal(layout) or field_bwd_refusal(layout)
-            or (field_input_refusal(layout) if input_grads else None))
+def train_refusal(layout: NetLayout) -> Optional[str]:
+    """Why the training kernels (the stash kernel and the backward, with or
+    without its input-gradient pass (c), whose plan is the same at every
+    layout) do not take this layout, or None."""
+    return field_stash_refusal(layout) or field_bwd_refusal(layout)
 
 
 # Kernel 4's plan on Hopper (csrc/field_grad.cu): pass (a) runs 128 points
@@ -424,37 +423,28 @@ def field_bwd_refusal(layout: NetLayout) -> Optional[str]:
     return None
 
 
-# Pass (c)'s plan (csrc/field_grad.cu input_smem_bytes): 64 points per
-# block on field.cuh's WMMA products.
-INPUT_TILE = 64
-_STATE_FLOATS = 6  # floats per (point, joint) of pass (c)'s chain rule
+# Pass (c)'s plan (csrc/field_grad.cu input_smem_bytes): its wgmma products
+# run pass (a)'s rings and stage their f32 outputs for TMA stores, its chain
+# rule 64 points per block.
+INPUT_W_STAGES = 3  # weight ring stages of input_sm90_kernel
+INPUT_OUT_BUFS = 4  # its staging buffers per consumer warpgroup
+CHAIN_TILE = 64  # points per block of input_chain_kernel
+_STATE_FLOATS = 6  # floats per (point, joint) of the chain rule
 
 
-def input_smem_bytes(layout: NetLayout) -> int:
-    """Pass (c)'s dynamic shared memory (csrc/field_grad.cu input_smem_bytes,
-    posegen_field_bwd_input_smem): the larger of [gz0 | gz5 (64 x 264 bf16
-    each) | g_e_pts (64 x pc f32)] and [gzv (64 x 136 bf16) | g_e_view (64 x
-    vcp f32)], then the chain rule's state (64 x 24 x 6 f32) and the points'
-    pts and dirs (64 x 6 f32): 223,744 bytes at multires 7 / multires_views 4,
-    241,152 at 9 / 4."""
-    T, L = INPUT_TILE, layout
-    kp = 2 * 2 * T * (WIDTH + 8) + 4 * T * L.pc
-    view = 2 * T * (VIEW_WIDTH + 8) + 4 * T * L.vcp
-    return max(kp, view) + 4 * (T * N_JOINTS * _STATE_FLOATS + T * 6)
-
-
-def field_input_refusal(layout: NetLayout) -> Optional[str]:
-    """Why the backward's input-gradient pass (c) does not take this layout,
-    or None: its 64 points' cotangents and encoding gradients must fit one
-    block's shared memory (multires 9 / multires_views 4 needs 241,152 bytes,
-    any multires with 5 view octaves at least 260,608)."""
-    need = input_smem_bytes(layout)
-    if need > SMEM_LIMIT:
-        return (f"multires={layout.nf_kp}, multires_views={layout.nf_view}: the backward's "
-                f"input-gradient pass (c) needs {need} bytes of shared memory ({INPUT_TILE} "
-                f"points' cotangents and encoding gradients), more than the {SMEM_LIMIT} an "
-                "H100 block can take")
-    return None
+def input_smem_bytes() -> int:
+    """Pass (c)'s shared memory (csrc/field_grad.cu input_smem_bytes,
+    posegen_field_bwd_input_smem), the larger of its two kernels' plans, the
+    same at every layout: input_sm90_kernel's 1,024 alignment slack, weight
+    ring (32,768 a stage), cotangent ring (2 x 16,384), 4 staging buffers of
+    64 x 32 f32 per consumer warpgroup (8,192 each) and the rings' 10
+    mbarriers, 197,712 bytes, against input_chain_kernel's
+    per-(point, joint) state (64 x 24 x 6 f32) and the points' pts and dirs
+    (64 x 6 f32), 38,400."""
+    products = (1024 + INPUT_W_STAGES * 32768 + 2 * 16384 + 2 * INPUT_OUT_BUFS * 8192
+                + 2 * (INPUT_W_STAGES + 2) * 8)
+    chain = 4 * (CHAIN_TILE * N_JOINTS * _STATE_FLOATS + CHAIN_TILE * 6)
+    return max(products, chain)
 
 
 def wgrad_split_plan(n_pts: int) -> Tuple[int, int]:
@@ -516,38 +506,94 @@ class BwdWorkspace(NamedTuple):
     """The backward kernel's workspace on the card: its bytes and the
     regions pass (a) writes, as views of P rows in the layout of
     `field_bwd_workspace_plain`, bf16 (hs, feat, hv, gz, gfeat, gzv,
-    ghead)."""
+    ghead); sized for the input gradients, also those pass (c) writes,
+    g_e_pts and g_e_view f32 (`field_bwd_plain(input_grads=True)`'s)."""
 
     buf: torch.Tensor
     regions: Dict[str, torch.Tensor]
 
 
+# The workspace's regions in carve order (csrc/field_grad.cu carve), the
+# input gradients' last four: d_dirs per point, the pose partials per tile
+# and the encodings' cotangents g_e_pts, g_e_view in f32.
+WS_REGIONS = ("hs", "feat", "hv", "gz", "gfeat", "gzv", "ghead", "gzv32", "bias_part",
+              "gemm_part", "vb_part", "d_dirs_pt", "pose_part", "g_e_pts", "g_e_view")
+
+
+def _wgrad_tiles(layout: NetLayout) -> int:
+    """Pass (b)'s 128 x 256 output tiles over every weight-gradient product
+    (csrc/field_grad.cu gemm_jobs): (outputs, inputs) of each."""
+    L = layout
+    jobs = []
+    for i in range(L.depth):
+        if i == 0:
+            jobs.append((WIDTH, L.pc))
+        elif i - 1 == L.skip:
+            jobs += [(WIDTH, L.pc), (WIDTH, WIDTH)]
+        else:
+            jobs.append((WIDTH, WIDTH))
+    jobs += [(WIDTH, WIDTH), (VIEW_WIDTH, WIDTH), (VIEW_WIDTH, L.vc), (16, WIDTH),
+             (16, VIEW_WIDTH)]
+    return sum(-(-m // 128) * -(-n // 256) for m, n in jobs)
+
+
+def bwd_workspace_plan(n_pts: int, layout: NetLayout, n_vgroups: int,
+                       ppg: int) -> Tuple[int, int, Dict[str, int]]:
+    """The backward kernel's workspace (csrc/field_grad.cu carve,
+    posegen_field_bwd_workspace) for n_pts points, the view bias in
+    n_vgroups groups of n_pts // n_vgroups points -> (bytes, p_pad, byte
+    offset of each region of WS_REGIONS). Every per-point region has p_pad
+    rows (whole 128-point tiles), every region starts 256-byte aligned;
+    ppg > 0 (points per pose group) adds the input gradients' four regions,
+    so the weights-only workspace does not hold them."""
+    L = layout
+    vppg = n_pts // max(n_vgroups, 1)
+    if n_pts <= 0 or ppg < 0 or n_vgroups < 1 or vppg < 1 or not (
+            (n_vgroups - 1) * vppg < n_pts <= n_vgroups * vppg):
+        raise ValueError(f"field_bwd: no workspace for {n_pts} points, {n_vgroups} view groups")
+    P = -(-n_pts // A_TILE) * A_TILE
+    n_bias = L.depth * WIDTH + WIDTH + 4
+    splits, _ = wgrad_split_plan(n_pts)
+    sizes = [2 * L.depth * P * WIDTH, 2 * P * WIDTH, 2 * P * VIEW_WIDTH,
+             2 * L.depth * P * WIDTH, 2 * P * WIDTH, 2 * P * VIEW_WIDTH, 2 * P * 16,
+             4 * P * VIEW_WIDTH, 4 * (P // 64) * n_bias, 4 * _wgrad_tiles(L) * splits * 128 * 256,
+             4 * n_vgroups * -(-vppg // 256) * VIEW_WIDTH]
+    if ppg > 0:
+        tiles = -(-n_pts // CHAIN_TILE)
+        slots = min(CHAIN_TILE, (CHAIN_TILE - 1) // ppg + 2)
+        sizes += [4 * P * 3, 4 * tiles * slots * N_JOINTS * 12, 4 * P * L.pc, 4 * P * L.vc]
+    off, offsets = 0, {}
+    for name, n in zip(WS_REGIONS, sizes):
+        offsets[name] = off
+        off += -(-n // 256) * 256
+    return off, P, offsets
+
+
 def bwd_workspace(n_pts: int, layout: NetLayout, n_vgroups: int, ppg: int,
                   device) -> BwdWorkspace:
-    """A workspace for `field_backward` on n_pts points of a CUDA device,
-    its view bias in n_vgroups groups; ppg > 0 (points per pose group) sizes
-    it for the input gradients too."""
-    from posegen_tpu_torch.kernels import build
-
-    lib = build.load()
-    off = (ctypes.c_longlong * 9)()
-    n_ws = lib.posegen_field_bwd_workspace(n_pts, *_layout_arg(layout), n_vgroups,
-                                           n_pts // max(n_vgroups, 1), ppg, off)
-    if n_ws <= 0:
-        raise ValueError(f"field_bwd: no workspace for {n_pts} points, {n_vgroups} view groups")
+    """A workspace for `field_backward` on n_pts points of `device` (the
+    kernel's on a CUDA device), its view bias in n_vgroups groups; ppg > 0
+    (points per pose group) sizes it for the input gradients too, and its
+    regions then include g_e_pts (P, pc) and g_e_view (P, vc) f32, which pass
+    (c) fills."""
+    n_ws, p_pad, off = bwd_workspace_plan(n_pts, layout, n_vgroups, ppg)
     buf = torch.empty(n_ws, dtype=torch.uint8, device=device)
-    p_pad = off[0]
 
-    def region(k, *shape):
-        n = 2 * p_pad * (shape[0] if len(shape) == 2 else 1) * shape[-1]
-        return buf[off[k]:off[k] + n].view(torch.bfloat16).view(*shape[:-1], p_pad, shape[-1])
+    def region(name, dtype, *shape):
+        n = dtype.itemsize * p_pad * (shape[0] if len(shape) == 2 else 1) * shape[-1]
+        k = off[name]
+        return buf[k:k + n].view(dtype).view(*shape[:-1], p_pad, shape[-1])
 
-    D, P = layout.depth, n_pts
-    return BwdWorkspace(buf, {
-        "hs": region(1, D, WIDTH)[:, :P], "feat": region(2, WIDTH)[:P],
-        "hv": region(3, VIEW_WIDTH)[:P], "gz": region(4, D, WIDTH)[:, :P],
-        "gfeat": region(5, WIDTH)[:P], "gzv": region(6, VIEW_WIDTH)[:P],
-        "ghead": region(7, 16)[:P]})
+    D, P, bf16 = layout.depth, n_pts, torch.bfloat16
+    regions = {
+        "hs": region("hs", bf16, D, WIDTH)[:, :P], "feat": region("feat", bf16, WIDTH)[:P],
+        "hv": region("hv", bf16, VIEW_WIDTH)[:P], "gz": region("gz", bf16, D, WIDTH)[:, :P],
+        "gfeat": region("gfeat", bf16, WIDTH)[:P], "gzv": region("gzv", bf16, VIEW_WIDTH)[:P],
+        "ghead": region("ghead", bf16, 16)[:P]}
+    if ppg > 0:
+        regions["g_e_pts"] = region("g_e_pts", torch.float32, layout.pc)[:P]
+        regions["g_e_view"] = region("g_e_view", torch.float32, layout.vc)[:P]
+    return BwdWorkspace(buf, regions)
 
 
 def field_backward(g: torch.Tensor, e_pts: torch.Tensor, e_view: torch.Tensor,
@@ -560,10 +606,10 @@ def field_backward(g: torch.Tensor, e_pts: torch.Tensor, e_view: torch.Tensor,
     d_pts (P, 3), d_dirs (P / spr, 3), d_poses (G, n_pose)) (see
     `encode_bwd_plain`); the weight gradients are the same either way. On
     CUDA every gradient is bit-identical from launch to launch; a layout the
-    kernel does not take raises (`field_bwd_refusal`, and with `inputs`
-    `field_input_refusal`). `workspace` (CUDA
-    only, from `bwd_workspace`) is the kernel's scratch, in which pass (a)'s
-    regions are left for the caller; a new one is made when None."""
+    kernel does not take raises (`field_bwd_refusal`). `workspace` (CUDA
+    only, from `bwd_workspace`, sized for `inputs` when they are given) is
+    the kernel's scratch, in which its regions are left for the caller; a
+    new one is made when None."""
     L = net.layout
     P = e_pts.shape[0]
     if (g.shape != (P, 4) or e_pts.shape != (P, L.pc) or e_view.shape != (P, L.vc)
@@ -594,9 +640,6 @@ def field_backward(g: torch.Tensor, e_pts: torch.Tensor, e_view: torch.Tensor,
     reason = field_bwd_refusal(L)
     if reason is not None:
         raise ValueError(f"field_bwd: {reason}")
-    reason = field_input_refusal(L) if inputs is not None else None
-    if reason is not None:
-        raise ValueError(f"field_bwd_inputs: {reason}")
     Gb = bview.shape[0]
     d_w = torch.zeros(L.n_w, dtype=torch.float32, device=dev)
     d_b = torch.zeros(L.n_b, dtype=torch.float32, device=dev)

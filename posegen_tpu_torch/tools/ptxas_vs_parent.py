@@ -1,16 +1,17 @@
-"""Compare the build's ptxas report with the commit before the stash
-kernel became the eval kernel's stash mode (csrc/field.cu).
+"""Compare the build's ptxas report with the commit before the backward's
+input-gradient pass (c) became two kernels (csrc/field_grad.cu
+input_sm90_kernel and input_chain_kernel).
 
     python -m posegen_tpu_torch.tools.ptxas_vs_parent
 
 Builds the kernels (or loads the cached build) on a machine with nvcc and
 prints, for every kernel that change left alone (kernel 4's passes (a),
-(b) and its reduce, pass (c) and the small reductions, the variants; and
-the eval kernel's three other modes, found by the start of their mangled
-names, since the change added a parameter to them), its registers and
-spill bytes beside the ones that commit's build reported for sm_90a. Exits
-1 if one differs. A record of that change: a later edit of one of these
-kernels, or another nvcc, changes the report with no fault in the port.
+(b) and its reduce, the small reductions, the variants; and the eval
+kernel's four modes, found by the start of their mangled names), its
+registers and spill bytes beside the ones that commit's build reported for
+sm_90a. Exits 1 if one differs. A record of that change: a later edit of
+one of these kernels, or another nvcc, changes the report with no fault in
+the port.
 """
 
 from __future__ import annotations
@@ -35,7 +36,6 @@ PARENT = {
     "_ZN7posegen20field_variant_kernelILi64ELb0EEEvPKfS2_iS2_iiNS_6LayoutEPK13__nv_bfloat16S2_iiiPf": (158, 0, 0),
     "_ZN7posegen20field_variant_kernelILi64ELb1EEEvPKfS2_iS2_iiNS_6LayoutEPK13__nv_bfloat16S2_iiiPf": (160, 0, 0),
     "_ZN7posegen21field_bwd_sm90_kernelENS_7BwdMapsEiNS_6LayoutEPK13__nv_bfloat16PKfS6_NS_7RowBiasES6_NS_9WorkspaceE": (168, 0, 0),
-    "_ZN7posegen22field_bwd_input_kernelEiiPKfS1_S1_iiiNS_6LayoutEPK13__nv_bfloat16NS_9WorkspaceEPfS7_S7_": (102, 0, 0),
 }
 
 
@@ -44,6 +44,7 @@ PARENT_EVAL = {
     "_ZN7posegen16eval_sm90_kernelILi0EEEv": (168, 0, 0),
     "_ZN7posegen16eval_sm90_kernelILi1EEEv": (168, 0, 0),
     "_ZN7posegen16eval_sm90_kernelILi2EEEv": (168, 0, 0),
+    "_ZN7posegen16eval_sm90_kernelILi3EEEv": (168, 0, 0),
 }
 
 

@@ -263,9 +263,8 @@ def _fused_train_mode(cfg: RaycastConfig, tcfg: TrainConfig, params: Dict,
     """"train" ("full" with opt_pose: input gradients too) when the
     trainable kernels apply, else False: enabled (fused_train, or by default
     CUDA tensors), a config that passes the gate and whose layout the
-    training kernels' plans take (`field_grad.train_refusal`, with opt_pose
-    also the input-gradient pass's; the JAX kernels take any, so this is a
-    difference of route), one view layer,
+    training kernels' plans take (`field_grad.train_refusal`; the JAX
+    kernels take any, so this is a difference of route), one view layer,
     and rays that divide evenly into the batch's pose groups (kp_idx rows
     with opt_pose, skts rows without; JAX trainer.py:235-270)."""
     enabled = tcfg.fused_train
@@ -274,7 +273,7 @@ def _fused_train_mode(cfg: RaycastConfig, tcfg: TrainConfig, params: Dict,
     if not enabled or fused_config_disqualification(cfg) is not None:
         return False
     layout = net_layout(cfg.netdepth, cfg.multires, cfg.multires_views)
-    if train_refusal(layout, input_grads=tcfg.opt_pose) is not None:
+    if train_refusal(layout) is not None:
         return False
     if len(params["coarse"].get("views_linears", [0])) != 1:
         return False

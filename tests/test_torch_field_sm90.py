@@ -33,8 +33,9 @@ TINY = dict(N_samples=8, N_importance=4)
 EVAL = dict(perturb=0.0, raw_noise_std=0.0)
 FLAGSHIP_SMEM = 201_304  # the eval kernels' plan at every layout
 # layouts that the stash kernel's WMMA plan refused (240,128 and 233,984 bytes)
-# and its stash mode of the eval kernel takes; the backward's pass (c) refuses
-# them: (multires, multires_views) -> its bytes
+# and its stash mode of the eval kernel takes, as does the backward's pass (c)
+# (197,712 bytes at every layout), whose WMMA plan refused them:
+# (multires, multires_views) -> that plan's bytes
 PASS_C_TOO_BIG = {(7, 7): 334_336, (15, 4): 314_880}
 
 
@@ -98,9 +99,9 @@ def test_render_falls_back_once_and_matches_jax(depth):
 
 def test_train_mode_is_plain_where_the_kernels_refuse():
     """_fused_train_mode with fused_train on: False at depth 17; at the two
-    layouts that the stash kernel takes and pass (c) does not, "train"
-    without opt_pose and False with it; the kernels' route at the
-    flagship."""
+    layouts that the stash kernel takes and pass (c)'s WMMA plan did not,
+    the kernels' route as at the flagship: "train" without opt_pose and
+    "full" with it."""
     params = {"coarse": {"views_linears": [0]}}
     batch = {"rays_o": torch.zeros(8, 3), "skts": torch.zeros(2, 24, 4, 4),
              "kp_idx": torch.zeros(2, dtype=torch.long)}
@@ -117,25 +118,24 @@ def test_train_mode_is_plain_where_the_kernels_refuse():
         cfg = tr.RaycastConfig(multires=m, multires_views=v)
         assert tt._fused_train_mode(cfg, on, params, batch) == "train"
         assert tt._fused_train_mode(cfg, dataclasses.replace(on, opt_pose=True), params,
-                                    batch) is False
+                                    batch) == "full"
 
 
 def test_stash_plan_and_refusal():
     """The stash kernel's plan is the eval kernels' (it is their stash mode):
     201,304 bytes at the flagship and at the two layouts its WMMA plan
-    refused, which the stash and the weights-only backward now take; there
-    pass (c) refuses, with its size, so input-gradient training does not;
-    octave weights past 64 are refused as the eval kernels refuse them."""
+    refused, which the stash and the backward, input gradients included,
+    now take: pass (c)'s plan there is its plan at every layout, far below
+    its WMMA plan's; octave weights past 64 are refused as the eval kernels
+    refuse them."""
     L = tfield.net_layout(8, 7, 4)
     assert tgrad.stash_smem_bytes(L) == FLAGSHIP_SMEM and tgrad.field_stash_refusal(L) is None
-    assert tgrad.train_refusal(L) is None and tgrad.train_refusal(L, input_grads=True) is None
+    assert tgrad.train_refusal(L) is None
     for (m, v), need in PASS_C_TOO_BIG.items():
         Lb = tfield.net_layout(8, m, v)
         assert tgrad.stash_smem_bytes(Lb) == FLAGSHIP_SMEM
         assert tgrad.field_stash_refusal(Lb) is None and tgrad.train_refusal(Lb) is None
-        reason = tgrad.train_refusal(Lb, input_grads=True)
-        assert f"needs {need} bytes" in reason and f"multires={m}" in reason
-        assert reason == tgrad.field_input_refusal(Lb)
+        assert tgrad.input_smem_bytes() < tfield.SMEM_LIMIT < need
         assert tfield.field_eval_refusal(Lb) is None
         assert tfield.fused_config_disqualification(
             tr.RaycastConfig(multires=m, multires_views=v)) is None

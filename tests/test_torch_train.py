@@ -279,10 +279,11 @@ POSE_CASES = {  # raycast kwargs, train kwargs, JAX steps
     "pose_multires9": (dict(multires=9), dict(opt_pose_step=3), 1),
     "pose_views5": (dict(multires=4, multires_views=5), dict(opt_pose_step=3), 1),
 }
-# cases whose layout the port's input-gradient pass (c) refuses (241,152 bytes
-# of shared memory at multires 9 / multires_views 4): with fused_train on,
-# their pose step takes the plain pipeline
-PLAIN_ROUTE = {"pose_multires9", "pose_views5"}
+# pose_multires9 and pose_views5: layouts whose pose step the WMMA plan of the
+# port's input-gradient pass (c) refused (241,152 bytes of shared memory at
+# multires 9 / multires_views 4), sending it to the plain pipeline; its
+# two-kernel plan takes every layout, so with fused_train on every case takes
+# the kernels' route, "full"
 # per gradient tensor, max|diff| / max|grad|: a whole step (render, composite,
 # losses) in float32 on both sides, XLA's sums against PyTorch's; the worst
 # tensor measured 2.8e-4 (a NeRF weight)
@@ -352,7 +353,7 @@ def _port_pose_step(name, use_fused, start):
     states, _ = _jax_pose_run(name)
     state = train_state_from_numpy(states[start], ttcfg, "cpu")
     batch = {k: torch.as_tensor(v) for k, v in _pose_batch(tcfg.opt_framecode).items()}
-    want = "full" if use_fused and name not in PLAIN_ROUTE else False
+    want = "full" if use_fused else False
     assert tt._fused_train_mode(tcfg, ttcfg, state.params, batch) == want
     pcfg = topt.PoseOptConfig(use_rot6d=True, opt_pose_tol=0.01)
     step = tt.make_train_step(tcfg, ttcfg, pcfg, rest_pose=torch.as_tensor(SMPL_REST_POSE),
@@ -411,17 +412,29 @@ def test_pose_step_matches_jax(use_fused):
     assert state.pose_opt_state.mini_step == 1 and state.pose_opt_state.count == 0
 
 
-def _refuse_trainable(*args, **kwargs):
-    raise AssertionError("the trainable kernels ran at a layout pass (c) refuses")
+def _count_trainable(monkeypatch):
+    """Count the calls of the trainable field (the kernels' route; on the CPU
+    their plain versions) -> the list each call appends its pts size to."""
+    calls, inner = [], tgrad.trainable_field
+
+    def counted(pts, *args, **kwargs):
+        calls.append(pts.shape[0])
+        return inner(pts, *args, **kwargs)
+
+    monkeypatch.setattr(tgrad, "trainable_field", counted)
+    return calls
 
 
 def test_pose_step_where_pass_c_refuses_matches_jax(monkeypatch):
-    """multires 4 / multires_views 5 with fused_train on: pass (c) refuses
-    the layout (260,608 bytes), so the pose step runs the plain pipeline
-    (the trainable kernels never run, not even their plain versions) and
-    matches the JAX step as test_pose_step_matches_jax's does."""
-    monkeypatch.setattr(tgrad, "trainable_field", _refuse_trainable)
+    """multires 4 / multires_views 5 with fused_train on, where pass (c)'s
+    WMMA plan refused the layout (260,608 bytes) and the pose step ran the
+    plain pipeline: its two-kernel plan takes it, so the step goes through
+    the trainable kernels (their plain versions here, for the coarse and
+    the fine net) and matches the JAX step as test_pose_step_matches_jax's
+    does."""
+    calls = _count_trainable(monkeypatch)
     state, ref, prev = _assert_pose_step("pose_views5", True, 0)
+    assert len(calls) == 2
     mu = tt.param_leaves(_adam_state(ref.opt_state).mu)
     for p, m in zip(tt.param_leaves(state.params), mu, strict=True):
         _assert_grad_close(p.grad.numpy(), m / 0.1, "nerf grad")
@@ -431,22 +444,29 @@ def test_pose_step_where_pass_c_refuses_matches_jax(monkeypatch):
 
 
 def test_pose_step_at_multires9_is_the_plain_step(monkeypatch):
-    """multires 9 / multires_views 4 with fused_train on: pass (c) refuses
-    the layout (241,152 bytes), so the pose step is the fused_train=False
-    step, bit for bit (the trainable kernels never run), and its losses hold
-    to the JAX step's. (At this layout the random nets' gradients are
-    1e-7-1e-5, and XLA's and PyTorch's float32 sums differ by ~1e-8 in them:
-    up to 1.09e-3 of a tensor's largest, past GRAD_REL; the route is what
-    this test holds.)"""
-    monkeypatch.setattr(tgrad, "trainable_field", _refuse_trainable)
+    """multires 9 / multires_views 4 with fused_train on, where pass (c)'s
+    WMMA plan refused the layout (241,152 bytes) and the pose step was the
+    fused_train=False step: now it takes the trainable kernels (their plain
+    versions here, for both nets), and its gradients hold to the
+    fused_train=False step's (per tensor, GRAD_REL of its largest) and its
+    losses to the JAX step's. (At this layout the random nets' gradients
+    are 1e-7-1e-5, and XLA's and PyTorch's float32 sums differ by ~1e-8 in
+    them: up to 1.09e-3 of a tensor's largest, past GRAD_REL; the port's
+    two routes are held to each other instead.)"""
+    calls = _count_trainable(monkeypatch)
     state, stats = _port_pose_step("pose_multires9", True, 0)
+    assert len(calls) == 2
     plain, plain_stats = _port_pose_step("pose_multires9", False, 0)
-    assert stats == plain_stats
+    assert len(calls) == 2
+    for k in ("total_loss", "rgb_loss", "rgb0_loss", "psnr", "kp_loss", "mpjpc", "temp_loss",
+              "grad_norm", "pose_grad_norm"):
+        np.testing.assert_allclose(stats[k], plain_stats[k], rtol=LOSS_RTOL, err_msg=k)
     for a, b in zip(tt.param_leaves(state.params), tt.param_leaves(plain.params), strict=True):
-        assert torch.equal(a, b) and torch.equal(a.grad, b.grad)
+        _assert_grad_close(a.grad.numpy(), b.grad.numpy(), "nerf grad")
     for k, p in state.pose_params.items():
         q = plain.pose_params[k]
-        assert torch.equal(p, q) and torch.equal(p.grad, q.grad)
+        assert torch.equal(p, q)  # accumulating: unmoved on both routes
+        _assert_grad_close(p.grad.numpy(), q.grad.numpy(), f"pose grad {k}")
     _, j_stats = _jax_pose_run("pose_multires9")
     for k in ("total_loss", "rgb_loss", "rgb0_loss", "psnr", "kp_loss", "mpjpc", "temp_loss",
               "grad_norm", "pose_grad_norm"):
