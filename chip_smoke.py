@@ -110,7 +110,27 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               tile 64 against fused_field by the same rule; then the
               harness's sweep over tiles 32, 64 and 128 from launch counts
               of 0: every (case, tile) that fits launched chain + 3 times,
-              with its time beside its bound; and the plain version's time.
+              with its time beside its bound; and the plain version's time;
+ 10. whole images  the feedback renderer's path on RaycastConfig() with the
+              seed-1 weights: a train state through save_checkpoint /
+              load_checkpoint and its render variables through
+              export_torch_checkpoint / import_torch_checkpoint, each
+              bit-equal, the renders below from the restored variables;
+              render_images_pipelined of 20 bullet-camera frames at 512 x 512,
+              focal 1000, chunk 8192, f16 readback, window (100, 412) (gen/
+              loop.py's call): launch counters read one dual and one field
+              launch per chunk, its first two frames against the same call
+              through the plain pipeline, fewer synchronising operations than
+              chunks, and its host-clock time (median of 10 calls, alternating
+              with 10 calls whose nets are packed once: the repacking's
+              share); one render_image frame (f32 readback) on the kernels'
+              route against the plain pipeline (rgb to 5e-3 but on opacity
+              flips, each with a far-sigma sign change, as in phase 3, for
+              the frames too); psnr / ssim / ms_ssim of the two
+              frames on the card against the CPU to 1e-5 with cuDNN's TF32
+              on; extract_mesh at res 64 through the density-only kernel
+              (one field launch), its sigma grid against render_mesh_density's
+              plain route by the elementwise rule of phase 2.
 
 The last two lines of standard output are one JSON object of per-kernel
 numbers and one JSON object naming the device. Without a CUDA device, or
@@ -197,6 +217,16 @@ MAX_MASK_FLIP_FRAC = 0.01  # points allowed a mask that differs from the plain v
 # from the launch's workspace, which the elementwise rule holds to the
 # plain products.
 E2E_OCTAVES = 9
+# phase 10: the GAN feedback renderer's call (posegen_tpu/gen/loop.py:64-143)
+FRAME_HW, FRAME_FOCAL, FRAME_CHUNK, FRAMES = 512, 1000.0, 8192, 20
+FRAME_WINDOW = (100, 412)
+FRAME_CALLS = 10  # timed calls of each arm (the repacking's A/B), after one warm-up
+COMPARE_FRAMES = 2  # the pipelined call's frames held to the plain pipeline
+# bullet cameras at this distance from the root fill the window: every
+# frame renders its 312 x 312 rays (at 12.0, 300 rows of them)
+BULLET_DIST = 10.0
+METRIC_TOL = 1e-5  # psnr / ssim / ms_ssim, card vs CPU
+MESH_RES, MESH_RADIUS = 64, 2.5  # the probe grid covers the body (radius 2.2)
 DEVICE = "cuda"
 # weight seed: with seed 1 the random nets give the 8192-ray render partial
 # opacity (mean fine acc ~0.3, coarse ~1), so the render comparison is not
@@ -613,6 +643,8 @@ def run(torch) -> int:
                          N_ITERS)
             print(f"timing render coarse_rgb={coarse_rgb}: {ms:.3f} ms per {N_RAYS} rays, "
                   f"{N_RAYS / ms * 1e3:.1f} rays/s [{card}]")
+            if not coarse_rgb:
+                render_ms = ms
 
         w_bytes = lambda net: net.w.numel() * 2 + net.b.numel() * 4
         rows = []
@@ -643,6 +675,8 @@ def run(torch) -> int:
     train_rows, train_err, train_launches, train_library, train_floors = train_phases(torch, card)
     pose_row, pose_err, pose_launches = pose_phases(torch, card)
     variant_row, variant_err, variant_launches = variant_phases(torch, card)
+    for k, n in image_phases(torch, card, render_ms).items():
+        launches[k] += n
 
     by_name = {(r[0], r[1]): r for r in rows}
     kernels = []
@@ -1464,6 +1498,338 @@ def variant_phases(torch, card: str):
               f"{base['ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by}, {b_ms / base['ms']:.1%} of it), "
               f"plain {p_ms:.3f} ms [{card}]")
     return (base["ms"], p_ms, b_ms, b_by), err, launches["variant"]
+
+
+def far_sigma_straddles(torch, F, cfg, variables, ctx, cam, n: int, chunk: int):
+    """Per ray of a render_image box: whether the fine net's sigma at the
+    ray's far sample changes sign between the density-only kernel and the
+    float32 net (phase 3's test of an opacity flip), and that float32 sigma.
+    near / far per chunk of the render, as the render repairs the rays that
+    miss the cylinder by their chunk's mean."""
+    from posegen_tpu_torch.models.nerf import nerf_apply
+    from posegen_tpu_torch.ops import sampling as samp
+    from posegen_tpu_torch.render.image import rays_from_box
+    from posegen_tpu_torch.render.raycast import encode_inputs
+
+    L = F.net_layout(cfg.netdepth, cfg.multires, cfg.multires_views)
+    pose = F.pack_pose(ctx.skts[0], variables["embed_kp"], cfg.multires, cfg.multires_views)
+    net_f = F.prepare_net(variables["fine"], L)
+    flips, sigmas = [], []
+    for i in range(0, n, chunk):
+        o, d = rays_from_box(cam, i, min(chunk, n - i))
+        _, far = samp.get_near_far_in_cylinder(o, d, ctx.cyls.expand(o.shape[0], 5),
+                                               near=cfg.near, far=cfg.far)
+        far_pts = (o + d * far).contiguous()
+        x_pts, x_views, _ = encode_inputs(cfg, variables, far_pts[:, None], d, ctx)
+        sig_ref = nerf_apply(cfg.nerf_cfg, variables["fine"], x_pts, x_views)[:, 0, 3]
+        sig_ker = F.fused_field(far_pts, d.contiguous(), 1, pose, net_f, density_only=True)[:, 3]
+        flips.append((sig_ref > 0) != (sig_ker > 0))
+        sigmas.append(sig_ref)
+    return torch.cat(flips), torch.cat(sigmas)
+
+
+def image_phases(torch, card: str, chunk_ms: float):
+    """Phase 10, whole images: checkpoints, the feedback renderer's
+    pipelined frames, one frame against the plain pipeline, the metrics on
+    the card against the CPU, and the mesh -> launches of the eval kernels
+    on its main path (the pipelined call, the kernel frame and the mesh)."""
+    import dataclasses
+    import statistics
+    import tempfile
+    import warnings
+
+    import numpy as np
+
+    from posegen_tpu_torch.evals import image as EV
+    from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.render import image as IMG
+    from posegen_tpu_torch.render.mesh import extract_mesh, marching_tetrahedra
+    from posegen_tpu_torch.render.raycast import RaycastConfig, init_raycaster, render_mesh_density
+    from posegen_tpu_torch.train import checkpoints as CK
+    from posegen_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state, make_train_step, param_leaves,
+    )
+    from posegen_tpu_torch.utils.fixtures import make_pose_ctx
+
+    cfg = RaycastConfig()
+    ctx = make_pose_ctx(SEED, device=DEVICE)
+    main_launches = {"dual": 0, "field": 0}
+
+    def launched(what, want):
+        torch.cuda.synchronize()
+        got = dict(F.LAUNCHES)
+        full = {k: want.get(k, 0) for k in got}
+        check(got == full, f"{what}: launches {got} != {full}")
+        for k in main_launches:
+            main_launches[k] += got[k]
+        return got
+
+    # 10a. checkpoints: the phase's train state after one step, its file
+    # round trip, then the render variables through the reference .tar. The
+    # step's small learning rate keeps the seed-1 nets' partial opacity in
+    # the frames below (one Adam step at the default 5e-4 moves every weight
+    # by about 5e-4 and makes each of their rays opaque)
+    tcfg = TrainConfig(rays_per_image=RAYS_PER_GROUP, use_background=True, lrate=1e-6)
+    state = create_train_state(init_raycaster(cfg, torch.Generator().manual_seed(SEED),
+                                              device=DEVICE), tcfg)
+    state, _ = make_train_step(dataclasses.replace(cfg, perturb=0.0), tcfg)(
+        state, train_batch(torch, 8, RAYS_PER_GROUP, SEED))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = CK.save_checkpoint(tmp, state)
+        check(CK.latest_checkpoint(tmp) == path, "latest_checkpoint does not name the file")
+        template = create_train_state(init_raycaster(cfg, torch.Generator().manual_seed(SEED + 1),
+                                                     device=DEVICE), tcfg)
+        restored = CK.load_checkpoint(path, template)
+        pairs = list(zip(param_leaves(restored.params), param_leaves(state.params), strict=True))
+        pairs += list(zip(param_leaves(restored.embeds), param_leaves(state.embeds), strict=True))
+        for p, q in zip(param_leaves(restored.params), param_leaves(state.params)):
+            a, b = restored.opt_state.state[p], state.opt_state.state[q]
+            pairs += [(a[k], b[k]) for k in ("step", "exp_avg", "exp_avg_sq")]
+        check(restored.step == state.step == 1, f"restored step {restored.step}")
+        check(all(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+                  for a, b in pairs), "load_checkpoint: a tensor differs from the saved state's")
+        variables = {**restored.params, **restored.embeds}
+        tar = CK.export_torch_checkpoint(os.path.join(tmp, "render.tar"), variables, cfg,
+                                         global_step=restored.step)
+        imported, extras = CK.import_torch_checkpoint(tar, device=DEVICE)
+    # the .tar holds each embedder's buffers only where the reference module
+    # owns them (no tau / cutoff_dist without a cutoff): every imported
+    # tensor equals its variable, on the card
+    got, want = CK._flatten(imported), CK._flatten(variables)
+    check(extras["global_step"] == 1 and set(got) <= set(want)
+          and all(np.array_equal(got[k], want[k]) for k in got)
+          and {k for k in want if k not in got} <= {"embed_bone//tau", "embed_bone//cutoff_dist"}
+          and all(t.device == ctx.kps.device for t in param_leaves(imported)),
+          "export / import_torch_checkpoint: the variables do not come back bit-equal")
+    variables = imported
+    print(f"checkpoints: {len(pairs)} tensors of the train state (params, embeds, Adam state at "
+          f"step 1) bit-equal after save / load_checkpoint, and {len(got)} render variables "
+          f"after export / import_torch_checkpoint, on the card")
+
+    with torch.no_grad():
+        # 10b. the feedback renderer's call
+        hw = FRAME_HW
+        c2ws = IMG._bullet_c2ws(ctx.kps[0, 0].cpu().numpy(), BULLET_DIST, FRAMES)
+        cyls = np.repeat(ctx.cyls[:1].cpu().numpy(), FRAMES, 0)
+        ctxs = [ctx] * FRAMES
+        n_rays = [len(IMG.valid_box_for_pose(hw, hw, FRAME_FOCAL, c, cyl, window=FRAME_WINDOW)[2])
+                  for c, cyl in zip(c2ws, cyls)]
+        side = FRAME_WINDOW[1] - FRAME_WINDOW[0]
+        check(all(n == side * side for n in n_rays), f"rays per frame {n_rays}: the bullet "
+              f"cameras at {BULLET_DIST} do not fill the {side} x {side} window")
+        chunks = sum(-(-n // FRAME_CHUNK) for n in n_rays)
+        call = lambda: IMG.render_images_pipelined(  # noqa: E731
+            cfg, variables, hw, hw, FRAME_FOCAL, c2ws, ctxs, cyls, chunk=FRAME_CHUNK,
+            half_readback=True, window=FRAME_WINDOW)
+        F.reset_launches()
+        frames = call()
+        launched("render_images_pipelined", {"dual": chunks, "field": chunks})
+        check(frames.shape == (FRAMES, hw, hw, 3) and frames.dtype == np.float32
+              and bool(np.isfinite(frames).all()), f"frames {frames.shape} {frames.dtype}")
+        lo, hi = FRAME_WINDOW
+        inside = frames[:, lo:hi, lo:hi]
+        outside = frames.copy()
+        outside[:, lo:hi, lo:hi] = 0.0
+        check(float(np.abs(outside).max()) == 0.0, "frames: pixels outside the window not black")
+        check(bool((inside.reshape(FRAMES, -1).max(-1) > 0).all()), "frames: an empty frame")
+        # the call's first frames against the plain pipeline on the same
+        # cameras, poses and window (the kernel frames read back in f16)
+        F.reset_launches()
+        plain = IMG.render_images_pipelined(
+            cfg, variables, hw, hw, FRAME_FOCAL, c2ws[:COMPARE_FRAMES], ctxs[:COMPARE_FRAMES],
+            cyls[:COMPARE_FRAMES], chunk=FRAME_CHUNK, window=FRAME_WINDOW,
+            render_fn=IMG._raygen_render_fn(cfg, use_fused=False))
+        torch.cuda.synchronize()
+        check(all(v == 0 for v in F.LAUNCHES.values()), f"plain frames: launches {F.LAUNCHES}")
+        n_out, err_pipe = 0, 0.0
+        for k in range(COMPARE_FRAMES):
+            tl, br, idx = IMG.valid_box_for_pose(hw, hw, FRAME_FOCAL, c2ws[k], cyls[k],
+                                                 window=FRAME_WINDOW)
+            got, want = frames[k].reshape(-1, 3), plain[k].reshape(-1, 3)
+            rest = np.ones(hw * hw, bool)
+            rest[idx] = False
+            check(np.array_equal(got[rest], want[rest]), f"frame {k}: background differs")
+            d = np.abs(got[idx] - want[idx]).max(-1)
+            cam = {key: torch.as_tensor(v).to(DEVICE)
+                   for key, v in IMG.make_cam(hw, hw, FRAME_FOCAL, c2ws[k], tl, br).items()}
+            straddles = far_sigma_straddles(torch, F, cfg, variables, ctx, cam, len(idx),
+                                            FRAME_CHUNK)[0].cpu().numpy()
+            out = d > RENDER_TOL
+            check(int(out.sum()) <= MAX_FLIP_FRAC * len(idx),
+                  f"render_images_pipelined frame {k}: {int(out.sum())} rays past {RENDER_TOL}")
+            check(bool(straddles[out].all()),
+                  f"render_images_pipelined frame {k}: {int((~straddles[out]).sum())} rays past "
+                  f"{RENDER_TOL} with no sign change of their far sigma")
+            n_out += int(out.sum())
+            err_pipe = max(err_pipe, float(d[~out].max()))
+        print(f"render_images_pipelined vs the plain pipeline, frames 0-{COMPARE_FRAMES - 1} "
+              f"({COMPARE_FRAMES * n_rays[0]} rays; kernel frames in f16, plain in f32): rgb "
+              f"max|diff| {err_pipe:.3e}, {n_out} rays past {RENDER_TOL} (each with a far-sigma "
+              f"sign change); background equal")
+
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                call()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        n_sync = sum("synchroniz" in str(w.message) for w in caught)
+        check(n_sync < chunks, f"render_images_pipelined: {n_sync} synchronizing operations in "
+                               f"a call of {chunks} chunks")
+        # the call as it stands against the same call with each net packed
+        # once (prepare_net memoised), in alternating order: the repacking's
+        # share of a frame
+        packed, prepare = {}, F.prepare_net
+
+        def prepare_once(net, layout, code=None):
+            if code is not None:
+                return prepare(net, layout, code)
+            key = (id(net), layout)
+            if key not in packed:
+                packed[key] = prepare(net, layout)
+            return packed[key]
+
+        def timed(memoised):
+            F.prepare_net = prepare_once if memoised else prepare
+            try:
+                t0 = time.perf_counter()
+                call()
+                return time.perf_counter() - t0
+            finally:
+                F.prepare_net = prepare
+
+        secs, secs_once = [], []
+        for i in range(FRAME_CALLS):
+            for memoised in ((False, True) if i % 2 == 0 else (True, False)):
+                (secs_once if memoised else secs).append(timed(memoised))
+        per_frame = chunks / FRAMES
+
+        def frame_stats(ts):
+            ms = sorted(1e3 * t / FRAMES for t in ts)
+            return statistics.median(ms), ms[0], ms[-1]
+
+        frame_ms, lo_ms, hi_ms = frame_stats(secs)
+        once_ms, once_lo, once_hi = frame_stats(secs_once)
+        print(f"render_images_pipelined: {FRAMES} frames of {hw} x {hw}, focal {FRAME_FOCAL}, "
+              f"window {FRAME_WINDOW}, chunk {FRAME_CHUNK}: {n_rays[0]} rays a frame, {chunks} "
+              f"chunks a call, launches dual {chunks} field {chunks}; {n_sync} synchronizing "
+              f"operation(s) a call")
+        print(f"timing render_images_pipelined ({FRAME_CALLS} calls, median [min, max]): "
+              f"{frame_ms:.3f} [{lo_ms:.3f}, {hi_ms:.3f}] ms per frame, {1e3 / frame_ms:.3f} "
+              f"frames/s, {n_rays[0] / frame_ms * 1e3:.1f} rays/s [{card}]")
+        glue = frame_ms - per_frame * chunk_ms
+        print(f"  glue: {frame_ms:.3f} ms per frame - {per_frame:.2f} chunks x {chunk_ms:.3f} ms "
+              f"(phase 4's 8192-ray render) = {glue:.3f} ms per frame [{card}]")
+        wins = sum(t_once < t for t, t_once in zip(secs, secs_once))
+        print(f"  with each net packed once ({FRAME_CALLS} calls, alternating with the above): "
+              f"{once_ms:.3f} [{once_lo:.3f}, {once_hi:.3f}] ms per frame, faster in {wins} of "
+              f"{FRAME_CALLS} pairs; the repacking {frame_ms - once_ms:.3f} ms per frame, "
+              f"{(frame_ms - once_ms) / per_frame:.3f} ms per chunk (difference of the medians) "
+              f"[{card}]")
+        wall, dev_ms, kern = profile_calls(torch, call, 1)
+        print(f"  under torch.profiler: {wall:.3f} ms a call, device kernels {dev_ms:.3f} ms "
+              f"({dev_ms / FRAMES:.3f} ms per frame), idle {1.0 - dev_ms / wall:.1%}; "
+              + ", ".join(f"{name[:40]} {ms:.3f} ms x{n:.0f}" for name, ms, n in kern[:8])
+              + f" [{card}]")
+        L = F.net_layout(cfg.netdepth, cfg.multires, cfg.multires_views)
+        repack_ms = cuda_ms(lambda: [F.prepare_net(variables[n], L) for n in ("coarse", "fine")], 20)
+        print(f"  weight repacking alone (prepare_net of both nets, as once per chunk): "
+              f"{repack_ms:.3f} ms between CUDA events around back-to-back repacks [{card}]")
+
+        # 10c. one frame: the kernels' route against the plain pipeline
+        tl, br, valid_idx = IMG.valid_box_for_pose(hw, hw, FRAME_FOCAL, c2ws[0], cyls[0])
+        n_img = len(valid_idx)
+        img_chunks = -(-n_img // FRAME_CHUNK)
+        kw = dict(chunk=FRAME_CHUNK)
+        F.reset_launches()
+        out_k = IMG.render_image(cfg, variables, hw, hw, FRAME_FOCAL, c2ws[0], ctx, **kw)
+        launched("render_image", {"dual": img_chunks, "field": img_chunks})
+        F.reset_launches()
+        out_p = IMG.render_image(cfg, variables, hw, hw, FRAME_FOCAL, c2ws[0], ctx,
+                                 render_fn=IMG._raygen_render_fn(cfg, use_fused=False), **kw)
+        torch.cuda.synchronize()
+        check(all(v == 0 for v in F.LAUNCHES.values()), f"plain frame: launches {F.LAUNCHES}")
+        rgb_k = out_k["rgb"].reshape(-1, 3)[valid_idx]
+        rgb_p = out_p["rgb"].reshape(-1, 3)[valid_idx]
+        check(bool(np.isfinite(rgb_k).all()), "kernel frame not finite")
+        flipped = np.abs(out_k["acc"].reshape(-1)[valid_idx]
+                         - out_p["acc"].reshape(-1)[valid_idx]) > 0.5
+        n_flip = int(flipped.sum())
+        d_rgb = np.abs(rgb_k - rgb_p).max(-1)
+        err = float(d_rgb[~flipped].max())
+        cam = {k: torch.as_tensor(v).to(DEVICE)
+               for k, v in IMG.make_cam(hw, hw, FRAME_FOCAL, c2ws[0], tl, br).items()}
+        straddles, sig_ref = far_sigma_straddles(torch, F, cfg, variables, ctx, cam, n_img,
+                                                 FRAME_CHUNK)
+        straddles, sig_ref = straddles.cpu().numpy(), sig_ref.cpu().numpy()
+        acc_mean = float(out_k["acc"].reshape(-1)[valid_idx].mean())
+        check(acc_mean > 0.0, "kernel frame: empty")
+        check(n_flip <= MAX_FLIP_FRAC * n_img, f"render_image: {n_flip} rays flipped opacity")
+        check(bool(straddles[flipped].all()),
+              f"render_image: {int((~straddles[flipped]).sum())} rays flipped opacity with no "
+              "sign change of their far sigma")
+        check(err <= RENDER_TOL, f"render_image: rgb vs plain {err:.3e} > {RENDER_TOL}")
+        print(f"render_image {hw} x {hw} ({n_img} rays, {img_chunks} chunks, launches dual "
+              f"{img_chunks} field {img_chunks}) vs the plain pipeline: rgb max|diff| {err:.3e} "
+              f"on {n_img - n_flip} rays, {n_flip} flipped opacity (each with a far-sigma sign "
+              f"change; float32 |sigma| <= {float(np.abs(sig_ref[flipped]).max()) if n_flip else 0.0:.3e} "
+              f"there); mean acc {acc_mean:.4f}")
+        fg = (out_p["acc"] > 0.5)[None]
+        box = np.array([[tl[0], tl[1], br[0], br[1]]])
+        stats = EV.evaluate_metric(out_k["rgb"][None], out_p["rgb"][None], fgs=fg, bboxes=box,
+                                   device=DEVICE)
+        print("  evaluate_metric(kernel frame, plain frame): "
+              + ", ".join(f"{k} {float(v[0]):.4f}" for k, v in sorted(stats.items())))
+
+        # 10d. the metrics on the card against the CPU, with TF32 allowed
+        pred, target = torch.as_tensor(out_k["rgb"]), torch.as_tensor(out_p["rgb"])
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            on_card = {"psnr": EV.psnr(pred.to(DEVICE), target.to(DEVICE)),
+                       "ssim": EV.ssim(pred.to(DEVICE), target.to(DEVICE))[0],
+                       "ms_ssim": EV.ms_ssim(pred.to(DEVICE), target.to(DEVICE))}
+            on_card = {k: float(v) for k, v in on_card.items()}
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        on_cpu = {"psnr": float(EV.psnr(pred, target)), "ssim": float(EV.ssim(pred, target)[0]),
+                  "ms_ssim": float(EV.ms_ssim(pred, target))}
+        for k in on_cpu:
+            check(abs(on_card[k] - on_cpu[k]) <= METRIC_TOL,
+                  f"{k}: card {on_card[k]!r} vs CPU {on_cpu[k]!r}")
+        print("metrics of the two frames, card (cuDNN TF32 allowed) vs CPU: " + ", ".join(
+            f"{k} {on_card[k]:.6f} / {on_cpu[k]:.6f} (|diff| {abs(on_card[k] - on_cpu[k]):.2e})"
+            for k in on_cpu))
+
+        # 10e. the mesh through the density-only kernel
+        F.reset_launches()
+        t0 = time.perf_counter()
+        verts, faces = extract_mesh(cfg, variables, ctx, radius=MESH_RADIUS, res=MESH_RES,
+                                    threshold=0.0)
+        mesh_s = time.perf_counter() - t0
+        launched("extract_mesh", {"field": 1})
+        grid_k = render_mesh_density(cfg, variables, ctx, radius=MESH_RADIUS, res=MESH_RES)
+        grid_p = render_mesh_density(cfg, variables, ctx, radius=MESH_RADIUS, res=MESH_RES,
+                                     use_fused=False)
+        check(tuple(grid_k.shape) == (MESH_RES + 1,) * 3, f"grid {tuple(grid_k.shape)}")
+        e_grid = compare("mesh grid sigma", grid_k, grid_p)
+        verts_p, faces_p = marching_tetrahedra(grid_p.cpu().numpy(), iso=0.0)
+        check(len(faces) > 0 and bool(np.isfinite(verts).all()), "extract_mesh: no surface")
+        grid_ms = cuda_ms(lambda: render_mesh_density(cfg, variables, ctx, radius=MESH_RADIUS,
+                                                      res=MESH_RES), 10)
+        pts = (torch.stack(torch.meshgrid(*[torch.linspace(-MESH_RADIUS, MESH_RADIUS, MESH_RES + 1,
+                                                           device=DEVICE)] * 3, indexing="xy"),
+                           -1).reshape(-1, 3) + ctx.kps[0, 0]).contiguous()
+        pose = F.pack_pose(ctx.skts[0], variables["embed_kp"], cfg.multires, cfg.multires_views)
+        net_f = F.prepare_net(variables["fine"], L)
+        zeros = torch.zeros_like(pts)
+        kern_ms = cuda_ms(lambda: F.fused_field(pts, zeros, 1, pose, net_f, True), 10)
+        print(f"extract_mesh res {MESH_RES} ({pts.shape[0]} probe points, launches field 1): "
+              f"{len(verts)} vertices / {len(faces)} faces (plain route: {len(verts_p)} / "
+              f"{len(faces_p)}); grid sigma vs plain max|diff| {e_grid:.3e}, relative L2 "
+              f"{rel_l2(grid_k, grid_p):.3e}; {mesh_s:.3f} s a mesh, grid {grid_ms:.3f} ms, "
+              f"density-only kernel {kern_ms:.3f} ms [{card}]")
+    return main_launches
 
 
 if __name__ == "__main__":

@@ -141,13 +141,21 @@ def get_near_far_in_cylinder(
     the mean near/far of the rays that hit it (the reference's NaN repair),
     or keep the originals when every ray misses.
     """
-    g = list(g_axes)
     shape = (*rays_o.shape[:-1], 1)
-    near = torch.as_tensor(near, dtype=rays_o.dtype, device=rays_o.device).expand(shape)
-    far = torch.as_tensor(far, dtype=rays_o.dtype, device=rays_o.device).expand(shape)
+    # no host data reaches the card here (the render dispatches chunk after
+    # chunk without a stream synchronisation): a float fills on the device
+    # and the ground axes are picked by integer indices, where
+    # torch.as_tensor of a float or a list index is a host tensor that is
+    # copied to the card and waited for
+    near, far = (torch.full(shape, float(v), dtype=rays_o.dtype, device=rays_o.device)
+                 if isinstance(v, (int, float)) else v.to(rays_o.dtype).expand(shape)
+                 for v in (near, far))
 
-    r_near = (rays_o + rays_d * near)[..., g]
-    r_far = (rays_o + rays_d * far)[..., g]
+    def ground(x):
+        return torch.stack([x[..., g_axes[0]], x[..., g_axes[1]]], dim=-1)
+
+    r_near = ground(rays_o + rays_d * near)
+    r_far = ground(rays_o + rays_d * far)
 
     radius = cyl[..., 2:3]
     center = cyl[..., :2]
@@ -155,7 +163,7 @@ def get_near_far_in_cylinder(
     nc = center - r_near
     nf = r_far - r_near
     nf_norm = torch.linalg.norm(nf, dim=-1)
-    scale = torch.linalg.norm(rays_d[..., g], dim=-1, keepdim=True)
+    scale = torch.linalg.norm(ground(rays_d), dim=-1, keepdim=True)
 
     cross = nc[..., 0] * nf[..., 1] - nc[..., 1] * nf[..., 0]
     dist = (torch.abs(cross) / nf_norm)[..., None]

@@ -465,3 +465,58 @@ def _collect(ret: Dict[str, torch.Tensor],
             acc0=ret0["acc_map"], alpha0=ret0["alpha"],
         )
     return out
+
+
+def render_pts_density(
+    cfg: RaycastConfig,
+    params: Dict[str, Any],
+    pts: torch.Tensor,
+    ctx: PoseCtx,
+    use_fine: bool = True,
+    use_fused=None,
+) -> torch.Tensor:
+    """Raw density at arbitrary points (mesh extraction / density probes,
+    reference raycasters.py:580-648). pts: (N, S, 3) -> (N, S, 1): the
+    alpha head's output (the output head's sigma without view directions).
+
+    use_fused (render_rays' rule): on CUDA tensors whose config and pose
+    pass the gate, kernel 2's density-only mode (`fused_run_net(...,
+    density_only=True)`, the same function with bf16 weights; on the CPU
+    its plain version); else the plain trunk + alpha head, as the JAX
+    package evaluates it."""
+    net = params.get("fine", params["coarse"]) if use_fine else params["coarse"]
+    dirs = torch.zeros((pts.shape[0], 3), dtype=pts.dtype, device=pts.device)
+    if use_fused is True or (use_fused is None and pts.is_cuda):
+        reason = fused.fused_disqualification(cfg, ctx, net)
+        use_fused = reason is None
+        if reason is not None:
+            fused.warn_fused_fallback("render_pts_density", reason)
+    if use_fused:
+        raw = fused.fused_run_net(cfg, net, params["embed_kp"], pts, dirs, ctx, density_only=True,
+                                  view_embed_state=params.get("embed_view"))
+        return raw[..., 3:4]
+    x_pts, _, _ = encode_inputs(cfg, params, pts, dirs, ctx)
+    h = nerf_mod.forward_density(cfg.nerf_cfg, net, x_pts)
+    if cfg.use_viewdirs:
+        return nerf_mod.linear(net["alpha_linear"], h)
+    return nerf_mod.linear(net["output_linear"], h)[..., 3:4]
+
+
+def render_mesh_density(
+    cfg: RaycastConfig,
+    params: Dict[str, Any],
+    ctx: PoseCtx,
+    radius: float = 1.0,
+    res: int = 64,
+    use_fused=None,
+) -> torch.Tensor:
+    """Density on a (res+1)^3 grid centred at the root joint, on the
+    context's device (reference raycasters.py:579-595). Returns
+    (res+1, res+1, res+1), axes in the JAX package's order: the "xy"
+    meshgrid's first two swapped back."""
+    t = torch.linspace(-radius, radius, res + 1, device=ctx.kps.device)
+    grid = torch.stack(torch.meshgrid(t, t, t, indexing="xy"), dim=-1).reshape(-1, 1, 3)
+    grid = grid + ctx.kps[0, 0]
+    sigma = render_pts_density(cfg, params, grid, ctx, use_fused=use_fused)
+    side = res + 1
+    return sigma.reshape(side, side, side).permute(1, 0, 2)
