@@ -130,8 +130,31 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               frames on the card against the CPU to 1e-5 with cuDNN's TF32
               on; extract_mesh at res 64 through the density-only kernel
               (one field launch), its sigma grid against render_mesh_density's
-              plain route by the elementwise rule of phase 2.
+              plain route by the elementwise rule of phase 2;
+ 11. gan      the GAN + SPIN feedback loop at full width (posegen_tpu_torch/
+              gen/loop.py): GanTrainer with GenConfig(), the ResNet-50 HMR at
+              224 (seed 2) and NeRFRenderer on phase 10's restored variables
+              (512 x 512, focal 1000, chunk 8192, window (100, 412)), 20
+              renders an iteration, feedback at every iteration, D every 2,
+              real-pose batches of 1024 (N(0, 0.2^2) bones, numpy seed 0):
+              (a) 4 feedback iterations, each with one dual and one field
+              launch per chunk of its 20 windowed frames, SPIN's (20, 14, 3)
+              joints and every G / D stat finite, the generator's params
+              moved; (b) SPIN's forward on those frames against the CPU's to
+              relative L2 <= 1e-4 with cuDNN's TF32 off (with it on, the
+              figure printed); (c) one G step with feedback active and one D
+              step against the CPU's on the same noises and inputs, losses to
+              1e-4 relative, Adam's moments to 1e-3 relative L2; (d) one SPIN
+              fine-tune step on 4 rendered crops with fixed dropout masks,
+              loss and gradients to 1e-2 relative L2 against the CPU's; (e)
+              the trainer's checkpoint round trip bit-equal; (f)
+              probe_hardness finite. Times beside the card: host-clock
+              iterations with and without feedback (10 of each, in turns),
+              the feedback render's frames/s, a feedback iteration's device
+              time under the profiler (dual, field, convolutions, the rest,
+              idle share) and the fine-tune step at batch 32.
 
+Before phase 1 it prints whether h5py and imageio import (information only).
 The last two lines of standard output are one JSON object of per-kernel
 numbers and one JSON object naming the device. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -143,6 +166,7 @@ import ctypes
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -227,6 +251,18 @@ COMPARE_FRAMES = 2  # the pipelined call's frames held to the plain pipeline
 BULLET_DIST = 10.0
 METRIC_TOL = 1e-5  # psnr / ssim / ms_ssim, card vs CPU
 MESH_RES, MESH_RADIUS = 64, 2.5  # the probe grid covers the body (radius 2.2)
+# phase 11: the GAN + SPIN feedback loop (posegen_tpu/gen/loop.py) at full
+# width: RaycastConfig(), the ResNet-50 HMR at 224, GenConfig()
+GAN_BATCH = 1024  # run_gan's default --batch_size (posegen_tpu/cli/run_gan.py:48)
+GAN_RPI = 20  # renders per feedback iteration (GanLoopConfig.rpi)
+GAN_FEEDBACK_ITERS = 4  # checked feedback iterations
+GAN_TIMED = 10  # timed iterations of each arm, with and without feedback
+SPIN_FT_BATCH = 32  # train_spin's default batch (posegen_tpu/gen/spin_driver.py)
+SPIN_FT_CHECK = 4  # crops of the fine-tune step held card vs CPU
+SPIN_TOL = 1e-4  # SPIN's joints, card (cuDNN TF32 off) vs CPU: relative L2
+GAN_LOSS_TOL = 1e-4  # G / D losses, card vs CPU: relative
+GAN_MOMENT_TOL = 1e-3  # G / D Adam moments, card vs CPU: relative L2
+SPIN_FT_TOL = 1e-2  # the fine-tune step's loss and gradients, card vs CPU: relative L2
 DEVICE = "cuda"
 # weight seed: with seed 1 the random nets give the 8192-ray render partial
 # opacity (mean fine acc ~0.3, coarse ~1), so the render comparison is not
@@ -250,6 +286,16 @@ def card_line() -> str:
     )
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
+
+
+def module_version(name: str) -> str:
+    """A module's version, or why it does not import."""
+    import importlib
+
+    try:
+        return "imports, version " + str(getattr(importlib.import_module(name), "__version__", "?"))
+    except ImportError as e:
+        return f"does not import ({e})"
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -496,6 +542,8 @@ def run(torch) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    print("modules (information only): " + ", ".join(
+        f"{name} {module_version(name)}" for name in ("h5py", "imageio")))
 
     # 1. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -675,7 +723,10 @@ def run(torch) -> int:
     train_rows, train_err, train_launches, train_library, train_floors = train_phases(torch, card)
     pose_row, pose_err, pose_launches = pose_phases(torch, card)
     variant_row, variant_err, variant_launches = variant_phases(torch, card)
-    for k, n in image_phases(torch, card, render_ms).items():
+    image_launches, variables = image_phases(torch, card, render_ms)
+    for k, n in image_launches.items():
+        launches[k] += n
+    for k, n in gan_phases(torch, card, variables).items():
         launches[k] += n
 
     by_name = {(r[0], r[1]): r for r in rows}
@@ -1531,8 +1582,9 @@ def far_sigma_straddles(torch, F, cfg, variables, ctx, cam, n: int, chunk: int):
 def image_phases(torch, card: str, chunk_ms: float):
     """Phase 10, whole images: checkpoints, the feedback renderer's
     pipelined frames, one frame against the plain pipeline, the metrics on
-    the card against the CPU, and the mesh -> launches of the eval kernels
-    on its main path (the pipelined call, the kernel frame and the mesh)."""
+    the card against the CPU, and the mesh -> (launches of the eval kernels
+    on its main path (the pipelined call, the kernel frame and the mesh),
+    the render variables restored through both checkpoint formats)."""
     import dataclasses
     import statistics
     import tempfile
@@ -1829,6 +1881,274 @@ def image_phases(torch, card: str, chunk_ms: float):
               f"{len(faces_p)}); grid sigma vs plain max|diff| {e_grid:.3e}, relative L2 "
               f"{rel_l2(grid_k, grid_p):.3e}; {mesh_s:.3f} s a mesh, grid {grid_ms:.3f} ms, "
               f"density-only kernel {kern_ms:.3f} ms [{card}]")
+    return main_launches, variables
+
+
+def _tree_rel_l2(torch, got, ref) -> float:
+    """Relative L2 of two trees of tensors, all leaves together (ref's
+    device)."""
+    from posegen_tpu_torch.train.trainer import param_leaves
+
+    a = torch.cat([t.detach().reshape(-1).to(ref_t.device) for t, ref_t in
+                   zip(param_leaves(got), param_leaves(ref), strict=True)])
+    b = torch.cat([t.detach().reshape(-1) for t in param_leaves(ref)])
+    return rel_l2(a, b)
+
+
+def _to(torch, tree, device, grad: bool = False):
+    """A copy of a tree of tensors on `device` (trainable leaves when grad)."""
+    from posegen_tpu_torch.train.trainer import tree_map
+
+    return tree_map(lambda t: t.detach().to(device).clone().requires_grad_(grad), tree)
+
+
+def gan_phases(torch, card: str, variables):
+    """Phase 11, the GAN + SPIN feedback loop at full width: GanTrainer on
+    RaycastConfig()'s restored variables (phase 10), the ResNet-50 HMR at
+    224 (seed 2) and GenConfig(), on real-pose batches of GAN_BATCH ->
+    launches of the eval kernels on its main path (the checked feedback
+    iterations)."""
+    import dataclasses
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from posegen_tpu_torch.gen import loop as GL
+    from posegen_tpu_torch.gen.gan import FakePool
+    from posegen_tpu_torch.gen.generators import GenConfig, draw_noises
+    from posegen_tpu_torch.gen.hmr import dropout_masks, init_hmr
+    from posegen_tpu_torch.gen.spin_train import make_spin_finetune_step
+    from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.render import image as IMG
+    from posegen_tpu_torch.render.raycast import RaycastConfig
+    from posegen_tpu_torch.train.trainer import param_leaves
+
+    cfg = RaycastConfig()
+    renderer = GL.NeRFRenderer(cfg, variables, hw=FRAME_HW, focal=FRAME_FOCAL, chunk=FRAME_CHUNK)
+    spin_p, spin_s = init_hmr(torch.Generator().manual_seed(2), device=DEVICE)
+    loop_cfg = GL.GanLoopConfig(rpi=GAN_RPI, feedback_every=1, feedback_start_epoch=-1, df=2,
+                                crop=FRAME_WINDOW, feedback_crop=True)
+    gen_cfg = GenConfig()
+
+    def new_trainer():
+        return GL.GanTrainer(loop_cfg, renderer, spin_p, spin_s, gen_cfg=gen_cfg, device=DEVICE)
+
+    trainer = new_trainer()
+    real = (np.random.default_rng(0).standard_normal((GAN_BATCH, 24, 3)) * 0.2).astype(
+        np.float32)
+    # the feedback render's calls: each one's frames and expected chunks, and
+    # its host-clock seconds
+    renders = []
+    pipelined = GL.render_images_pipelined
+
+    def recorded(cfg_, params, H, W, focal, c2ws, ctxs, cyls, chunk, window=None, **kw):
+        n = [len(IMG.valid_box_for_pose(H, W, focal, c, cyl, window=window)[2])
+             for c, cyl in zip(c2ws, cyls)]
+        t0 = time.perf_counter()
+        frames = pipelined(cfg_, params, H, W, focal, c2ws, ctxs, cyls, chunk=chunk,
+                           window=window, **kw)
+        renders.append({"frames": frames, "chunks": sum(-(-k // chunk) for k in n),
+                        "rays": sum(n), "s": time.perf_counter() - t0})
+        return frames
+
+    spin_preds = []
+    feedback = trainer.spin_feedback
+
+    def spin_recorded(bones, sel):
+        spin_preds.append((bones[sel], feedback(bones, sel)))
+        return spin_preds[-1][1]
+
+    GL.render_images_pipelined = recorded
+    trainer.spin_feedback = spin_recorded
+    main_launches = {"dual": 0, "field": 0}
+    # the port's default precision: PyTorch's (cuDNN may use TF32; plain
+    # float32 products do not); the comparisons below turn TF32 off
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        # 11a. feedback iterations through the launch counters
+        g0 = [t.detach().clone() for t in param_leaves(trainer.g_params)]
+        for i in range(GAN_FEEDBACK_ITERS):
+            F.reset_launches()
+            stats = trainer.train_step(real)
+            torch.cuda.synchronize()
+            got = dict(F.LAUNCHES)
+            chunks = renders[-1]["chunks"]
+            want = {k: (chunks if k in ("dual", "field") else 0) for k in got}
+            check(got == want, f"GAN feedback iteration {i}: launches {got} != {want}")
+            for k in main_launches:
+                main_launches[k] += got[k]
+            pred = spin_preds[-1][1]
+            check(tuple(pred.shape) == (GAN_RPI, 14, 3) and bool(torch.isfinite(pred).all()),
+                  f"GAN feedback iteration {i}: spin_pred {tuple(pred.shape)}")
+            check(all(math.isfinite(v) for v in stats.values())
+                  and {"adv_loss", "spin_loss", "gen_loss"} <= set(stats),
+                  f"GAN feedback iteration {i}: stats {stats}")
+            check((i % 2 == 0) == ("dis_loss" in stats), f"iteration {i}: D step every 2")
+            print(f"gan feedback iteration {i}: {GAN_RPI} frames, {renders[-1]['rays']} rays, "
+                  f"{chunks} chunks, launches dual {got['dual']} field {got['field']}; "
+                  + ", ".join(f"{k} {v:.5f}" for k, v in sorted(stats.items())))
+        moved = max(float((a.detach() - b).abs().max())
+                    for a, b in zip(param_leaves(trainer.g_params), g0))
+        check(moved > 0.0, "GAN: the generator's params did not move")
+        frames = renders[-1]["frames"]
+        bones, spin_pred = spin_preds[-1]
+
+        # 11b. SPIN's forward on the last iteration's frames, card vs CPU
+        spin_cpu = (_to(torch, spin_p, "cpu"), _to(torch, spin_s, "cpu"))
+        ref = GL.spin_forward(*spin_cpu, frames, loop_cfg.crop, loop_cfg.pose_scale)
+        on_tf32 = rel_l2(GL.spin_forward(spin_p, spin_s, frames, loop_cfg.crop,
+                                         loop_cfg.pose_scale).cpu(), ref)
+        torch.backends.cudnn.allow_tf32 = False
+        strict = rel_l2(GL.spin_forward(spin_p, spin_s, frames, loop_cfg.crop,
+                                        loop_cfg.pose_scale).cpu(), ref)
+        check(strict <= SPIN_TOL, f"SPIN forward card vs CPU: {strict:.3e} > {SPIN_TOL}")
+        print(f"SPIN forward on the {GAN_RPI} frames, card vs CPU (float32): joints relative L2 "
+              f"{strict:.3e} with cuDNN TF32 off (bound {SPIN_TOL}), {on_tf32:.3e} with the "
+              f"port's default precision (TF32 allowed) [{card}]")
+
+        # 11c. one G step (feedback active) and one D step, card vs CPU, from
+        # the trainer's state, fresh optimiser states (mu = 0.1 x the clipped
+        # gradient), the same noises and inputs
+        noises = draw_noises(trainer.generator, GAN_BATCH, gen_cfg)
+        sel = torch.as_tensor(np.random.default_rng(99).integers(0, GAN_BATCH, (GAN_RPI,)))
+        real_t = torch.as_tensor(real)
+        fake = torch.as_tensor(FakePool(seed=1)(trainer._last_bones))
+        results = {}
+        for dev in (DEVICE, "cpu"):
+            gp = _to(torch, trainer.g_params, dev, grad=True)
+            dp = _to(torch, trainer.d_params, dev, grad=True)
+            g_opt, d_opt = trainer.g_opt.init(gp), trainer.d_opt.init(dp)
+            gp, _, g_opt, _, g_stats = trainer.g_step(
+                gp, _to(torch, trainer.g_state, dev), g_opt, dp, _to(torch, noises, dev),
+                real_t.to(dev), spin_pred.to(dev), sel.to(dev), 1.0)
+            dp, d_opt, d_stats = trainer.d_step(dp, d_opt, real_t.to(dev), fake.to(dev))
+            results[dev] = ({k: float(v) for k, v in {**g_stats, **d_stats}.items()},
+                            g_opt, d_opt)
+        (card_stats, g_card, d_card), (cpu_stats, g_cpu, d_cpu) = results[DEVICE], results["cpu"]
+        for k, v in cpu_stats.items():
+            check(abs(card_stats[k] - v) <= GAN_LOSS_TOL * max(abs(v), 1e-30),
+                  f"GAN step {k}: card {card_stats[k]!r} vs CPU {v!r}")
+        moment_err = max(_tree_rel_l2(torch, getattr(a, m), getattr(b, m))
+                         for a, b in ((g_card, g_cpu), (d_card, d_cpu)) for m in ("mu", "nu"))
+        check(moment_err <= GAN_MOMENT_TOL,
+              f"GAN steps' Adam moments, card vs CPU: {moment_err:.3e} > {GAN_MOMENT_TOL}")
+        print("G step (feedback active) and D step, card vs CPU: " + ", ".join(
+            f"{k} {card_stats[k]:.6f} / {v:.6f}" for k, v in sorted(cpu_stats.items()))
+            + f"; Adam moments relative L2 <= {moment_err:.3e} (bound {GAN_MOMENT_TOL})")
+
+        # 11d. one SPIN fine-tune step on rendered crops, card vs CPU, fixed
+        # dropout masks; no hinge (random SPIN weights miss every render by
+        # more than the hinge keeps, and a hinged loss of 0 compares nothing)
+        ft_opt, ft_step = make_spin_finetune_step(hinge=None)
+        gt = GL.fk_joints(torch.as_tensor(bones[:SPIN_FT_CHECK]), loop_cfg.pose_scale)
+        imgs = GL.prepare_spin_input(frames[:SPIN_FT_CHECK], loop_cfg.crop, "cpu")
+        masks = dropout_masks(torch.Generator().manual_seed(3), SPIN_FT_CHECK)
+        ft = {}
+        for dev in (DEVICE, "cpu"):
+            p = _to(torch, spin_p, dev, grad=True)
+            st = ft_opt.init(p)
+            _, st, out = ft_step(p, _to(torch, spin_s, dev), st, imgs.to(dev), gt.to(dev),
+                                 _to(torch, masks, dev))
+            ft[dev] = (float(out["spin_loss"]), st)
+        (loss_card, st_card), (loss_cpu, st_cpu) = ft[DEVICE], ft["cpu"]
+        loss_err = abs(loss_card - loss_cpu) / max(abs(loss_cpu), 1e-30)
+        grad_err = _tree_rel_l2(torch, st_card.mu, st_cpu.mu)
+        check(loss_err <= SPIN_FT_TOL and grad_err <= SPIN_FT_TOL,
+              f"SPIN fine-tune step, card vs CPU: loss {loss_err:.3e}, gradients {grad_err:.3e} "
+              f"> {SPIN_FT_TOL}")
+        print(f"SPIN fine-tune step on {SPIN_FT_CHECK} rendered crops, card vs CPU (cuDNN TF32 "
+              f"off): loss {loss_card:.6f} / {loss_cpu:.6f} (relative {loss_err:.3e}), gradients "
+              f"relative L2 {grad_err:.3e} (bound {SPIN_FT_TOL})")
+        torch.backends.cudnn.allow_tf32 = True
+
+        # 11e. the checkpoint round trip, bit-equal on the card
+        with tempfile.TemporaryDirectory() as tmp:
+            path = trainer.save_checkpoint(os.path.join(tmp, "gan.npz"))
+            restored = new_trainer().load_checkpoint(path)
+        pairs = [(a, b) for name in ("g_params", "g_state", "d_params")
+                 for a, b in zip(param_leaves(getattr(restored, name)),
+                                 param_leaves(getattr(trainer, name)), strict=True)]
+        for name in ("g_opt_state", "d_opt_state"):
+            a, b = getattr(restored, name), getattr(trainer, name)
+            check(a.count == b.count, f"checkpoint: {name} count {a.count} != {b.count}")
+            pairs += list(zip(param_leaves([a.mu, a.nu]), param_leaves([b.mu, b.nu]), strict=True))
+        check(all(a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+                  for a, b in pairs)
+              and torch.equal(restored.generator.get_state(), trainer.generator.get_state())
+              and restored.fake_pool.rng.bit_generator.state
+              == trainer.fake_pool.rng.bit_generator.state
+              and np.array_equal(np.stack(restored.fake_pool.items),
+                                 np.stack(trainer.fake_pool.items))
+              and (restored.iter_num, restored.epoch) == (trainer.iter_num, trainer.epoch),
+              "GanTrainer checkpoint: the state does not come back bit-equal")
+        print(f"GanTrainer checkpoint: {len(pairs)} tensors (G / D params, BN state, both Adam "
+              f"states), the fake pool ({len(trainer.fake_pool.items)} poses) and every RNG state "
+              "bit-equal after save / load_checkpoint, on the card")
+
+        # 11f. the hardness probe
+        probe_noises = draw_noises(torch.Generator(device=DEVICE).manual_seed(7), GAN_RPI,
+                                   gen_cfg)
+        hardness = GL.probe_hardness(trainer, real[:GAN_RPI], probe_noises)
+        check(math.isfinite(hardness), f"probe_hardness {hardness}")
+        print(f"probe_hardness on {GAN_RPI} fixed poses and noises: {hardness:.6f}")
+
+        # times: host-clock iterations with and without feedback, in turns
+        no_feedback = dataclasses.replace(loop_cfg, feedback_start_epoch=1 << 30)
+        with_s, without_s = [], []
+        n_renders = len(renders)
+        for i in range(GAN_TIMED):
+            for fb in ((True, False) if i % 2 == 0 else (False, True)):
+                trainer.cfg = loop_cfg if fb else no_feedback
+                t0 = time.perf_counter()
+                trainer.train_step(real)
+                torch.cuda.synchronize()
+                (with_s if fb else without_s).append(time.perf_counter() - t0)
+        trainer.cfg = loop_cfg
+        render_s = [r["s"] for r in renders[n_renders:]]
+
+        def spread(ts):
+            ms = sorted(1e3 * t for t in ts)
+            return f"{statistics.median(ms):.3f} [{ms[0]:.3f}, {ms[-1]:.3f}]"
+
+        print(f"timing GAN iteration (batch {GAN_BATCH}, {GAN_TIMED} of each, median [min, max] "
+              f"ms): without feedback {spread(without_s)}, with feedback {spread(with_s)} "
+              f"[{card}]")
+        print(f"  feedback render ({GAN_RPI} frames of {FRAME_HW}^2, window {FRAME_WINDOW}, "
+              f"f16 readback): {spread(render_s)} ms a call, "
+              f"{GAN_RPI / statistics.median(render_s):.3f} frames/s [{card}]")
+        wall, dev_ms, kern = profile_calls(torch, lambda: trainer.train_step(real), 1)
+        # the eval kernel's modes by the profiler's (demangled) name:
+        # eval_sm90_kernel<2> the dual, <0> the full field
+        mode_ms = lambda m: sum(k[1] for k in kern if re.search(  # noqa: E731
+            rf"eval_sm90_kernel(<|ILi){m}(?![0-9])", k[0]))
+        dual_ms, field_ms = mode_ms(2), mode_ms(0)
+        conv_ms = sum(k[1] for k in kern if any(
+            w in k[0].lower() for w in ("conv", "fprop", "cudnn", "winograd", "implicit")))
+        check(dual_ms > 0.0 and field_ms > 0.0 and conv_ms > 0.0,
+              f"profiler: dual {dual_ms}, field {field_ms}, convolutions {conv_ms} ms among "
+              + "; ".join(k[0][:60] for k in kern[:8]))
+        print(f"  a feedback iteration under torch.profiler: {wall:.3f} ms, device kernels "
+              f"{dev_ms:.3f} ms (dual {dual_ms:.3f}, field {field_ms:.3f}, convolutions "
+              f"{conv_ms:.3f}, the rest {dev_ms - dual_ms - field_ms - conv_ms:.3f}), idle "
+              f"{1.0 - dev_ms / wall:.1%}; " + ", ".join(
+                  f"{name[:40]} {ms:.3f} ms x{n:.0f}" for name, ms, n in kern[:6]) + f" [{card}]")
+
+        # the SPIN fine-tune step at train_spin's batch, on the card
+        reps = -(-SPIN_FT_BATCH // len(frames))
+        batch = np.concatenate([frames] * reps)[:SPIN_FT_BATCH]
+        gt32 = GL.fk_joints(torch.as_tensor(np.concatenate([bones] * reps)[:SPIN_FT_BATCH]),
+                            loop_cfg.pose_scale).to(DEVICE)
+        x32 = GL.prepare_spin_input(batch, loop_cfg.crop, DEVICE)
+        p = _to(torch, spin_p, DEVICE, grad=True)
+        st = ft_opt.init(p)
+        masks = dropout_masks(torch.Generator(device=DEVICE).manual_seed(4), SPIN_FT_BATCH)
+        ft_ms = cuda_ms(lambda: ft_step(p, spin_s, st, x32, gt32, masks), 5)
+        print(f"timing SPIN fine-tune step (batch {SPIN_FT_BATCH}, 224^2, BN frozen): "
+              f"{ft_ms:.3f} ms [{card}]")
+    finally:
+        GL.render_images_pipelined = pipelined
+        torch.backends.cudnn.allow_tf32 = False
     return main_launches
 
 

@@ -30,7 +30,10 @@ import numpy as np
 import torch
 
 from posegen_tpu_torch.device import resolve_device
-from posegen_tpu_torch.train.trainer import PoseOptState, TrainState, param_leaves, trainable
+from posegen_tpu_torch.train.trainer import (
+    PoseOptState, TrainState, param_leaves, trainable, tree_map,
+)
+from posegen_tpu_torch.utils.torch_import import t_linear
 
 # ---------------------------------------------------------------------------
 # native npz checkpoints
@@ -81,14 +84,6 @@ def _unflatten_into(template: Any, flat: Dict[str, np.ndarray], prefix: str = ""
     return torch.as_tensor(_get(flat, prefix)).to(device=template.device, dtype=template.dtype)
 
 
-def _map_tree(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_tree(fn, v) for v in tree)
-    return fn(tree)
-
-
 def _nerf_adam_prefix(opt: Optional[torch.optim.Adam]) -> Optional[str]:
     """Where optax keeps the NeRF Adam's state in a JAX TrainState:
     `nerf_optimizer` builds optax.adam with a schedule, a chain whose state is
@@ -130,7 +125,7 @@ def _state_flat(state: TrainState) -> Dict[str, np.ndarray]:
     opt = state.opt_state
     prefix = _nerf_adam_prefix(opt)
     if prefix is not None:
-        moment = lambda key: _map_tree(  # noqa: E731
+        moment = lambda key: tree_map(  # noqa: E731
             lambda p: opt.state[p][key] if p in opt.state else torch.zeros_like(p), state.params)
         steps = [opt.state[p]["step"] for p in param_leaves(state.params) if p in opt.state]
         count = int(steps[0]) if steps else 0
@@ -209,11 +204,6 @@ def _f32(a) -> torch.Tensor:
     return torch.as_tensor(a).detach().to("cpu", torch.float32)
 
 
-def _torch_linear(sd: Dict, name: str, dev) -> Dict[str, torch.Tensor]:
-    return {"w": _f32(sd[f"{name}.weight"]).t().contiguous().to(dev),  # (out,in) -> (in,out)
-            "b": _f32(sd[f"{name}.bias"]).to(dev)}
-
-
 def _import_nerf_net(sd: Dict, dev) -> Dict[str, Any]:
     """One reference NeRF state dict -> the params subtree
     (param names from reference core/networks/nerf.py:46-88)."""
@@ -221,16 +211,16 @@ def _import_nerf_net(sd: Dict, dev) -> Dict[str, Any]:
         int(m.group(1)) for k in sd if (m := re.match(r"pts_linears\.(\d+)\.weight", k))
     )
     params: Dict[str, Any] = {
-        "pts_linears": [_torch_linear(sd, f"pts_linears.{i}", dev) for i in range(n_layers)]
+        "pts_linears": [t_linear(sd, f"pts_linears.{i}", dev) for i in range(n_layers)]
     }
     for name in ("alpha_linear", "feature_linear", "rgb_linear", "output_linear"):
         if f"{name}.weight" in sd:
-            params[name] = _torch_linear(sd, name, dev)
+            params[name] = t_linear(sd, name, dev)
     view_idxs = sorted(
         int(m.group(1)) for k in sd if (m := re.match(r"views_linears\.(\d+)\.weight", k))
     )
     if view_idxs:
-        params["views_linears"] = [_torch_linear(sd, f"views_linears.{i}", dev)
+        params["views_linears"] = [t_linear(sd, f"views_linears.{i}", dev)
                                    for i in view_idxs]
     if "framecodes.codes.weight" in sd:
         params["framecodes"] = _f32(sd["framecodes.codes.weight"]).to(dev)

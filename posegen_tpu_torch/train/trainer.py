@@ -113,13 +113,18 @@ def param_leaves(tree) -> List[torch.Tensor]:
     return [tree]
 
 
+def tree_map(fn, tree):
+    """The same tree of dicts, lists and tuples with fn applied to each leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
 def trainable(tree):
     """The same tree of detached float32 copies that require grad."""
-    if isinstance(tree, dict):
-        return {k: trainable(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(trainable(v) for v in tree)
-    return tree.detach().float().clone().requires_grad_(True)
+    return tree_map(lambda t: t.detach().float().clone().requires_grad_(True), tree)
 
 
 def _split_variables(variables: Dict[str, Any]) -> Tuple[Dict, Dict]:

@@ -95,3 +95,36 @@ def train_state_from_numpy(state, tcfg, device):
                       embeds=params_from_numpy(state.embeds, device), opt_state=opt,
                       pose_params=pose_params, pose_anchors=pose_anchors,
                       pose_opt_state=pose_opt)
+
+
+# ---------------------------------------------------------------------------
+# the pose GAN and HMR (gen/)
+# ---------------------------------------------------------------------------
+
+def generator_from_numpy(params, state, device):
+    """A posegen_tpu pose generator's (params, bn_state) -> the port's: the
+    same trees (linear weights (in, out)), the params trainable."""
+    from posegen_tpu_torch.train.trainer import trainable
+
+    return trainable(params_from_numpy(params, device)), params_from_numpy(state, device)
+
+
+def discriminator_from_numpy(params, device):
+    """A posegen_tpu discriminator's params -> the port's, trainable."""
+    from posegen_tpu_torch.train.trainer import trainable
+
+    return trainable(params_from_numpy(params, device))
+
+
+def hmr_from_numpy(params, state, device):
+    """A posegen_tpu HMR's (params, bn_state) -> the port's: the conv
+    weights from JAX's HWIO to PyTorch's OIHW (the only 4-D leaves), the
+    params trainable."""
+    from posegen_tpu_torch.train.trainer import trainable, tree_map
+
+    def leaf(a):
+        a = np.asarray(a)
+        return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a
+
+    return (trainable(params_from_numpy(tree_map(leaf, params), device)),
+            params_from_numpy(state, device))
