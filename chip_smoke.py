@@ -153,6 +153,30 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               the feedback render's frames/s, a feedback iteration's device
               time under the profiler (dual, field, convolutions, the rest,
               idle share) and the fine-tune step at batch 32.
+ 12. cli      train a NeRF through the CLI from H5 files
+              (posegen_tpu_torch/cli/run_nerf.py, data/): (a) make_synthetic_h5
+              writes a SURREAL-shaped file (128 images of 512^2, 128 poses,
+              one background plate) at DATASET_CATALOG["surreal"]["female"]'s
+              path through the port's own HDF5 writer, read_h5 reads every key
+              back bit-equal, H5RayDataset takes the memmap fast path and its
+              batches come from the native sampler; the write's seconds and
+              bytes, the open's ms, make_batch's ms (median of 50) on the
+              native and the numpy path, and a pinned batch's upload; (b)
+              run_nerf.train on configs/surreal/surreal.txt at full width with
+              only the data root, basedir, --n_iters 200, --i_testset 200,
+              --i_weights 200, --i_print 50 and --i_video 0 overridden: each
+              step launches field_stash 2, field_bwd 2 and no other kernel,
+              evaluate_testset one dual and one field launch per chunk of its
+              2 val frames, every printed loss finite, psnr.txt and ssim.txt
+              written, the checkpoint bit-equal through a fresh state, and a
+              resume for one more step starts at step 200; (c) configs/h36m/
+              h36m_prot2.txt (opt_pose, render_factor 2) on a synthetic file
+              at h36m's S9 path, 256 images cut to 256^2, 30 steps, each with
+              pass (c)'s 2 launches besides, finite losses, the pose
+              checkpoint written and loaded back; (d) the CLI's trained
+              rays/s by the host clock over steps 51-200 beside phase 6's bare
+              step, the seconds per val frame and the profiler's idle share
+              over steps 21-40.
 
 Before phase 1 it prints whether h5py and imageio import (information only).
 The last two lines of standard output are one JSON object of per-kernel
@@ -263,6 +287,19 @@ SPIN_TOL = 1e-4  # SPIN's joints, card (cuDNN TF32 off) vs CPU: relative L2
 GAN_LOSS_TOL = 1e-4  # G / D losses, card vs CPU: relative
 GAN_MOMENT_TOL = 1e-3  # G / D Adam moments, card vs CPU: relative L2
 SPIN_FT_TOL = 1e-2  # the fine-tune step's loss and gradients, card vs CPU: relative L2
+# phase 12: train a NeRF through the CLI (posegen_tpu_torch/cli/run_nerf.py)
+# from synthetic H5 files at the catalog's paths
+CLI_IMAGES, CLI_HW, CLI_FOCAL = 128, 512, 640.0  # SURREAL-shaped: 128 images of 512^2
+CLI_ITERS = 200
+CLI_TIMED = (50, 200)  # steps 51-200, timed by the host clock
+CLI_PROFILED = (20, 40)  # steps 21-40, under the profiler
+BATCH_TIMED = 50  # make_batch calls timed on each sampler path
+UPLOADS_TIMED = 20
+# the opt_pose run: h36m's S9 file, cut to 256^2 (h36m's crops are 1000^2)
+POSE_CLI_IMAGES, POSE_CLI_HW, POSE_CLI_FOCAL, POSE_CLI_ITERS = 256, 256, 320.0, 30
+STEP_LAUNCHES = {"field_stash": 2, "field_bwd": 2}  # a train step's, besides zeros
+# figures that a later phase reads: phase 6's bare train step
+TIMES = {}
 DEVICE = "cuda"
 # weight seed: with seed 1 the random nets give the 8192-ray render partial
 # opacity (mean fine acc ~0.3, coarse ~1), so the render comparison is not
@@ -546,6 +583,12 @@ def run(torch) -> int:
         f"{name} {module_version(name)}" for name in ("h5py", "imageio")))
 
     # 1. build -------------------------------------------------------------
+    from posegen_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    native.get_lib()
+    print(f"build: the native sampler {time.perf_counter() - t0:.1f} s "
+          f"({native.library_path().name})")
     t0 = time.perf_counter()
     build.load()
     print(f"build: {time.perf_counter() - t0:.1f} s ({build.library_path().name})")
@@ -728,6 +771,12 @@ def run(torch) -> int:
         launches[k] += n
     for k, n in gan_phases(torch, card, variables).items():
         launches[k] += n
+    cli_launches = cli_phases(torch, card)
+    for k in launches:
+        launches[k] += cli_launches[k]
+    for k in ("field_stash", "field_bwd"):
+        train_launches[k] += cli_launches[k]
+    pose_launches += cli_launches["field_bwd_inputs"]
 
     by_name = {(r[0], r[1]): r for r in rows}
     kernels = []
@@ -980,6 +1029,7 @@ def train_phases(torch, card: str):
     ms = cuda_ms(lambda: step_t(state_t, batch, gen), TRAIN_ITERS)
     print(f"timing train step: {ms:.3f} ms per {n_rays} rays, {n_rays / ms * 1e3:.1f} trained "
           f"rays/s [{card}]")
+    TIMES["train_step_ms"] = ms
     wall, busy, top = profile_calls(torch, lambda: step_t(state_t, batch, gen), 3)
     if busy > 0.0:
         print(f"profile train step (torch.profiler, 3 steps): {wall:.3f} ms per step, device "
@@ -2149,6 +2199,318 @@ def gan_phases(torch, card: str, variables):
     finally:
         GL.render_images_pipelined = pipelined
         torch.backends.cudnn.allow_tf32 = False
+    return main_launches
+
+
+def _steps_window(torch, F, TR, rec):
+    """Wrap trainer.make_train_step so that each step the CLI builds checks
+    its launch counts, and the steps in CLI_TIMED / CLI_PROFILED are timed
+    by the host clock and profiled."""
+    real = TR.make_train_step
+
+    def make(*args, **kwargs):
+        step = real(*args, **kwargs)
+
+        def counted(state, batch, generator=None):
+            i = state.step
+            rec.setdefault("first", i)
+            if i == CLI_TIMED[0]:
+                torch.cuda.synchronize()
+                rec["t0"] = time.perf_counter()
+            if i == CLI_PROFILED[0] and rec.get("prof") is not None:
+                torch.cuda.synchronize()
+                rec["prof"].start()
+                rec["p0"] = time.perf_counter()
+            before = dict(F.LAUNCHES)
+            state, stats = step(state, batch, generator)
+            got = {k: F.LAUNCHES[k] - before[k] for k in before}
+            want = {k: rec["want"].get(k, 0) for k in got}
+            check(got == want, f"CLI step {i + 1}: launches {got} != {want}")
+            rec["steps"] += 1
+            if i + 1 == CLI_PROFILED[1] and rec.get("prof") is not None:
+                torch.cuda.synchronize()
+                rec["p1"] = time.perf_counter()
+                rec["prof"].stop()
+            if i + 1 == CLI_TIMED[1]:
+                torch.cuda.synchronize()
+                rec["t1"] = time.perf_counter()
+            return state, stats
+
+        return counted
+
+    return real, make
+
+
+def _eval_window(torch, F, IMG, RN, rec):
+    """Wrap run_nerf.evaluate_testset: each call's frames, chunks (the
+    render's calls of image._eval_maps), launches and seconds."""
+    real_eval, real_maps = RN.evaluate_testset, IMG._eval_maps
+
+    def maps(*args, **kwargs):
+        rec["chunks"] += 1
+        return real_maps(*args, **kwargs)
+
+    def evaluate(cfg, state, render_data, *args, **kwargs):
+        rec["chunks"] = 0
+        torch.cuda.synchronize()
+        before, t0 = dict(F.LAUNCHES), time.perf_counter()
+        out = real_eval(cfg, state, render_data, *args, **kwargs)
+        torch.cuda.synchronize()
+        rec["s"] = time.perf_counter() - t0
+        rec["frames"] = render_data["imgs"].shape[0]
+        rec["launches"] = {k: F.LAUNCHES[k] - before[k] for k in before}
+        rec["calls"] += 1
+        return out
+
+    IMG._eval_maps = maps
+    return (real_eval, real_maps), evaluate
+
+
+def _train_cli(torch, RN, argv):
+    """run_nerf.train(argv) on the card with its output captured (and
+    echoed) -> (log dir, every printed loss)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            log_dir = RN.train(argv, device=DEVICE)
+    finally:
+        out = buf.getvalue()
+        print("\n".join("  | " + line for line in out.splitlines()[-12:]))
+    losses = [float(m) for m in re.findall(r"^iter \d+: loss (\S+)", out, re.M)]
+    return log_dir, losses, out
+
+
+def cli_phases(torch, card: str):
+    """Phase 12, the CLI: a SURREAL-shaped H5 written and read by the
+    port's own HDF5 code, configs/surreal/surreal.txt trained through
+    run_nerf.train for CLI_ITERS steps with its val frames, the checkpoint
+    and the resume, then configs/h36m/h36m_prot2.txt's pose refinement ->
+    launches of every kernel on its main path (both runs' steps and val
+    renders)."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from posegen_tpu_torch.cli import run_nerf as RN
+    from posegen_tpu_torch.cli.config import (
+        args_to_raycast_config, args_to_train_config, nerf_config_parser, parse_with_config,
+    )
+    from posegen_tpu_torch.data import catalog as CAT
+    from posegen_tpu_torch.data import h5dataset as H5D
+    from posegen_tpu_torch.data import native as NAT
+    from posegen_tpu_torch.data import writer as WR
+    from posegen_tpu_torch.data.hdf5 import read_h5
+    from posegen_tpu_torch.data.synthetic import make_synthetic_h5
+    from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.render import image as IMG
+    from posegen_tpu_torch.render.raycast import init_raycaster
+    from posegen_tpu_torch.train import checkpoints as CK
+    from posegen_tpu_torch.train import trainer as TR
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    main_launches = {k: 0 for k in F.LAUNCHES}
+    steps = {"steps": 0, "want": STEP_LAUNCHES}
+    evals = {"calls": 0}
+    real_make, counted_make = _steps_window(torch, F, TR, steps)
+    (real_eval, real_maps), counted_eval = _eval_window(torch, F, IMG, RN, evals)
+    TR.make_train_step, RN.evaluate_testset = counted_make, counted_eval
+    try:
+        # 12a. the data: written and read back by the port's HDF5 code ----
+        path = CAT.resolve_h5_path(CAT.DataConfig(dataset="surreal", subject="female",
+                                                  data_root=tmp))
+        os.makedirs(os.path.dirname(path))
+        written, real_write = {}, WR.write_h5
+
+        def capture(p, datasets):
+            written.update(datasets)
+            t0 = time.perf_counter()
+            out = real_write(p, datasets)
+            written["__s"] = time.perf_counter() - t0
+            return out
+
+        WR.write_h5 = capture
+        try:
+            t0 = time.perf_counter()
+            make_synthetic_h5(path, n_images=CLI_IMAGES, H=CLI_HW, W=CLI_HW, focal=CLI_FOCAL)
+            build_s = time.perf_counter() - t0
+        finally:
+            WR.write_h5 = real_write
+        write_s, nbytes = written.pop("__s"), os.path.getsize(path)
+        back, rows = read_h5(path)
+        check(sorted(back) == sorted(written), f"read_h5 keys {sorted(back)} != "
+                                               f"{sorted(written)}")
+        for k, v in written.items():
+            v = np.asarray(v)
+            check(back[k].dtype == v.dtype and back[k].shape == v.shape
+                  and back[k].tobytes() == v.tobytes(), f"read_h5 {k}: not bit-equal")
+        check(sorted(rows) == ["bkgds", "imgs", "masks", "sampling_masks"], f"rows {sorted(rows)}")
+        t0 = time.perf_counter()
+        ds = H5D.H5RayDataset(path, n_rays_per_image=16)
+        open_ms = (time.perf_counter() - t0) * 1e3
+        check(ds._row_offs is not None and ds._sidx_off is not None,
+              "H5RayDataset did not take the memmap fast path")
+        check(ds.sample_batch(np.arange(2), seed=0) is not None, "the native sampler did not run")
+        loader = H5D.RayBatchLoader(ds, n_images_per_batch=CLI_IMAGES, seed=0)
+
+        def batch_ms():
+            ts = []
+            for _ in range(BATCH_TIMED):
+                t0 = time.perf_counter()
+                loader.make_batch()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            return statistics.median(ts)
+
+        native_ms = batch_ms()
+        real_lib = NAT.get_lib
+        NAT.get_lib = lambda: None
+        try:
+            check(ds.sample_batch(np.arange(2), seed=0) is None, "the numpy path did not run")
+            numpy_ms = batch_ms()
+        finally:
+            NAT.get_lib = real_lib
+        pinned = H5D.RayBatchLoader(ds, n_images_per_batch=CLI_IMAGES, seed=0, pin_memory=True)
+        host = next(pinned)
+        check(all(v.is_pinned() for v in host.values()), "pinned loader: a batch not pinned")
+        up = []
+        for _ in range(UPLOADS_TIMED):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            dev_batch = {k: v.to(DEVICE, non_blocking=True) for k, v in host.items()}
+            b.record()
+            torch.cuda.synchronize()
+            up.append(a.elapsed_time(b))
+        batch_bytes = sum(v.numel() * v.element_size() for v in host.values())
+        check(all(torch.equal(dev_batch[k].cpu(), host[k]) for k in host), "upload differs")
+        print(f"cli data: make_synthetic_h5 {CLI_IMAGES} x {CLI_HW}^2 in {build_s:.3f} s, of "
+              f"which write_h5 {write_s:.3f} s for {nbytes} bytes; read_h5 bit-equal on "
+              f"{len(written)} keys; H5RayDataset open {open_ms:.3f} ms (memmap fast path, "
+              f"native sampler); make_batch ({CLI_IMAGES} images x 16 rays, median of "
+              f"{BATCH_TIMED}): native {native_ms:.3f} ms, numpy {numpy_ms:.3f} ms; upload of "
+              f"a pinned batch ({batch_bytes} bytes, median of {UPLOADS_TIMED}) "
+              f"{statistics.median(up):.4f} ms [{card}]")
+
+        # 12b. the surreal run ------------------------------------------
+        logs = os.path.join(tmp, "logs")
+        argv = ["--config", "configs/surreal/surreal.txt",
+                "--datadir", os.path.join(tmp, "surreal"), "--basedir", logs,
+                "--n_iters", str(CLI_ITERS), "--i_testset", str(CLI_ITERS),
+                "--i_weights", str(CLI_ITERS), "--i_print", "50", "--i_video", "0"]
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        steps["prof"] = prof
+        F.reset_launches()
+        log_dir, losses, _ = _train_cli(torch, RN, argv)
+        torch.cuda.synchronize()
+        for k in main_launches:
+            main_launches[k] += F.LAUNCHES[k]
+        check(steps["steps"] == CLI_ITERS and steps["first"] == 0,
+              f"surreal run: {steps['steps']} steps from {steps.get('first')}")
+        check(len(losses) == CLI_ITERS // 50 and all(map(math.isfinite, losses)),
+              f"surreal run: printed losses {losses}")
+        ev = dict(evals)
+        want = {k: 0 for k in F.LAUNCHES}
+        want.update(dual=ev["chunks"], field=ev["chunks"])
+        check(ev["calls"] == 1 and ev["frames"] == 2 and ev["launches"] == want,
+              f"surreal val: {ev['calls']} calls, {ev.get('frames')} frames, launches "
+              f"{ev.get('launches')} != {want}")
+        for name in ("psnr.txt", "ssim.txt", "args.txt", f"{CLI_ITERS:08d}.ckpt.npz"):
+            check(os.path.exists(os.path.join(log_dir, name)), f"surreal run: no {name}")
+        psnr = open(os.path.join(log_dir, "psnr.txt")).read().split()
+        args = parse_with_config(nerf_config_parser(), argv)
+        cfg, tcfg = args_to_raycast_config(args), args_to_train_config(args)
+        ckpt = os.path.join(log_dir, f"{CLI_ITERS:08d}.ckpt.npz")
+        fresh = TR.create_train_state(init_raycaster(cfg, torch.Generator().manual_seed(9),
+                                                     device=DEVICE), tcfg)
+        loaded = CK.load_checkpoint(ckpt, fresh)
+        flat, back = dict(np.load(ckpt)), CK._state_flat(loaded)
+        check(sorted(flat) == sorted(back) and all(
+            flat[k].dtype == back[k].dtype and np.array_equal(flat[k], back[k]) for k in flat),
+            "surreal checkpoint: not bit-equal through a fresh state")
+        steps.update(steps=0, prof=None)
+        steps.pop("first", None)
+        F.reset_launches()
+        _train_cli(torch, RN, argv[:6] + ["--n_iters", str(CLI_ITERS + 1), "--i_testset", "0",
+                                          "--i_weights", "0", "--i_print", "50",
+                                          "--i_video", "0"])
+        for k in main_launches:
+            main_launches[k] += F.LAUNCHES[k]
+        check(steps.get("first") == CLI_ITERS and steps["steps"] == 1,
+              f"resume: started at step {steps.get('first')}, {steps['steps']} steps")
+        rays = (CLI_TIMED[1] - CLI_TIMED[0]) * args.N_rand
+        cli_s = steps["t1"] - steps["t0"]
+        prof_wall = (steps["p1"] - steps["p0"]) * 1e3
+        print(f"cli surreal: {CLI_ITERS} steps, launches per step {STEP_LAUNCHES}, losses "
+              f"{losses}; val {ev['frames']} frames of {CLI_HW}^2 in {ev['chunks']} chunks "
+              f"(dual = field = chunks), psnr {psnr[-1]}; checkpoint bit-equal through a fresh "
+              f"state; the resume started at step {CLI_ITERS}")
+
+        # 12c. the opt_pose run -----------------------------------------
+        hpath = CAT.resolve_h5_path(CAT.DataConfig(dataset="h36m", subject="S9", data_root=tmp))
+        os.makedirs(os.path.dirname(hpath))
+        make_synthetic_h5(hpath, n_images=POSE_CLI_IMAGES, H=POSE_CLI_HW, W=POSE_CLI_HW,
+                          focal=POSE_CLI_FOCAL)
+        hargv = ["--config", "configs/h36m/h36m_prot2.txt",
+                 "--datadir", os.path.join(tmp, "h36m"), "--basedir", logs,
+                 "--n_iters", str(POSE_CLI_ITERS), "--i_testset", str(POSE_CLI_ITERS),
+                 "--i_weights", str(POSE_CLI_ITERS), "--i_pose_weights", str(POSE_CLI_ITERS),
+                 "--i_print", "10", "--i_video", "0"]
+        steps.update(steps=0, want=dict(STEP_LAUNCHES, field_bwd_inputs=2))
+        steps.pop("first", None)
+        evals["calls"] = 0
+        F.reset_launches()
+        hlog, hlosses, _ = _train_cli(torch, RN, hargv)
+        torch.cuda.synchronize()
+        for k in main_launches:
+            main_launches[k] += F.LAUNCHES[k]
+        check(steps["steps"] == POSE_CLI_ITERS and steps["first"] == 0,
+              f"h36m run: {steps['steps']} steps")
+        check(len(hlosses) == POSE_CLI_ITERS // 10 and all(map(math.isfinite, hlosses)),
+              f"h36m run: printed losses {hlosses}")
+        hev = dict(evals)
+        want = {k: 0 for k in F.LAUNCHES}
+        want.update(dual=hev["chunks"], field=hev["chunks"])
+        check(hev["calls"] == 1 and hev["launches"] == want,
+              f"h36m val: launches {hev.get('launches')} != {want}")
+        pose_ckpt = os.path.join(hlog, f"{POSE_CLI_ITERS:08d}.pose.npz")
+        check(os.path.exists(pose_ckpt), "h36m run: no pose checkpoint")
+        pose = CK.load_pose_params(pose_ckpt, device=DEVICE)
+        flat = dict(np.load(pose_ckpt))
+        check(sorted(pose) == ["bones", "pelvis"] and all(
+            np.array_equal(pose[k].cpu().numpy(), flat[f"pose_params//{k}"]) for k in pose),
+            f"h36m pose checkpoint: {sorted(pose)} not equal to its file")
+        check(tuple(pose["bones"].shape) == (POSE_CLI_IMAGES, 24, 6), "pose rows")
+        print(f"cli h36m_prot2 (opt_pose, {POSE_CLI_IMAGES} images cut to {POSE_CLI_HW}^2): "
+              f"{POSE_CLI_ITERS} steps, launches per step {steps['want']}, losses {hlosses}; "
+              f"val at render_factor 2 in {hev['chunks']} chunks (dual = field = chunks); "
+              f"the pose checkpoint loads back equal to its file")
+
+        # 12d. times ----------------------------------------------------
+        print(f"timing cli surreal: steps {CLI_TIMED[0] + 1}-{CLI_TIMED[1]} in {cli_s:.4f} s "
+              f"(host clock, with the loader running): {rays / cli_s:.1f} trained rays/s, "
+              f"{cli_s / (CLI_TIMED[1] - CLI_TIMED[0]) * 1e3:.4f} ms a step; the bare step "
+              f"(phase 6): {args.N_rand / TIMES['train_step_ms'] * 1e3:.1f} trained rays/s, "
+              f"{TIMES['train_step_ms']:.4f} ms [{card}]")
+        print(f"timing cli val: {ev['s']:.4f} s for {ev['frames']} frames of {CLI_HW}^2, "
+              f"{ev['s'] / ev['frames']:.4f} s a frame [{card}]")
+        kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in kern) / 1e3
+        wall = prof_wall
+        n_prof = CLI_PROFILED[1] - CLI_PROFILED[0]
+        if busy > 0.0:
+            print(f"profile cli surreal, steps {CLI_PROFILED[0] + 1}-{CLI_PROFILED[1]} "
+                  f"(torch.profiler): {wall / n_prof:.4f} ms a step, device kernels "
+                  f"{busy / n_prof:.4f} ms a step, idle share {1.0 - busy / wall:.1%} [{card}]")
+        else:
+            print("profile cli surreal: torch.profiler recorded no device time")
+    finally:
+        TR.make_train_step, RN.evaluate_testset, IMG._eval_maps = real_make, real_eval, real_maps
+        shutil.rmtree(tmp, ignore_errors=True)
     return main_launches
 
 
