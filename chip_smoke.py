@@ -167,12 +167,17 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               --i_weights 200, --i_print 50 and --i_video 0 overridden: each
               step launches field_stash 2, field_bwd 2 and no other kernel,
               evaluate_testset one dual and one field launch per chunk of its
-              2 val frames, every printed loss finite, psnr.txt and ssim.txt
-              written, the checkpoint bit-equal through a fresh state, and a
-              resume for one more step starts at step 200; (c) configs/h36m/
+              2 val frames, the first of them (chunk 4096) against the same
+              render through the plain pipeline by phase 3's flip rule,
+              every printed loss finite, psnr.txt and ssim.txt written, the
+              checkpoint bit-equal through a fresh state, and a resume for
+              one more step starts at step 200; (c) configs/h36m/
               h36m_prot2.txt (opt_pose, render_factor 2) on a synthetic file
               at h36m's S9 path, 256 images cut to 256^2, 30 steps, each with
-              pass (c)'s 2 launches besides, finite losses, the pose
+              pass (c)'s 2 launches besides, finite losses, the first val
+              frame (per-frame framecodes) against the plain pipeline by the
+              same rule, the background's downsizing and the frame's
+              upsizing on the card against the CPU to RESIZE_TOL, the pose
               checkpoint written and loaded back; (d) the CLI's trained
               rays/s by the host clock over steps 51-200 beside phase 6's bare
               step, the seconds per val frame and the profiler's idle share
@@ -199,6 +204,7 @@ PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 RTOL, ATOL = 2e-2, 1e-3  # kernel vs plain, both with bf16 operands
 RENDER_TOL = 5e-3  # fused render vs the plain pipeline (rgb_map)
+RESIZE_TOL = 1e-5  # run_nerf's bilinear resizes, card vs CPU (float32 rounding)
 MAX_FLIP_FRAC = 0.01  # rays allowed to flip opacity at a knife edge (see phase 3)
 N_RAYS = 8192
 N_RAGGED = 1001  # rays of the ragged case: 1001 x 16 points = 250 tiles of 64 + 16
@@ -1612,9 +1618,11 @@ def far_sigma_straddles(torch, F, cfg, variables, ctx, cam, n: int, chunk: int):
     from posegen_tpu_torch.render.image import rays_from_box
     from posegen_tpu_torch.render.raycast import encode_inputs
 
-    L = F.net_layout(cfg.netdepth, cfg.multires, cfg.multires_views)
+    L = F.net_layout(cfg.netdepth_fine or cfg.netdepth, cfg.multires, cfg.multires_views)
     pose = F.pack_pose(ctx.skts[0], variables["embed_kp"], cfg.multires, cfg.multires_views)
-    net_f = F.prepare_net(variables["fine"], L)
+    # sigma reads no framecode: a framecode net takes code 0 in both paths
+    codes = variables["fine"].get("framecodes") if cfg.opt_framecode else None
+    net_f = F.prepare_net(variables["fine"], L, None if codes is None else codes[0])
     flips, sigmas = [], []
     for i in range(0, n, chunk):
         o, d = rays_from_box(cam, i, min(chunk, n - i))
@@ -1622,7 +1630,9 @@ def far_sigma_straddles(torch, F, cfg, variables, ctx, cam, n: int, chunk: int):
                                                near=cfg.near, far=cfg.far)
         far_pts = (o + d * far).contiguous()
         x_pts, x_views, _ = encode_inputs(cfg, variables, far_pts[:, None], d, ctx)
-        sig_ref = nerf_apply(cfg.nerf_cfg, variables["fine"], x_pts, x_views)[:, 0, 3]
+        frame_idx = (None if codes is None else
+                     torch.zeros((o.shape[0], 1, 1), dtype=torch.long, device=o.device))
+        sig_ref = nerf_apply(cfg.nerf_cfg, variables["fine"], x_pts, x_views, frame_idx)[:, 0, 3]
         sig_ker = F.fused_field(far_pts, d.contiguous(), 1, pose, net_f, density_only=True)[:, 3]
         flips.append((sig_ref > 0) != (sig_ker > 0))
         sigmas.append(sig_ref)
@@ -2243,15 +2253,22 @@ def _steps_window(torch, F, TR, rec):
 
 def _eval_window(torch, F, IMG, RN, rec):
     """Wrap run_nerf.evaluate_testset: each call's frames, chunks (the
-    render's calls of image._eval_maps), launches and seconds."""
-    real_eval, real_maps = RN.evaluate_testset, IMG._eval_maps
+    render's calls of image._eval_maps), launches, seconds and frames, and
+    its first render_image call (arguments and output)."""
+    real_eval, real_maps, real_image = RN.evaluate_testset, IMG._eval_maps, IMG.render_image
 
     def maps(*args, **kwargs):
         rec["chunks"] += 1
         return real_maps(*args, **kwargs)
 
+    def image(*args, **kwargs):
+        out = real_image(*args, **kwargs)
+        rec.setdefault("frame", (args, kwargs, out))
+        return out
+
     def evaluate(cfg, state, render_data, *args, **kwargs):
         rec["chunks"] = 0
+        rec.pop("frame", None)
         torch.cuda.synchronize()
         before, t0 = dict(F.LAUNCHES), time.perf_counter()
         out = real_eval(cfg, state, render_data, *args, **kwargs)
@@ -2260,10 +2277,77 @@ def _eval_window(torch, F, IMG, RN, rec):
         rec["frames"] = render_data["imgs"].shape[0]
         rec["launches"] = {k: F.LAUNCHES[k] - before[k] for k in before}
         rec["calls"] += 1
+        rec.update(render_data=render_data, rgbs=out[1],
+                   render_factor=kwargs.get("render_factor", 0))
         return out
 
-    IMG._eval_maps = maps
-    return (real_eval, real_maps), evaluate
+    IMG._eval_maps, IMG.render_image = maps, image
+    return (real_eval, real_maps, real_image), evaluate
+
+
+def check_val_frame(torch, F, IMG, RN, real_image, ev, tag: str) -> str:
+    """A CLI run's first val frame as evaluate_testset rendered it through
+    the eval kernels, against the same render_image call through the plain
+    pipeline, by phase 3's flip rule. At render_factor > 0, also the
+    background's downsizing and the frame's upsizing on the card against
+    the CPU, and the evaluated frame against that upsizing. -> a summary."""
+    import numpy as np
+
+    args, kw, out_k = ev["frame"]
+    cfg, params, RH, RW, focal, c2w, ctx = args
+    chunk = kw["chunk"]
+    F.reset_launches()
+    with torch.no_grad():  # as evaluate_testset renders: the state's leaves want grads
+        out_p = real_image(*args, **dict(kw, render_fn=IMG._raygen_render_fn(cfg, use_fused=False)))
+    torch.cuda.synchronize()
+    check(all(v == 0 for v in F.LAUNCHES.values()), f"{tag} plain val frame: launches {F.LAUNCHES}")
+    valid_idx = out_k["valid_idx"]
+    check(np.array_equal(valid_idx, out_p["valid_idx"]), f"{tag} val frame: boxes differ")
+    n_img = len(valid_idx)
+    rgb_k = out_k["rgb"].reshape(-1, 3)[valid_idx]
+    rgb_p = out_p["rgb"].reshape(-1, 3)[valid_idx]
+    check(bool(np.isfinite(rgb_k).all()), f"{tag} val frame not finite")
+    acc_k = out_k["acc"].reshape(-1)[valid_idx]
+    flipped = np.abs(acc_k - out_p["acc"].reshape(-1)[valid_idx]) > 0.5
+    n_flip = int(flipped.sum())
+    d_rgb = np.abs(rgb_k - rgb_p).max(-1)
+    err = float(d_rgb[~flipped].max())
+    tl, br = out_k["bbox"]
+    cam = {k: torch.as_tensor(v).to(DEVICE)
+           for k, v in IMG.make_cam(RH, RW, focal, c2w, tl, br).items()}
+    with torch.no_grad():
+        straddles, sig_ref = far_sigma_straddles(torch, F, cfg, params, ctx, cam, n_img, chunk)
+    straddles, sig_ref = straddles.cpu().numpy(), sig_ref.cpu().numpy()
+    check(n_flip <= MAX_FLIP_FRAC * n_img, f"{tag} val frame: {n_flip} rays flipped opacity")
+    check(bool(straddles[flipped].all()),
+          f"{tag} val frame: {int((~straddles[flipped]).sum())} rays flipped opacity with no "
+          "sign change of their far sigma")
+    check(err <= RENDER_TOL, f"{tag} val frame: rgb vs plain {err:.3e} > {RENDER_TOL}")
+    codes = "with framecodes" if ctx.cam_idxs is not None else "no framecodes"
+    out = (f"val frame 0 ({RH} x {RW}, {n_img} rays, chunk {chunk}, {codes}) vs the plain "
+           f"pipeline: rgb max|diff| {err:.3e} on {n_img - n_flip} rays, {n_flip} flipped "
+           f"opacity (each with a far-sigma sign change; float32 |sigma| <= "
+           f"{float(np.abs(sig_ref[flipped]).max()) if n_flip else 0.0:.3e} there); mean acc "
+           f"{float(acc_k.mean()):.4f}")
+    if ev["render_factor"] > 0:
+        rd = ev["render_data"]
+        H, W, _ = rd["hwf"]
+        up = {d: RN._resize_bilinear(out_k["rgb"], (H, W), torch.device(d), antialias=False)
+              for d in (DEVICE, "cpu")}
+        down = {d: RN._resize_bilinear(rd["bkgds"][0], (RH, RW), torch.device(d),
+                                       antialias=True) for d in (DEVICE, "cpu")}
+        err_up = float(np.abs(up[DEVICE] - up["cpu"]).max())
+        err_down = float(np.abs(down[DEVICE] - down["cpu"]).max())
+        check(err_up <= RESIZE_TOL and err_down <= RESIZE_TOL,
+              f"{tag} val resize, card vs CPU: up {err_up:.3e}, down {err_down:.3e} > "
+              f"{RESIZE_TOL}")
+        check(np.array_equal(ev["rgbs"][0], up[DEVICE]),
+              f"{tag} val frame 0: the evaluated frame is not the kernels' frame upsized")
+        check(np.array_equal(kw["bg"], down[DEVICE]),
+              f"{tag} val frame 0: the background is not the plate downsized")
+        out += (f"; {H} x {W} upsizing card vs CPU {err_up:.3e}, the background's "
+                f"antialiased downsizing {err_down:.3e}")
+    return out
 
 
 def _train_cli(torch, RN, argv):
@@ -2319,7 +2403,7 @@ def cli_phases(torch, card: str):
     steps = {"steps": 0, "want": STEP_LAUNCHES}
     evals = {"calls": 0}
     real_make, counted_make = _steps_window(torch, F, TR, steps)
-    (real_eval, real_maps), counted_eval = _eval_window(torch, F, IMG, RN, evals)
+    (real_eval, real_maps, real_image), counted_eval = _eval_window(torch, F, IMG, RN, evals)
     TR.make_train_step, RN.evaluate_testset = counted_make, counted_eval
     try:
         # 12a. the data: written and read back by the port's HDF5 code ----
@@ -2422,6 +2506,7 @@ def cli_phases(torch, card: str):
         for name in ("psnr.txt", "ssim.txt", "args.txt", f"{CLI_ITERS:08d}.ckpt.npz"):
             check(os.path.exists(os.path.join(log_dir, name)), f"surreal run: no {name}")
         psnr = open(os.path.join(log_dir, "psnr.txt")).read().split()
+        surreal_frame = check_val_frame(torch, F, IMG, RN, real_image, ev, "surreal")
         args = parse_with_config(nerf_config_parser(), argv)
         cfg, tcfg = args_to_raycast_config(args), args_to_train_config(args)
         ckpt = os.path.join(log_dir, f"{CLI_ITERS:08d}.ckpt.npz")
@@ -2449,6 +2534,7 @@ def cli_phases(torch, card: str):
               f"{losses}; val {ev['frames']} frames of {CLI_HW}^2 in {ev['chunks']} chunks "
               f"(dual = field = chunks), psnr {psnr[-1]}; checkpoint bit-equal through a fresh "
               f"state; the resume started at step {CLI_ITERS}")
+        print(f"cli surreal {surreal_frame}")
 
         # 12c. the opt_pose run -----------------------------------------
         hpath = CAT.resolve_h5_path(CAT.DataConfig(dataset="h36m", subject="S9", data_root=tmp))
@@ -2477,6 +2563,7 @@ def cli_phases(torch, card: str):
         want.update(dual=hev["chunks"], field=hev["chunks"])
         check(hev["calls"] == 1 and hev["launches"] == want,
               f"h36m val: launches {hev.get('launches')} != {want}")
+        h36m_frame = check_val_frame(torch, F, IMG, RN, real_image, hev, "h36m")
         pose_ckpt = os.path.join(hlog, f"{POSE_CLI_ITERS:08d}.pose.npz")
         check(os.path.exists(pose_ckpt), "h36m run: no pose checkpoint")
         pose = CK.load_pose_params(pose_ckpt, device=DEVICE)
@@ -2489,6 +2576,7 @@ def cli_phases(torch, card: str):
               f"{POSE_CLI_ITERS} steps, launches per step {steps['want']}, losses {hlosses}; "
               f"val at render_factor 2 in {hev['chunks']} chunks (dual = field = chunks); "
               f"the pose checkpoint loads back equal to its file")
+        print(f"cli h36m_prot2 {h36m_frame}")
 
         # 12d. times ----------------------------------------------------
         print(f"timing cli surreal: steps {CLI_TIMED[0] + 1}-{CLI_TIMED[1]} in {cli_s:.4f} s "
@@ -2509,7 +2597,8 @@ def cli_phases(torch, card: str):
         else:
             print("profile cli surreal: torch.profiler recorded no device time")
     finally:
-        TR.make_train_step, RN.evaluate_testset, IMG._eval_maps = real_make, real_eval, real_maps
+        TR.make_train_step, RN.evaluate_testset = real_make, real_eval
+        IMG._eval_maps, IMG.render_image = real_maps, real_image
         shutil.rmtree(tmp, ignore_errors=True)
     return main_launches
 

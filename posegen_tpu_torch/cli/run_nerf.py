@@ -184,10 +184,9 @@ def train(argv: Optional[Sequence[str]] = None, device="cuda") -> str:
             "multi-device training is not ported yet (ROADMAP.md, Queue 1 item 10); "
             "pass --n_devices 1"
         )
-    dcfg = args_to_data_config(args)
-    dcfg.process_index, dcfg.process_count = 0, 1
-    dcfg.pin_memory = dev.type == "cuda"
-    loader, render_data, attrs = load_data(dcfg)
+    loader, render_data, attrs = load_data(
+        args_to_data_config(args), pin_memory=dev.type == "cuda"
+    )
     cfg = args_to_raycast_config(args, n_framecodes=attrs["n_framecodes"])
     tcfg = args_to_train_config(args)
 

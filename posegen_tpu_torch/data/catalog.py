@@ -63,9 +63,6 @@ class DataConfig:
     seed: int = 0
     subject_idx: int = 0  # which subject's views to render for multi-subject
     #                       models (reference --subject_idx, run_render.py:60)
-    process_index: int = 0  # multi-process input sharding: this process's rank
-    process_count: int = 1  # and the process count
-    pin_memory: bool = False  # hand batches out in pinned host memory (CUDA training)
 
 
 def resolve_h5_path(cfg: DataConfig, subject: Optional[str] = None) -> str:
@@ -77,9 +74,12 @@ def resolve_h5_path(cfg: DataConfig, subject: Optional[str] = None) -> str:
     return os.path.join(cfg.data_root, rel)
 
 
-def load_data(cfg: DataConfig) -> Tuple[RayBatchLoader, Dict[str, Any], Dict[str, Any]]:
+def load_data(
+    cfg: DataConfig, pin_memory: bool = False
+) -> Tuple[RayBatchLoader, Dict[str, Any], Dict[str, Any]]:
     """-> (loader, render_data, data_attrs), the reference's triple
-    (load_data.py:71-84)."""
+    (load_data.py:71-84). `pin_memory`: the loader hands out batches in
+    pinned host memory, for a CUDA trainer."""
     rays_per_image = max(cfg.n_rand // cfg.n_sample_images, 1)
 
     def make_ds(subject, seed, split=None, path=None):
@@ -145,9 +145,7 @@ def load_data(cfg: DataConfig) -> Tuple[RayBatchLoader, Dict[str, Any], Dict[str
 
     loader = RayBatchLoader(
         ds, n_images_per_batch=cfg.n_sample_images, seed=cfg.seed,
-        num_workers=cfg.num_workers,
-        process_index=cfg.process_index, process_count=cfg.process_count,
-        pin_memory=cfg.pin_memory,
+        num_workers=cfg.num_workers, pin_memory=pin_memory,
     )
 
     # held-out render/eval views: evenly spaced over the val source (the

@@ -645,16 +645,11 @@ class RayBatchLoader:
     num_workers > 0 builds batches in worker PROCESSES (the reference's
     DataLoader(num_workers=16), load_data.py:78): at 512x512 the per-batch
     mask scans + pixel gathers are CPU-bound and a single thread caps
-    training at a few it/s. Each worker reopens the H5 in-process and draws
-    from its own RNG stream; batches are re-ordered by id so the sequence is
-    deterministic for a fixed worker count.
-
-    Multi-process (process_count > 1): every process builds the SAME global
-    image permutation (seeded identically) and takes its strided
-    `process_index::process_count` slice, so data-parallel ranks draw
-    disjoint image subsets each epoch with no communication. Pixel RNG
-    streams are rank-distinct. Single-process (count = 1) sequences are
-    unchanged.
+    training at a few it/s. Each worker reopens the H5 in-process; batch
+    `bid` draws from (seed, bid) alone, whichever worker takes it, and
+    batches are re-ordered by id, so the sequence is the same for any worker
+    count > 0. (It is not the in-process sequence, which draws from the
+    loader's own RNG.)
 
     pin_memory: every batch is handed out as a dict of CPU tensors in pinned
     (page-locked) memory, ready for `.to("cuda", non_blocking=True)`. Each
@@ -671,30 +666,17 @@ class RayBatchLoader:
         prefetch: int = 2,
         seed: int = 0,
         num_workers: int = 0,
-        process_index: int = 0,
-        process_count: int = 1,
         pin_memory: bool = False,
     ):
         self.dataset = dataset
         self.pin_memory = pin_memory
         self.n_images = n_images_per_batch
         self.num_workers = num_workers
-        if not 0 <= process_index < process_count:
-            raise ValueError(
-                f"process_index {process_index} not in [0, {process_count})"
-            )
-        self.process_index = process_index
-        self.process_count = process_count
-        # the permutation stream must be IDENTICAL across hosts (each takes
-        # a disjoint slice of the same global order); the pixel-sampling
-        # stream must be host-distinct
+        # image permutations and pixel draws: two streams of one seed, as
+        # the JAX loader draws them
         self._perm_rng = np.random.default_rng(seed)
-        self.rng = (
-            np.random.default_rng(seed)
-            if process_count == 1
-            else np.random.default_rng((seed, process_index))
-        )
-        self.seed = seed + 100003 * process_index
+        self.rng = np.random.default_rng(seed)
+        self.seed = seed
         self._perm: np.ndarray = np.array([], dtype=np.int64)
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
@@ -709,8 +691,6 @@ class RayBatchLoader:
         # full-permutation sampler (reference RandIntGenerator, dataset.py:730)
         while self._perm.size < self.n_images:
             epoch = self._perm_rng.permutation(self.dataset.n_images)
-            if self.process_count > 1:  # this host's shard of the epoch
-                epoch = epoch[self.process_index :: self.process_count]
             self._perm = np.concatenate([self._perm, epoch])
         idxs, self._perm = self._perm[: self.n_images], self._perm[self.n_images :]
         return idxs

@@ -51,7 +51,9 @@ def test_shipped_config_parses_like_jax(config, tmp_path):
         _fields(jcfg.args_to_raycast_config(a_j, 7))
     assert _fields(pcfg.args_to_train_config(a_p)) == _fields(jcfg.args_to_train_config(a_j))
     d_p, d_j = _fields(pcfg.args_to_data_config(a_p)), _fields(jcfg.args_to_data_config(a_j))
-    assert d_p.pop("pin_memory") is False
+    # JAX's multi-host sharding fields: the port trains in one process
+    # (parallel/ is not ported), so its DataConfig has none
+    assert (d_j.pop("process_index"), d_j.pop("process_count")) == (0, 1)
     assert d_p == d_j
     assert pcfg.validate_args(a_p) == jcfg.validate_args(a_j)
 

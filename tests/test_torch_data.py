@@ -92,26 +92,28 @@ def _loaders(paths, case, seed=5):
         else:
             ds = mod.H5RayDataset(paths[0], 8, seed=seed)
         return mod.RayBatchLoader(ds, n_images_per_batch=4, seed=seed,
-                                  num_workers=2 if case == "workers" else 0)
+                                  num_workers=2 if case.endswith("workers") else 0)
     return make(ph), make(jh)
 
 
-@pytest.mark.parametrize("case", ["native", "numpy", "workers", "concat"])
+@pytest.mark.parametrize("case", ["native", "numpy", "workers", "numpy_workers", "concat"])
 def test_batches_bit_equal_to_jax(files, case, monkeypatch):
     """Three batches of each package's loader on the JAX-written (per-image
     chunked) file, the same seed: equal bit for bit. With worker processes,
     the JAX loader's batch depends on which worker took its task (worker w
     seeds with loader seed + 1 + w); the port's draws what JAX's worker 0
     draws, whichever worker takes it. So each port batch is held to that
-    JAX draw, and each JAX batch to one of its workers' draws."""
-    if case == "numpy":
+    JAX draw, and each JAX batch to one of its workers' draws. On the numpy
+    sampler, a port worker draws batch `bid` from rng (seed + 1, bid, 0);
+    each of its batches is held to JAX's numpy sampler on that rng."""
+    if case.startswith("numpy"):
         _no_lib(monkeypatch)
     # worker processes: pretend to have cores, as the JAX loader's test does
     monkeypatch.setattr(os, "cpu_count", lambda: 4)
     paths = [files[1], files[0]]
     port, jax_ = _loaders(paths, case)
     try:
-        if case == "workers":
+        if case.endswith("workers"):
             pit, jit_ = iter(port), iter(jax_)
             assert len(port._procs) == 2 and len(jax_._procs) == 2
             pairs = [(next(pit), next(jit_)) for _ in range(3)]
@@ -120,9 +122,16 @@ def test_batches_bit_equal_to_jax(files, case, monkeypatch):
     finally:
         port.close()
         jax_.close()
+    perm = np.random.default_rng(5).permutation(12)
+    ds = jh.H5RayDataset(paths[0], 8)
+    if case == "numpy_workers":
+        for bid, (got, _) in enumerate(pairs):
+            ds.rng = np.random.default_rng((5 + 1, bid, 0))
+            parts = [ds.sample_image(int(i)) for i in perm[4 * bid:4 * bid + 4]]
+            _assert_batches_equal(got, {k: np.concatenate([p[k] for p in parts])
+                                        for k in parts[0]})
+        return
     if case == "workers":
-        perm = np.random.default_rng(5).permutation(12)
-        ds = jh.H5RayDataset(paths[0], 8)
         for bid, (got, want) in enumerate(pairs):
             idxs = perm[4 * bid:4 * bid + 4]
             draws = [ds.sample_batch(idxs, (5 + 1 + w) * 600011 + bid) for w in range(2)]
