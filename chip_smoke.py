@@ -182,8 +182,38 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               rays/s by the host clock over steps 51-200 beside phase 6's bare
               step, the seconds per val frame and the profiler's idle share
               over steps 21-40.
+ 13. mine     render and mine from phase 12's trained surreal run through the
+              CLIs at their own chunks: (a) run_render.load_trained of its
+              args.txt + step-200 .npz, every tensor bit-equal to the trained
+              state; export_tar.main -> load_trained of the .tar, its tensors
+              bit-equal; the h36m_prot2 run's .npz (pose params, framecodes)
+              likewise; (b) run_render --render_type val --eval at chunk
+              65536: one dual and one field launch per chunk, frame 0
+              against the same render through the plain pipeline (each
+              chunk in slices of 8192 rays with the chunk's near / far) by
+              phase 3's flip rule, psnr.txt / ssim.txt written, every PNG
+              read back by read_png equal to the u8 of its frame; (c)
+              --render_type
+              bullet --bullet_n 4 (launches per chunk, 4 PNGs), then mesh at
+              res 64 (one density-only launch, mesh.ply); (d)
+              render_testset.main on 2 annotation files of 10 poses (numpy
+              seed 0): 20 PNGs, poses.npy, launches per chunk; (e)
+              run_gan.main at batch 1024 on the seed's pool of 4096 poses (4
+              iterations), feedback at every iteration (20 renders, chunk
+              32768), probe of 8, train_spin 3 epochs: launches per chunk of
+              every feedback render, the first feedback call's frames 0-1
+              against the same call through the plain pipeline (slices of
+              8192 rays) by phase 3's flip rule, one PNG per pose row, each
+              (512, 512, 3) uint8, train_spin's steps at batch 32 with finite
+              losses, spin_000.npz and gan_000.npz, a finite probe_mpjpe, and
+              a second main to 2 epochs resuming at epoch 1; (f) times:
+              run_render's seconds per val frame, write_png (levels 1 and 6)
+              and read_png per 512^2 frame, run_gan's epoch beside phase 11's
+              iteration, train_spin's warm steps (after the first),
+              render_testset's frames/s.
 
-Before phase 1 it prints whether h5py and imageio import (information only).
+Before phase 1 it prints whether h5py, imageio, cv2 and PIL import
+(information only).
 The last two lines of standard output are one JSON object of per-kernel
 numbers and one JSON object naming the device. Without a CUDA device, or
 outside a checkout of the repository, it exits non-zero and prints no result.
@@ -196,8 +226,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
@@ -245,9 +277,11 @@ SM90_KERNELS = {"eval_sm90_kernelILi0E": ("HGMMA", "UTMALDG"),
 # groups, points per pose group; 0: no input gradients)
 WS_PLANS = ((1, 1, 0), (300, 3, 100), (3072, 4, 768), (196608, 256, 768), (245760, 256, 0),
             (1680, 3, 560))
-# the eval kernels' persistent walk against eval_tile_walk: (points, slots)
+# the eval kernels' persistent walk against eval_tile_walk: (points, slots);
+# 2,097,152 and 4,194,304 points: one dual launch of run_gan's (32768 rays x
+# 64 samples) and of run_render's (65536 x 64) default chunk
 EVAL_WALKS = ((1, 132), (127, 132), (128, 132), (129, 132), (16016, 132), (131056, 132),
-              (524288, 132), (300, 2))
+              (524288, 132), (2097152, 132), (4194304, 132), (300, 2))
 PASS_A_KERNELS = ("field_bwd_sm90_kernel",)
 PASS_B_KERNELS = ("wgrad_sm90_kernel", "wgrad_reduce_kernel")
 # pass (a)'s workspace against field_bwd_workspace_plain: the forward's
@@ -304,6 +338,19 @@ UPLOADS_TIMED = 20
 # the opt_pose run: h36m's S9 file, cut to 256^2 (h36m's crops are 1000^2)
 POSE_CLI_IMAGES, POSE_CLI_HW, POSE_CLI_FOCAL, POSE_CLI_ITERS = 256, 256, 320.0, 30
 STEP_LAUNCHES = {"field_stash": 2, "field_bwd": 2}  # a train step's, besides zeros
+# phase 13: render and mine from phase 12's surreal run, through the CLIs at
+# their own chunks (run_render 65536 rays, run_gan 32768)
+MINE_BULLET_N, MINE_MESH_RES = 4, 64
+MINE_POSES = 20  # render_testset: 2 annotation files of 10 poses, numpy seed 0
+MINE_GAN_BATCH, MINE_GAN_CHUNK, MINE_RPI, MINE_PROBE_N = 1024, 32768, 20, 8
+MINE_SPIN_BATCH = 32  # train_spin's default batch
+MINE_SPIN_EPOCHS = 3  # 80 sink rows: 2 steps an epoch, 5 timed after the first
+MINE_GAN_HW, MINE_TESTSET_HW = 512, 512  # run_gan's and render_testset's default frames
+PNG_TIMED = 10  # write_png / read_png calls timed per 512^2 frame
+# the plain reference of a 65536-ray chunk, in slices of this many rays
+# with the chunk's near / far (the float32 pipeline's encodings of a whole
+# chunk overflow the card's 80 GB; 8192 is JAX's own clamp for it)
+PLAIN_SUB = 8192
 # figures that a later phase reads: phase 6's bare train step
 TIMES = {}
 DEVICE = "cuda"
@@ -586,7 +633,7 @@ def run(torch) -> int:
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print("modules (information only): " + ", ".join(
-        f"{name} {module_version(name)}" for name in ("h5py", "imageio")))
+        f"{name} {module_version(name)}" for name in ("h5py", "imageio", "cv2", "PIL")))
 
     # 1. build -------------------------------------------------------------
     from posegen_tpu_torch.data import native
@@ -777,7 +824,13 @@ def run(torch) -> int:
         launches[k] += n
     for k, n in gan_phases(torch, card, variables).items():
         launches[k] += n
-    cli_launches = cli_phases(torch, card)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        cli_launches, cli_runs = cli_phases(torch, card, tmp)
+        for k, n in mine_phases(torch, card, cli_runs).items():
+            launches[k] += n
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     for k in launches:
         launches[k] += cli_launches[k]
     for k in ("field_stash", "field_bwd"):
@@ -1607,6 +1660,40 @@ def variant_phases(torch, card: str):
     return (base["ms"], p_ms, b_ms, b_by), err, launches["variant"]
 
 
+def check_pipelined_frames(torch, F, IMG, cfg, variables, frames, plain, focal, c2ws, ctxs,
+                           cyls, chunk: int, window, tag: str):
+    """The first len(plain) frames of a render_images_pipelined call through
+    the eval kernels against the same call through the plain pipeline, by
+    phase 3's flip rule: each ray in the frame's box to RENDER_TOL, or one of
+    at most MAX_FLIP_FRAC whose far sigma changes sign between the
+    density-only kernel and the float32 net; the background equal.
+    -> (max|diff| of the rays held to RENDER_TOL, rays past it)."""
+    import numpy as np
+
+    n_out, err = 0, 0.0
+    H, W = frames.shape[1:3]
+    for k in range(len(plain)):
+        tl, br, idx = IMG.valid_box_for_pose(H, W, focal, c2ws[k], cyls[k], window=window)
+        got, want = frames[k].reshape(-1, 3), plain[k].reshape(-1, 3)
+        rest = np.ones(H * W, bool)
+        rest[idx] = False
+        check(np.array_equal(got[rest], want[rest]), f"{tag} frame {k}: background differs")
+        d = np.abs(got[idx] - want[idx]).max(-1)
+        cam = {key: torch.as_tensor(v).to(DEVICE)
+               for key, v in IMG.make_cam(H, W, focal, c2ws[k], tl, br).items()}
+        straddles = far_sigma_straddles(torch, F, cfg, variables, ctxs[k], cam, len(idx),
+                                        chunk)[0].cpu().numpy()
+        out = d > RENDER_TOL
+        check(int(out.sum()) <= MAX_FLIP_FRAC * len(idx),
+              f"{tag} frame {k}: {int(out.sum())} rays past {RENDER_TOL}")
+        check(bool(straddles[out].all()),
+              f"{tag} frame {k}: {int((~straddles[out]).sum())} rays past {RENDER_TOL} with "
+              "no sign change of their far sigma")
+        n_out += int(out.sum())
+        err = max(err, float(d[~out].max()))
+    return err, n_out
+
+
 def far_sigma_straddles(torch, F, cfg, variables, ctx, cam, n: int, chunk: int):
     """Per ray of a render_image box: whether the fine net's sigma at the
     ray's far sample changes sign between the density-only kernel and the
@@ -1753,27 +1840,9 @@ def image_phases(torch, card: str, chunk_ms: float):
             render_fn=IMG._raygen_render_fn(cfg, use_fused=False))
         torch.cuda.synchronize()
         check(all(v == 0 for v in F.LAUNCHES.values()), f"plain frames: launches {F.LAUNCHES}")
-        n_out, err_pipe = 0, 0.0
-        for k in range(COMPARE_FRAMES):
-            tl, br, idx = IMG.valid_box_for_pose(hw, hw, FRAME_FOCAL, c2ws[k], cyls[k],
-                                                 window=FRAME_WINDOW)
-            got, want = frames[k].reshape(-1, 3), plain[k].reshape(-1, 3)
-            rest = np.ones(hw * hw, bool)
-            rest[idx] = False
-            check(np.array_equal(got[rest], want[rest]), f"frame {k}: background differs")
-            d = np.abs(got[idx] - want[idx]).max(-1)
-            cam = {key: torch.as_tensor(v).to(DEVICE)
-                   for key, v in IMG.make_cam(hw, hw, FRAME_FOCAL, c2ws[k], tl, br).items()}
-            straddles = far_sigma_straddles(torch, F, cfg, variables, ctx, cam, len(idx),
-                                            FRAME_CHUNK)[0].cpu().numpy()
-            out = d > RENDER_TOL
-            check(int(out.sum()) <= MAX_FLIP_FRAC * len(idx),
-                  f"render_images_pipelined frame {k}: {int(out.sum())} rays past {RENDER_TOL}")
-            check(bool(straddles[out].all()),
-                  f"render_images_pipelined frame {k}: {int((~straddles[out]).sum())} rays past "
-                  f"{RENDER_TOL} with no sign change of their far sigma")
-            n_out += int(out.sum())
-            err_pipe = max(err_pipe, float(d[~out].max()))
+        err_pipe, n_out = check_pipelined_frames(
+            torch, F, IMG, cfg, variables, frames, plain, FRAME_FOCAL, c2ws, ctxs, cyls,
+            FRAME_CHUNK, FRAME_WINDOW, "render_images_pipelined")
         print(f"render_images_pipelined vs the plain pipeline, frames 0-{COMPARE_FRAMES - 1} "
               f"({COMPARE_FRAMES * n_rays[0]} rays; kernel frames in f16, plain in f32): rgb "
               f"max|diff| {err_pipe:.3e}, {n_out} rays past {RENDER_TOL} (each with a far-sigma "
@@ -2174,6 +2243,7 @@ def gan_phases(torch, card: str, variables):
         print(f"timing GAN iteration (batch {GAN_BATCH}, {GAN_TIMED} of each, median [min, max] "
               f"ms): without feedback {spread(without_s)}, with feedback {spread(with_s)} "
               f"[{card}]")
+        TIMES["gan_feedback_ms"] = 1e3 * statistics.median(with_s)
         print(f"  feedback render ({GAN_RPI} frames of {FRAME_HW}^2, window {FRAME_WINDOW}, "
               f"f16 readback): {spread(render_s)} ms a call, "
               f"{GAN_RPI / statistics.median(render_s):.3f} frames/s [{card}]")
@@ -2285,12 +2355,40 @@ def _eval_window(torch, F, IMG, RN, rec):
     return (real_eval, real_maps, real_image), evaluate
 
 
-def check_val_frame(torch, F, IMG, RN, real_image, ev, tag: str) -> str:
+def plain_chunk_fn(torch, IMG, cfg, sub: int):
+    """A device-raygen render function that renders each chunk through the
+    plain pipeline in slices of `sub` rays, every slice with the near / far
+    of its whole chunk (a ray that misses the cylinder takes its chunk's
+    mean): the plain render of a chunk too large for the float32 pipeline's
+    encodings (65536 rays x 80 samples), ray for ray the same function."""
+    from posegen_tpu_torch.ops import sampling as samp
+
+    clip = samp.get_near_far_in_cylinder
+
+    def fn(params, cam, start, n, ctx):
+        o, d = IMG.rays_from_box(cam, start, n)
+        near, far = clip(o, d, ctx.cyls.expand(n, 5), near=cfg.near, far=cfg.far)
+        outs = []
+        try:
+            for s in range(0, n, sub):
+                samp.get_near_far_in_cylinder = lambda *a, s=s, **k: (near[s:s + sub],
+                                                                      far[s:s + sub])
+                outs.append(IMG._eval_maps(cfg, params, o[s:s + sub], d[s:s + sub], ctx, False))
+        finally:
+            samp.get_near_far_in_cylinder = clip
+        return {k: torch.cat([x[k] for x in outs]) for k in outs[0]}
+
+    fn.takes_cam = True
+    return fn
+
+
+def check_val_frame(torch, F, IMG, RN, real_image, ev, tag: str, plain_fn=None) -> str:
     """A CLI run's first val frame as evaluate_testset rendered it through
     the eval kernels, against the same render_image call through the plain
-    pipeline, by phase 3's flip rule. At render_factor > 0, also the
-    background's downsizing and the frame's upsizing on the card against
-    the CPU, and the evaluated frame against that upsizing. -> a summary."""
+    pipeline (or `plain_fn`, `plain_chunk_fn`'s), by phase 3's flip rule. At
+    render_factor > 0, also the background's downsizing and the frame's
+    upsizing on the card against the CPU, and the evaluated frame against
+    that upsizing. -> a summary."""
     import numpy as np
 
     args, kw, out_k = ev["frame"]
@@ -2298,7 +2396,8 @@ def check_val_frame(torch, F, IMG, RN, real_image, ev, tag: str) -> str:
     chunk = kw["chunk"]
     F.reset_launches()
     with torch.no_grad():  # as evaluate_testset renders: the state's leaves want grads
-        out_p = real_image(*args, **dict(kw, render_fn=IMG._raygen_render_fn(cfg, use_fused=False)))
+        out_p = real_image(*args, **dict(
+            kw, render_fn=plain_fn or IMG._raygen_render_fn(cfg, use_fused=False)))
     torch.cuda.synchronize()
     check(all(v == 0 for v in F.LAUNCHES.values()), f"{tag} plain val frame: launches {F.LAUNCHES}")
     valid_idx = out_k["valid_idx"]
@@ -2367,16 +2466,14 @@ def _train_cli(torch, RN, argv):
     return log_dir, losses, out
 
 
-def cli_phases(torch, card: str):
+def cli_phases(torch, card: str, tmp: str):
     """Phase 12, the CLI: a SURREAL-shaped H5 written and read by the
-    port's own HDF5 code, configs/surreal/surreal.txt trained through
-    run_nerf.train for CLI_ITERS steps with its val frames, the checkpoint
-    and the resume, then configs/h36m/h36m_prot2.txt's pose refinement ->
-    launches of every kernel on its main path (both runs' steps and val
-    renders)."""
-    import shutil
+    port's own HDF5 code (under `tmp`), configs/surreal/surreal.txt trained
+    through run_nerf.train for CLI_ITERS steps with its val frames, the
+    checkpoint and the resume, then configs/h36m/h36m_prot2.txt's pose
+    refinement -> (launches of every kernel on its main path (both runs'
+    steps and val renders), the two runs' log dirs and checkpoints)."""
     import statistics
-    import tempfile
 
     import numpy as np
     from torch.autograd import DeviceType
@@ -2398,7 +2495,6 @@ def cli_phases(torch, card: str):
     from posegen_tpu_torch.train import checkpoints as CK
     from posegen_tpu_torch.train import trainer as TR
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     main_launches = {k: 0 for k in F.LAUNCHES}
     steps = {"steps": 0, "want": STEP_LAUNCHES}
     evals = {"calls": 0}
@@ -2599,8 +2695,404 @@ def cli_phases(torch, card: str):
     finally:
         TR.make_train_step, RN.evaluate_testset = real_make, real_eval
         IMG._eval_maps, IMG.render_image = real_maps, real_image
-        shutil.rmtree(tmp, ignore_errors=True)
+    return main_launches, {"tmp": tmp, "surreal_log": log_dir, "surreal_ckpt": ckpt,
+                           "h36m_log": hlog,
+                           "h36m_ckpt": os.path.join(hlog, f"{POSE_CLI_ITERS:08d}.ckpt.npz")}
+
+
+
+def _counted_chunks(torch, F, IMG, rec):
+    """Wrap image._eval_maps, the render of one chunk: each call on the
+    kernels' route must launch one dual and one field kernel, each on the
+    plain route none. rec counts them."""
+    real = IMG._eval_maps
+
+    def maps(cfg, params, rays_o, rays_d, ctx, use_fused):
+        before = dict(F.LAUNCHES)
+        out = real(cfg, params, rays_o, rays_d, ctx, use_fused)
+        got = {k: F.LAUNCHES[k] - before[k] for k in before}
+        plain = use_fused is False
+        want = {k: (0 if plain else int(k in ("dual", "field"))) for k in got}
+        check(got == want, f"a {rays_o.shape[0]}-ray chunk ({'plain' if plain else 'kernels'}): "
+                           f"launches {got} != {want}")
+        rec["plain" if plain else "chunks"] += 1
+        rec["rays_max"] = max(rec["rays_max"], rays_o.shape[0])
+        return out
+
+    IMG._eval_maps = maps
+    return real
+
+
+def _quiet(fn, *args, **kwargs):
+    """fn's standard output captured; its last lines echoed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            return fn(*args, **kwargs), buf.getvalue()
+    finally:
+        print("\n".join("  | " + line for line in buf.getvalue().splitlines()[-6:]))
+
+
+def mine_phases(torch, card: str, runs):
+    """Phase 13, render and mine from phase 12's trained surreal run through
+    the CLIs: load_trained + export_tar, run_render (val with --eval, bullet,
+    mesh), render_testset, run_gan with train_spin -> the eval kernels'
+    launches on these paths."""
+    import statistics
+
+    import numpy as np
+
+    from posegen_tpu_torch.cli import export_tar as EX
+    from posegen_tpu_torch.cli import render_testset as RT
+    from posegen_tpu_torch.cli import run_gan as RG
+    from posegen_tpu_torch.cli import run_nerf as RN
+    from posegen_tpu_torch.cli import run_render as RR
+    from posegen_tpu_torch.gen import loop as GL
+    from posegen_tpu_torch.gen import spin_driver as SD
+    from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.render import image as IMG
+    from posegen_tpu_torch.train.checkpoints import _flatten
+    from posegen_tpu_torch.train.trainer import param_leaves
+    from posegen_tpu_torch.utils.png import read_png, write_png
+
+    out_root = os.path.join(runs["tmp"], "mine")
+    os.makedirs(out_root)
+    main_launches = {"dual": 0, "field": 0}
+    rec = {"chunks": 0, "plain": 0, "rays_max": 0}
+    real_maps = _counted_chunks(torch, F, IMG, rec)
+    real_path, real_image, real_pipelined = IMG.render_path, IMG.render_image, \
+        GL.render_images_pipelined
+    real_epoch, real_step = GL.GanTrainer.train_epoch, SD.make_spin_finetune_step
+    u8 = lambda a: (np.clip(a, 0, 1) * 255).astype(np.uint8)  # noqa: E731
+
+    def launched():
+        torch.cuda.synchronize()
+        for k in main_launches:
+            main_launches[k] += F.LAUNCHES[k]
+        return dict(F.LAUNCHES)
+
+    try:
+        # 13a. load_trained of the run, export_tar, and the .tar back ----
+        def same_as_file(variables, path, tag, subset=False):
+            flat = dict(np.load(path))
+            want = {k.split("//", 1)[1]: v for k, v in flat.items()
+                    if k.startswith(("params//", "embeds//"))}
+            got = _flatten(variables)
+            keys_ok = set(got) <= set(want) if subset else sorted(got) == sorted(want)
+            check(keys_ok and all(got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k])
+                                  for k in got),
+                  f"{tag}: not bit-equal to the trained state ({len(got)} / {len(want)} tensors)")
+            check(not any(t.requires_grad for t in param_leaves(variables)), f"{tag}: wants grads")
+            return len(got)
+
+        args_txt = os.path.join(runs["surreal_log"], "args.txt")
+        t0 = time.perf_counter()
+        _, cfg, variables = RR.load_trained(args_txt, runs["surreal_ckpt"], device=DEVICE)
+        load_s = time.perf_counter() - t0
+        n_npz = same_as_file(variables, runs["surreal_ckpt"], "load_trained (.npz)")
+        tar, _ = _quiet(EX.main, ["--nerf_args", args_txt, "--ckptpath", runs["surreal_ckpt"],
+                                  "--out", os.path.join(out_root, "surreal.tar")], device=DEVICE)
+        _, _, v_tar = RR.load_trained(args_txt, tar, device=DEVICE)
+        n_tar = same_as_file(v_tar, runs["surreal_ckpt"], "load_trained (.tar)", subset=True)
+        _, hcfg, hvar = RR.load_trained(os.path.join(runs["h36m_log"], "args.txt"),
+                                        runs["h36m_ckpt"], device=DEVICE)
+        n_h36m = same_as_file(hvar, runs["h36m_ckpt"], "load_trained (h36m, opt_pose)")
+        check(hcfg.opt_framecode and hcfg.n_framecodes == POSE_CLI_IMAGES,
+              f"h36m: {hcfg.n_framecodes} framecodes")
+        print(f"mine load_trained: the surreal run's step-{CLI_ITERS} .npz, {n_npz} tensors "
+              f"bit-equal to the trained state ({load_s:.3f} s); export_tar -> load_trained of "
+              f"the .tar: its {n_tar} tensors bit-equal; the h36m_prot2 run (pose params, "
+              f"{hcfg.n_framecodes} framecodes, the pose optimizer's state in the template): "
+              f"{n_h36m} tensors bit-equal")
+
+        # 13b. run_render --render_type val --eval at the default chunk ----
+        seen = {}
+
+        def path(*args, **kwargs):
+            seen["out"] = real_path(*args, **kwargs)
+            return seen["out"]
+
+        def image(*args, **kwargs):
+            out = real_image(*args, **kwargs)
+            seen.setdefault("frame", (args, kwargs, out))
+            seen.setdefault("rays", []).append(len(out["valid_idx"]))
+            return out
+
+        IMG.render_path, IMG.render_image = path, image
+        F.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        val_dir, _ = _quiet(RR.run_render, ["--nerf_args", args_txt, "--ckptpath",
+                                            runs["surreal_ckpt"], "--render_type", "val",
+                                            "--eval", "--outputdir", out_root, "--runname",
+                                            "val"], device=DEVICE)
+        val_s = time.perf_counter() - t0
+        peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+        got = launched()
+        IMG.render_image = real_image
+        out = seen["out"]
+        n_frames = len(out["rgbs"])
+        want_chunks = sum(-(-n // 65536) for n in seen["rays"])
+        check(n_frames == 2 and got["dual"] == got["field"] == rec["chunks"] == want_chunks
+              and rec["rays_max"] == min(65536, max(seen["rays"])),
+              f"run_render val: {n_frames} frames of {seen['rays']} rays, launches {got}, "
+              f"{rec['chunks']} chunks of at most {rec['rays_max']} rays")
+        val_chunks = rec["chunks"]
+        for name in ("psnr.txt", "ssim.txt", "scores.npy", "bboxes.npy"):
+            check(os.path.exists(os.path.join(val_dir, name)), f"run_render val: no {name}")
+        psnr = float(open(os.path.join(val_dir, "psnr.txt")).read())
+        for i in range(n_frames):
+            back = read_png(os.path.join(val_dir, "image", f"{i:05d}.png"))
+            check(back.dtype == np.uint8 and np.array_equal(back, u8(out["rgbs"][i])),
+                  f"run_render val: PNG {i} does not read back as the frame")
+        ev = {"frame": seen.pop("frame"), "render_factor": 0}
+        torch.cuda.empty_cache()
+        frame = check_val_frame(torch, F, IMG, RN, real_image, ev, "run_render",
+                                plain_fn=plain_chunk_fn(torch, IMG, cfg, PLAIN_SUB))
+        print(f"mine run_render val --eval (chunk 65536): {n_frames} frames of "
+              f"{out['rgbs'].shape[1]}^2 ({seen['rays']} rays) in {val_chunks} chunks, launches "
+              f"dual {got['dual']} field {got['field']} (one each a chunk); psnr {psnr}; every "
+              f"PNG reads back equal "
+              f"to its frame; the render's peak device memory above the weights "
+              f"{peak_gb:.2f} GiB")
+        print(f"mine run_render {frame}")
+
+        # 13c. bullet, then the mesh ----------------------------------------
+        rec["chunks"] = 0
+        F.reset_launches()
+        bullet_dir, _ = _quiet(RR.run_render, [
+            "--nerf_args", args_txt, "--ckptpath", runs["surreal_ckpt"], "--render_type",
+            "bullet", "--bullet_n", str(MINE_BULLET_N), "--outputdir", out_root, "--runname",
+            "bullet"], device=DEVICE)
+        got = launched()
+        pngs = sorted(os.listdir(os.path.join(bullet_dir, "image")))
+        check(len(pngs) == MINE_BULLET_N and got["dual"] == got["field"] == rec["chunks"] > 0,
+              f"run_render bullet: {len(pngs)} PNGs, launches {got}, {rec['chunks']} chunks")
+        for i, f in enumerate(pngs):
+            check(np.array_equal(read_png(os.path.join(bullet_dir, "image", f)),
+                                 u8(seen["out"]["rgbs"][i])), f"bullet PNG {f}")
+        bullet_chunks = rec["chunks"]
+        F.reset_launches()
+        mesh_dir, _ = _quiet(RR.run_render, [
+            "--nerf_args", args_txt, "--ckptpath", runs["surreal_ckpt"], "--render_type",
+            "mesh", "--mesh_res", str(MINE_MESH_RES), "--outputdir", out_root, "--runname",
+            "mesh"], device=DEVICE)
+        got = launched()
+        want = {k: int(k == "field") for k in got}
+        check(got == want and os.path.exists(os.path.join(mesh_dir, "mesh.ply")),
+              f"run_render mesh: launches {got} != {want} (one density-only launch)")
+        n_verts = int(next(x for x in open(os.path.join(mesh_dir, "mesh.ply"))
+                           if x.startswith("element vertex")).split()[-1])
+        print(f"mine run_render bullet: {MINE_BULLET_N} frames in {bullet_chunks} chunks (dual = "
+              f"field = chunks), every PNG equal to its frame; mesh at res {MINE_MESH_RES}: one "
+              f"density-only field launch, mesh.ply with {n_verts} vertices")
+
+        # 13d. render_testset on 20 annotated poses ------------------------
+        annot = os.path.join(out_root, "annot")
+        os.makedirs(annot)
+        rng = np.random.default_rng(0)
+        for i in range(2):
+            np.savez(os.path.join(annot, f"seq{i}.npz"), pose=(
+                rng.standard_normal((MINE_POSES // 2, 72)) * 0.2).astype(np.float32))
+        pipe = {"chunks": 0}
+
+        def pipelined(cfg_, params, H, W, focal, c2ws, ctxs, cyls, chunk, window=None, **kw):
+            n = [len(IMG.valid_box_for_pose(H, W, focal, c, cyl, window=window)[2])
+                 for c, cyl in zip(c2ws, cyls)]
+            pipe["chunks"] += sum(-(-k // chunk) for k in n)
+            pipe["chunk"] = chunk
+            return real_pipelined(cfg_, params, H, W, focal, c2ws, ctxs, cyls, chunk=chunk,
+                                  window=window, **kw)
+
+        GL.render_images_pipelined = pipelined
+        rec["chunks"] = 0
+        F.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts_dir, _ = _quiet(RT.main, ["--nerf_args", args_txt, "--ckptpath",
+                                     runs["surreal_ckpt"], "--annot_dir", annot, "--outputdir",
+                                     out_root, "--runname", "testset", "--render_hw",
+                                     str(MINE_TESTSET_HW)], device=DEVICE)
+        ts_s = time.perf_counter() - t0
+        got = launched()
+        pngs = sorted(os.listdir(os.path.join(ts_dir, "image")))
+        joints = np.load(os.path.join(ts_dir, "poses.npy"))
+        check(len(pngs) == MINE_POSES and joints.shape == (MINE_POSES, 24, 3)
+              and np.isfinite(joints).all(), f"render_testset: {len(pngs)} PNGs, {joints.shape}")
+        check(got["dual"] == got["field"] == rec["chunks"] == pipe["chunks"] > 0,
+              f"render_testset: launches {got}, {rec['chunks']} chunks rendered, "
+              f"{pipe['chunks']} in the frames' boxes")
+        print(f"mine render_testset: {MINE_POSES} poses, {MINE_POSES} PNGs and poses.npy, "
+              f"{pipe['chunks']} chunks of {pipe['chunk']} rays (dual = field = chunks)")
+
+        # 13e. run_gan with train_spin on the PNGs it writes ---------------
+        feedback = {"calls": 0, "frames": 0}
+
+        def fb_pipelined(*args, **kwargs):
+            before = dict(F.LAUNCHES)
+            n0 = pipe["chunks"]
+            frames = pipelined(*args, **kwargs)
+            got = {k: F.LAUNCHES[k] - before[k] for k in before}
+            want = {k: (pipe["chunks"] - n0 if k in ("dual", "field") else 0) for k in got}
+            check(got == want and pipe["chunk"] == MINE_GAN_CHUNK,
+                  f"run_gan feedback render {feedback['calls']}: launches {got} != {want}")
+            feedback.setdefault("first", (args, kwargs, frames))
+            feedback["calls"] += 1
+            feedback["frames"] += len(frames)
+            return frames
+
+        epochs, steps = [], []
+
+        def timed_epoch(self, batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = real_epoch(self, batches)
+            torch.cuda.synchronize()
+            epochs.append((time.perf_counter() - t0, len(batches)))
+            return stats
+
+        def timed_steps(**kw):
+            opt, step = real_step(**kw)
+
+            def timed(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*args)
+                check(math.isfinite(float(out[2]["spin_loss"])), "train_spin: a loss not finite")
+                torch.cuda.synchronize()
+                steps.append((time.perf_counter() - t0, args[3].shape[0]))
+                return out
+
+            return opt, timed
+
+        GL.render_images_pipelined = fb_pipelined
+        GL.GanTrainer.train_epoch, SD.make_spin_finetune_step = timed_epoch, timed_steps
+        gan_argv = ["--nerf_args", args_txt, "--ckptpath", runs["surreal_ckpt"], "--outputdir",
+                    out_root, "--runname", "gan", "--batch_size", str(MINE_GAN_BATCH), "--rpi",
+                    str(MINE_RPI), "--feedback_every", "1", "--feedback_start_epoch", "-1",
+                    "--chunk", str(MINE_GAN_CHUNK), "--probe_n", str(MINE_PROBE_N),
+                    "--render_hw", str(MINE_GAN_HW)]
+        pipe["chunks"] = rec["chunks"] = 0
+        F.reset_launches()
+        _, gan_out = _quiet(RG.main, gan_argv + ["--epochs", "1", "--train_spin_epochs",
+                                                 str(MINE_SPIN_EPOCHS)], device=DEVICE)
+        got = launched()
+        run_dir = os.path.join(out_root, "gan")
+        pool_iters = -(-4096 // MINE_GAN_BATCH)
+        n_rows = sum(len(np.load(p)) for p in _glob(run_dir, "poses_axis_angles*.npy"))
+        pngs = _glob(os.path.join(run_dir, "image"), "*.png")
+        check(feedback["calls"] == pool_iters + 1 and n_rows == MINE_RPI * pool_iters
+              and len(pngs) == n_rows and got["dual"] == got["field"] == pipe["chunks"] > 0,
+              f"run_gan: {feedback['calls']} feedback renders, {n_rows} pose rows, {len(pngs)} "
+              f"PNGs, launches {got}, {pipe['chunks']} chunks")
+        t0 = time.perf_counter()
+        for p in pngs:
+            img = read_png(p)
+            check(img.shape == (MINE_GAN_HW, MINE_GAN_HW, 3) and img.dtype == np.uint8,
+                  f"{p}: {img.shape}")
+        read_all_s = time.perf_counter() - t0
+        spin = os.path.join(run_dir, "spin_ckpts", "spin_000.npz")
+        gan0 = os.path.join(run_dir, "gan_ckpts", "gan_000.npz")
+        check(os.path.exists(spin) and os.path.exists(gan0), "run_gan: no spin_000 / gan_000")
+        check(len(steps) == MINE_SPIN_EPOCHS * (n_rows // MINE_SPIN_BATCH)
+              and all(b == MINE_SPIN_BATCH for _, b in steps), f"train_spin: steps {steps}")
+        recs = [json.loads(x) for x in open(os.path.join(run_dir, "epochs.jsonl"))]
+        check(len(recs) == 1 and math.isfinite(recs[0]["probe_mpjpe"]),
+              f"run_gan epochs.jsonl: {recs}")
+        gan_chunks, n_feedback = pipe["chunks"], feedback["calls"]
+        epoch_s, epoch_iters = epochs[0]
+        spin_steps = [t for t, _ in steps[1:]]  # warm steps: the first builds
+        # the first feedback call's first frames against the plain pipeline
+        # at the same chunk and window (its chunks of 2,097,152 points, the
+        # ragged last one of each frame too)
+        (fcfg, fparams, H, W, focal, c2ws, ctxs, cyls), fkw, fb_frames = feedback.pop("first")
+        n = COMPARE_FRAMES
+        rays = [len(IMG.valid_box_for_pose(H, W, focal, c, cyl, window=fkw["window"])[2])
+                for c, cyl in zip(c2ws[:n], cyls[:n])]
+        F.reset_launches()
+        with torch.no_grad():
+            plain = real_pipelined(fcfg, fparams, H, W, focal, c2ws[:n], ctxs[:n], cyls[:n],
+                                   chunk=fkw["chunk"], white_bkgd=fkw["white_bkgd"],
+                                   window=fkw["window"],
+                                   render_fn=plain_chunk_fn(torch, IMG, fcfg, PLAIN_SUB))
+        torch.cuda.synchronize()
+        check(all(v == 0 for v in F.LAUNCHES.values()),
+              f"run_gan plain feedback frames: launches {F.LAUNCHES}")
+        torch.cuda.empty_cache()
+        err_fb, n_out_fb = check_pipelined_frames(
+            torch, F, IMG, fcfg, fparams, fb_frames, plain, focal, c2ws, ctxs, cyls,
+            fkw["chunk"], fkw["window"], "run_gan feedback")
+        print(f"mine run_gan feedback call 0 vs the plain pipeline, frames 0-{n - 1} ({rays} "
+              f"rays in chunks of {fkw['chunk']}, the last of each frame "
+              f"{[r - (r - 1) // fkw['chunk'] * fkw['chunk'] for r in rays]}; kernel frames in "
+              f"f16, plain in f32): rgb max|diff| {err_fb:.3e}, {n_out_fb} rays past "
+              f"{RENDER_TOL} (each with a far-sigma sign change); background equal")
+        # the resume: a second main to 2 epochs starts at epoch 1
+        feedback["calls"] = 0
+        F.reset_launches()
+        _, resume_out = _quiet(RG.main, gan_argv + ["--epochs", "2"], device=DEVICE)
+        launched()
+        recs = [json.loads(x) for x in open(os.path.join(run_dir, "epochs.jsonl"))]
+        check("resumed from" in resume_out and "(epoch 1)" in resume_out
+              and [r["epoch"] for r in recs] == [0, 1] and feedback["calls"] == pool_iters + 1,
+              f"run_gan resume: epochs {[r['epoch'] for r in recs]}, {feedback['calls']} renders")
+        print(f"mine run_gan (batch {MINE_GAN_BATCH}, {epoch_iters} iterations, feedback every "
+              f"iteration, {MINE_RPI} renders, chunk {MINE_GAN_CHUNK}, probe {MINE_PROBE_N}): "
+              f"{n_feedback} feedback renders in {gan_chunks} chunks, dual = field = chunks; "
+              f"{len(pngs)} PNGs of {MINE_GAN_HW}^2 read back as ({MINE_GAN_HW}, {MINE_GAN_HW}, 3) "
+              f"uint8 (one pose row each); "
+              f"train_spin {len(steps)} steps of {MINE_SPIN_BATCH}, losses finite, spin_000.npz; "
+              f"gan_000.npz; probe_mpjpe {recs[0]['probe_mpjpe']}; the resume trained epoch 1")
+
+        # 13f. times ----------------------------------------------------------
+        frame = u8(out["rgbs"][0])
+        png = os.path.join(out_root, "timed.png")
+        png_ms = {}
+        for level in (1, 6):
+            ts = []
+            for _ in range(PNG_TIMED):
+                t0 = time.perf_counter()
+                write_png(png, frame, compress_level=level)
+                ts.append(1e3 * (time.perf_counter() - t0))
+            png_ms[level] = (statistics.median(ts), os.path.getsize(png))
+        ts = []
+        for _ in range(PNG_TIMED):
+            t0 = time.perf_counter()
+            read_png(png)
+            ts.append(1e3 * (time.perf_counter() - t0))
+        print(f"timing run_render val: {val_s:.4f} s for {n_frames} frames of "
+              f"{frame.shape[0]}^2 (load, render at chunk 65536 with f32 readback, metrics, "
+              f"PNG writes), {val_s / n_frames:.4f} s a frame [{card}]")
+        print(f"timing PNG codec ({frame.shape[0]}^2 RGB, median of {PNG_TIMED}, host): write_png "
+              f"level 1 {png_ms[1][0]:.3f} ms ({png_ms[1][1]} bytes), level 6 "
+              f"{png_ms[6][0]:.3f} ms ({png_ms[6][1]} bytes); read_png {statistics.median(ts):.3f} "
+              f"ms; the sink's {len(pngs)} frames read in {read_all_s:.3f} s [{card}]")
+        print(f"timing run_gan: epoch 0 {epoch_s:.4f} s for {epoch_iters} iterations "
+              f"({epoch_iters / epoch_s:.4f} it/s, {1e3 * epoch_s / epoch_iters:.3f} ms an "
+              f"iteration with feedback at chunk {MINE_GAN_CHUNK} and the PNG sink) beside phase "
+              f"11's feedback iteration {TIMES.get('gan_feedback_ms', float('nan')):.3f} ms "
+              f"(chunk {FRAME_CHUNK}, no sink) [{card}]")
+        if spin_steps:
+            print(f"timing train_spin: {statistics.median(spin_steps) * 1e3:.3f} ms a step "
+                  f"(median of the {len(spin_steps)} steps after the first, batch "
+                  f"{MINE_SPIN_BATCH}, 224^2) [{card}]")
+        print(f"timing render_testset: {MINE_POSES} frames of {MINE_TESTSET_HW}^2 in {ts_s:.4f} s, "
+              f"{MINE_POSES / ts_s:.4f} frames/s (load, render, PNG writes) [{card}]")
+    finally:
+        IMG._eval_maps, IMG.render_path, IMG.render_image = real_maps, real_path, real_image
+        GL.render_images_pipelined = real_pipelined
+        GL.GanTrainer.train_epoch, SD.make_spin_finetune_step = real_epoch, real_step
     return main_launches
+
+
+def _glob(d: str, pattern: str):
+    import glob
+
+    return sorted(glob.glob(os.path.join(d, pattern)))
 
 
 if __name__ == "__main__":

@@ -20,6 +20,7 @@ Camera: the fixed extrinsic of every feedback render (run_gan.py:
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
 import pickle
 import warnings
@@ -47,6 +48,7 @@ from posegen_tpu_torch.train.checkpoints import (
     _adam_flat, _adam_from_flat, _flatten, _unflatten_into,
 )
 from posegen_tpu_torch.train.trainer import param_leaves, trainable
+from posegen_tpu_torch.utils.png import write_png
 
 # fixed feedback camera (reference run_gan.py:2021-2028), ~65 deg yaw, 4.29 m out
 FEEDBACK_EXTRINSIC = np.array(
@@ -261,9 +263,9 @@ class GanTrainer:
 
     def _save_renders(self, imgs: np.ndarray, bones: np.ndarray) -> None:
         """(image, pose) dataset export (reference run_gan.py:2049-2059,
-        2333-2337: render_output/{run}/image/%05d.png + poses npys). The PNG
-        encodes run on a small writer pool (zlib releases the GIL); flush_sink
-        joins it."""
+        2333-2337: render_output/{run}/image/%05d.png + poses npys), written
+        by the port's own PNG codec (utils/png.py). The PNG encodes run on a
+        small writer pool (zlib releases the GIL); flush_sink joins it."""
         img_dir = os.path.join(self.cfg.output_dir, "image")
         os.makedirs(img_dir, exist_ok=True)
         if self._png_pool is None:
@@ -271,17 +273,12 @@ class GanTrainer:
 
             self._png_pool = ThreadPoolExecutor(max_workers=2)
 
-        def _write(path: str, img: np.ndarray) -> None:
-            import imageio.v2 as imageio
-
-            # compress_level 1: a faster zlib pass; the sink is a training
-            # dataset, size is cheaper than host stalls
-            imageio.imwrite(path, img, compress_level=1)
-
         u8 = (np.clip(imgs, 0, 1) * 255).astype(np.uint8)
         for i, img in enumerate(u8):
             path = os.path.join(img_dir, f"{self._render_count + i:05d}.png")
-            self._png_futs.append(self._png_pool.submit(_write, path, img))
+            # compress_level 1: a faster zlib pass; the sink is a training
+            # dataset, size is cheaper than host stalls
+            self._png_futs.append(self._png_pool.submit(write_png, path, img, 1))
         if len(self._png_futs) > 256:
             self.flush_sink()
         np.save(os.path.join(self.cfg.output_dir,
@@ -356,8 +353,11 @@ class GanTrainer:
 
     # -- checkpoint / resume: the JAX package's .npz, key for key (params, BN
     # state, both optimisers at optax's paths, the fake pool with its RNG
-    # state, the loop counters), but for the JAX PRNG `key`: the port keeps
-    # its torch generator's state under TORCH_GENERATOR_KEY --
+    # state, the loop counters), plus the torch generator's state under
+    # TORCH_GENERATOR_KEY, which the port's noises continue from. The JAX
+    # PRNG `key` (uint32[2], jax.random.PRNGKey's layout) is a hash of that
+    # state, so that the JAX package's GanTrainer loads the file and draws
+    # its own noises from there --
 
     TORCH_GENERATOR_KEY = "torch_generator_state"
 
@@ -377,6 +377,8 @@ class GanTrainer:
         flat["pool_rng_state"] = np.frombuffer(
             pickle.dumps(self.fake_pool.rng.bit_generator.state), np.uint8)
         flat[self.TORCH_GENERATOR_KEY] = self.generator.get_state().numpy()
+        digest = hashlib.sha256(flat[self.TORCH_GENERATOR_KEY].tobytes()).digest()
+        flat["key"] = np.frombuffer(digest[:8], np.uint32).copy()
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         np.savez(path, **flat)
         return path
@@ -400,7 +402,7 @@ class GanTrainer:
         self.fake_pool.rng.bit_generator.state = pickle.loads(raw["pool_rng_state"].tobytes())
         if self.TORCH_GENERATOR_KEY in raw:
             self.generator.set_state(torch.as_tensor(raw[self.TORCH_GENERATOR_KEY]))
-        if "key" in raw:
+        elif "key" in raw:
             warnings.warn(f"{path}: the JAX PRNG key is ignored; the noises continue from "
                           "this trainer's torch generator", stacklevel=2)
         return self

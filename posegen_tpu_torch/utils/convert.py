@@ -128,3 +128,16 @@ def hmr_from_numpy(params, state, device):
 
     return (trainable(params_from_numpy(tree_map(leaf, params), device)),
             params_from_numpy(state, device))
+
+
+def hmr_to_numpy(params, state):
+    """The port's HMR (params, bn_state) -> posegen_tpu's layout as host
+    arrays: the conv weights from OIHW to HWIO, the inverse of
+    `hmr_from_numpy` (the SPIN `.npz` files are the JAX package's)."""
+    from posegen_tpu_torch.train.trainer import tree_map
+
+    def leaf(t):
+        a = t.detach().cpu().numpy()
+        return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
+
+    return tree_map(leaf, params), tree_map(leaf, state)

@@ -172,11 +172,16 @@ def test_eval_slot_bytes():
 
 
 @pytest.mark.parametrize("n_pts,n_slots", [(1, 132), (127, 132), (128, 132), (129, 132),
-                                           (16016, 132), (131_056, 132), (300, 2)])
+                                           (16016, 132), (131_056, 132), (300, 2),
+                                           (524_288, 132), (2_097_152, 132), (4_194_304, 132)])
 def test_eval_tile_walk_covers_every_point_once(n_pts, n_slots):
     """The persistent grid: min(tiles, slots) blocks, block b walking tiles
     b, b + grid, ...: every point in exactly one tile, every tile whole but
-    the last."""
+    the last. The last three sizes: one dual launch of phase 10's, run_gan's
+    (32768 rays x 64 samples) and run_render's (65536 x 64) chunk; the
+    kernels index global memory per point (pts 3, raw 4 floats a point; the
+    encodings stay in each block's shared slot), in int, under 2^31."""
+    assert 4 * n_pts + 3 < 2 ** 31
     walk = tfield.eval_tile_walk(n_pts, n_slots)
     n_tiles = -(-n_pts // 128)
     assert len(walk) == min(n_tiles, n_slots)

@@ -657,13 +657,14 @@ def test_jax_checkpoint_loads_into_the_port_and_resumes():
 
 
 def test_port_checkpoint_round_trip_is_exact(tmp_path):
-    """The port's own file holds JAX's keys (but `key`) plus its generator
-    state, and restores every tensor, counter and RNG state bit for bit."""
+    """The port's own file holds JAX's keys plus its generator state, and
+    restores every tensor, counter and RNG state bit for bit."""
     trainer, _ = _port_loop()
     path = trainer.save_checkpoint(str(tmp_path / "gan.npz"))
     raw = np.load(path)
     jkeys = set(np.load(_jax_loop()["ckpt"]).files)
-    assert set(raw.files) == (jkeys - {"key"}) | {tloop.GanTrainer.TORCH_GENERATOR_KEY}
+    assert set(raw.files) == jkeys | {tloop.GanTrainer.TORCH_GENERATOR_KEY}
+    assert raw["key"].dtype == np.load(_jax_loop()["ckpt"])["key"].dtype
     fresh, _ = _port_trainer(load_init=False)
     fresh.load_checkpoint(path)
     for name in ("g_params", "g_state", "d_params"):
