@@ -211,6 +211,28 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               and read_png per 512^2 frame, run_gan's epoch beside phase 11's
               iteration, train_spin's warm steps (after the first),
               render_testset's frames/s.
+ 14. eval     SPIN's evaluation and SKI fine-tune at full width
+              (posegen_tpu_torch/evals/harness.py, gen/spin_driver.train_ski,
+              body/smpl.py): (a) the port's JPEG decoder on the fixtures of
+              tests/data/jpeg, each array's SHA-256 equal to the manifest's
+              (imageio's, where the fixtures were written), ms a 1080 x 1920
+              4:2:0 frame; (b) make_random_model(6890, 24, 10) and a random
+              17 x 6890 regressor, batch 32, vertices and joints card vs CPU
+              to 1e-5 relative L2; (c) SpinEvaluator.inference with the
+              ResNet-50 HMR at 224 on a 3DPW-schema set of 128 crops of the
+              full-size fixture (seeded centres, scales, poses, betas, mixed
+              genders; SMPL models of three seeds), no kernel launched,
+              every metric card vs CPU to 1e-4 relative with cuDNN TF32 off,
+              the shift with TF32 on printed; frames/s of the call by the
+              host clock split into decode, crop and device ms a batch; the
+              batch's device time and its Procrustes / SVD share by CUDA
+              events; (d) inference_joints on a SKI-schema set (64 PNGs of
+              256^2, labels.h5 by the port's write_h5) and a 3DHP-schema set
+              (32 crops), export_agora_predictions of 8 people whose pickles
+              read back; (e) train_ski 2 epochs of the 64 SKI samples at
+              batch 32: the first step's loss card vs CPU to 1e-2 (same
+              inputs and dropout masks), spin_ski_001.npz equal to the
+              trained params, ms a warm step.
 
 Before phase 1 it prints whether h5py, imageio, cv2 and PIL import
 (information only).
@@ -351,6 +373,19 @@ PNG_TIMED = 10  # write_png / read_png calls timed per 512^2 frame
 # with the chunk's near / far (the float32 pipeline's encodings of a whole
 # chunk overflow the card's 80 GB; 8192 is JAX's own clamp for it)
 PLAIN_SUB = 8192
+# phase 14: SPIN's evaluation on the four benchmark schemas and the SKI
+# fine-tune, at full width (posegen_tpu_torch/evals/harness.py,
+# gen/spin_driver.train_ski), on the committed JPEG fixtures
+FULL_FRAME = "frame_1080x1920_420.jpg"  # tests/data/jpeg's full-size frame
+JPEG_TIMED = 10  # decodes of the full-size frame timed
+SMPL_BATCH = 32
+EVAL_FRAMES, EVAL_BATCH = 128, 32  # 3DPW-schema crops of the full-size frame
+SKI_IMAGES, SKI_HW = 64, 256  # SKI-Pose's frames are 256^2 PNGs
+HP3D_FRAMES, AGORA_PEOPLE = 32, 8
+SKI_EPOCHS, SKI_BATCH = 2, 32  # train_ski on the 64 SKI samples: 2 steps an epoch
+SMPL_TOL = 1e-5  # SMPL vertices, card vs CPU: relative L2
+EVAL_TOL = 1e-4  # the evaluator's metrics, card (cuDNN TF32 off) vs CPU: relative
+SKI_LOSS_TOL = 1e-2  # train_ski's first step loss, card vs CPU: relative
 # figures that a later phase reads: phase 6's bare train step
 TIMES = {}
 DEVICE = "cuda"
@@ -829,6 +864,7 @@ def run(torch) -> int:
         cli_launches, cli_runs = cli_phases(torch, card, tmp)
         for k, n in mine_phases(torch, card, cli_runs).items():
             launches[k] += n
+        eval_phases(torch, card, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in launches:
@@ -3087,6 +3123,315 @@ def mine_phases(torch, card: str, runs):
         GL.render_images_pipelined = real_pipelined
         GL.GanTrainer.train_epoch, SD.make_spin_finetune_step = real_epoch, real_step
     return main_launches
+
+
+def eval_phases(torch, card: str, tmp: str):
+    """Phase 14, SPIN's evaluation and SKI fine-tune at full width: the JPEG
+    fixtures against their manifest, SMPL at its published shapes, the
+    SpinEvaluator's three entry points on synthetic sets in each
+    benchmark's schema, train_ski. No kernel of the port is on this path;
+    its launches are read and must stay 0."""
+    import hashlib
+    import json
+    import pickle
+    import statistics
+
+    import numpy as np
+
+    from posegen_tpu_torch.body.smpl import make_random_model
+    from posegen_tpu_torch.data.hdf5 import write_h5
+    from posegen_tpu_torch.evals import harness as H
+    from posegen_tpu_torch.evals.pose import procrustes_align
+    from posegen_tpu_torch.gen import spin_driver as SD
+    from posegen_tpu_torch.gen.hmr import init_hmr
+    from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.train.checkpoints import _flatten
+    from posegen_tpu_torch.train.trainer import trainable
+    from posegen_tpu_torch.utils import jpeg
+    from posegen_tpu_torch.utils.convert import hmr_to_numpy
+    from posegen_tpu_torch.utils.png import write_png
+
+    fixtures = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data", "jpeg")
+    root = os.path.join(tmp, "eval")
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.default_rng(14)
+
+    # 14a. the JPEG decoder on the fixtures ----------------------------------
+    t0 = time.perf_counter()
+    jpeg.get_lib()
+    build_s = time.perf_counter() - t0
+    with open(os.path.join(fixtures, "manifest.json")) as f:
+        manifest = json.load(f)
+    for name, entry in sorted(manifest.items()):
+        a = jpeg.read_jpeg(os.path.join(fixtures, name))
+        check(list(a.shape) == entry["shape"]
+              and hashlib.sha256(a.tobytes()).hexdigest() == entry["sha256"],
+              f"read_jpeg {name}: {a.shape} or its hash differs from the manifest")
+    full = os.path.join(fixtures, FULL_FRAME)
+    ts = []
+    for _ in range(JPEG_TIMED):
+        t0 = time.perf_counter()
+        jpeg.read_jpeg(full)
+        ts.append(1e3 * (time.perf_counter() - t0))
+    decode_ms = statistics.median(ts)
+    print(f"eval jpeg: the decoder built in {build_s:.1f} s; {len(manifest)} fixtures decode to "
+          f"their manifest's shapes and SHA-256 (imageio's arrays, where the fixtures were written)")
+    print(f"timing read_jpeg: {decode_ms:.3f} ms a 1080 x 1920 4:2:0 frame (median of "
+          f"{JPEG_TIMED}, min {min(ts):.3f}, host) [{card}]")
+
+    # 14b. SMPL at its published shapes, card vs CPU ------------------------
+    models = [make_random_model(6890, 24, 10, seed=s, device=DEVICE) for s in (0, 1, 2)]
+    models_cpu = [make_random_model(6890, 24, 10, seed=s, device="cpu") for s in (0, 1, 2)]
+    j_reg = rng.uniform(0, 1, (17, 6890)).astype(np.float32)
+    j_reg /= j_reg.sum(1, keepdims=True)
+    betas = rng.standard_normal((SMPL_BATCH, 10)).astype(np.float32)
+    pose = (rng.standard_normal((SMPL_BATCH, 72)) * 0.3).astype(np.float32)
+    args = [torch.as_tensor(a) for a in (betas, pose[:, 3:], pose[:, :3])]
+    with torch.no_grad():
+        got = models[0](*[a.to(DEVICE) for a in args])
+        ref = models_cpu[0](*args)
+        smpl_err = rel_l2(got["vertices"].cpu(), ref["vertices"])
+        joint_err = rel_l2(got["joints"].cpu(), ref["joints"])
+        check(smpl_err <= SMPL_TOL and joint_err <= SMPL_TOL,
+              f"SMPL card vs CPU: vertices {smpl_err:.3e}, joints {joint_err:.3e} > {SMPL_TOL}")
+        dev_args = [a.to(DEVICE) for a in args]
+        smpl_ms = cuda_ms(lambda: models[0](*dev_args), 20)
+    print(f"eval smpl: make_random_model(6890, 24, 10) (posedirs {tuple(models[0].posedirs.shape)}"
+          f"), batch {SMPL_BATCH}, card vs CPU relative L2: vertices {smpl_err:.3e}, joints "
+          f"{joint_err:.3e} (bound {SMPL_TOL})")
+
+    # 14c. SpinEvaluator.inference on a 3DPW-schema set ----------------------
+    pw = os.path.join(root, "3dpw")
+    os.makedirs(pw)
+    np.savez(os.path.join(pw, "downtown_walking_00.npz"),
+             imgname=np.array([FULL_FRAME] * EVAL_FRAMES),
+             center=np.stack([rng.uniform(500, 1400, EVAL_FRAMES),
+                              rng.uniform(350, 730, EVAL_FRAMES)], 1).astype(np.float32),
+             scale=rng.uniform(1.5, 4.0, EVAL_FRAMES).astype(np.float32),
+             pose=(rng.standard_normal((EVAL_FRAMES, 72)) * 0.2).astype(np.float32),
+             shape=(rng.standard_normal((EVAL_FRAMES, 10)) * 0.5).astype(np.float32),
+             gender=rng.choice(np.array(["m", "f"]), EVAL_FRAMES))
+    ds = H.pw3d_dataset(pw, fixtures)
+    hmr_p, hmr_s = init_hmr(torch.Generator().manual_seed(3), device=DEVICE)
+    ev = H.SpinEvaluator(hmr_p, hmr_s, *models, J_regressor=j_reg)
+    timers = {"decode": 0.0, "crop": 0.0, "device": 0.0}
+    real_read, real_crop, real_metrics = H.read_image, H.crop, ev._batch_metrics
+
+    def timed(key, fn, sync=False):
+        def run(*a, **k):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            if sync:
+                torch.cuda.synchronize()
+            timers[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    batches = []
+
+    def kept(it):
+        for b in it:
+            batches.append(b)
+            yield b
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    real_step = SD.make_ski_finetune_step
+    try:
+        with torch.inference_mode():  # cuDNN's first calls at these shapes, outside the timing
+            real_metrics(torch.zeros(EVAL_BATCH, 3, 224, 224, device=DEVICE),
+                         torch.zeros(EVAL_BATCH, 72, device=DEVICE),
+                         torch.zeros(EVAL_BATCH, 10, device=DEVICE),
+                         torch.zeros(EVAL_BATCH, dtype=torch.int32, device=DEVICE))
+        H.read_image, H.crop = timed("decode", real_read), timed("crop", real_crop)
+        ev._batch_metrics = timed("device", real_metrics, sync=True)
+        F.reset_launches()
+        t0 = time.perf_counter()
+        res, _ = _quiet(ev.inference, kept(ds.batches(EVAL_BATCH)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(F.LAUNCHES)
+        check(not any(launches.values()), f"evaluation launched kernels: {launches}")
+        H.read_image, H.crop = real_read, real_crop
+        del ev._batch_metrics
+        check(all(math.isfinite(v) for v in res.values()), f"inference: {res}")
+        ev_cpu = H.SpinEvaluator(_to(torch, hmr_p, "cpu"), _to(torch, hmr_s, "cpu"), *models_cpu,
+                                 J_regressor=j_reg)
+        res_cpu, _ = _quiet(ev_cpu.inference, batches)
+        errs = {k: abs(res[k] - res_cpu[k]) / max(abs(res_cpu[k]), 1e-12) for k in res}
+        check(max(errs.values()) <= EVAL_TOL,
+              f"inference card vs CPU: {errs} > {EVAL_TOL} (card {res}, CPU {res_cpu})")
+        torch.backends.cudnn.allow_tf32 = True
+        res_tf32, _ = _quiet(ev.inference, batches)
+        torch.backends.cudnn.allow_tf32 = False
+        shift = {k: abs(res_tf32[k] - res[k]) / max(abs(res[k]), 1e-12) for k in res}
+        n_b = len(batches)
+        print(f"eval inference ({EVAL_FRAMES} 3DPW-schema crops of the full-size JPEG, batch "
+              f"{EVAL_BATCH}, ResNet-50 HMR at 224, SMPL 6890 x 3 genders): launches {launches}; "
+              + ", ".join(f"{k} {v:.4f}" for k, v in res.items()))
+        print(f"  card vs CPU with cuDNN TF32 off: max relative {max(errs.values()):.3e} (bound "
+              f"{EVAL_TOL}; " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + ")")
+        print(f"  with PyTorch's default flags (cuDNN TF32 on): mpjpe moves {shift['mpjpe']:.3e} "
+              f"relative ({res_tf32['mpjpe']:.4f} mm), pa_mpjpe {shift['pa_mpjpe']:.3e}, "
+              f"posed_mesh_error {shift['posed_mesh_error']:.3e} (a figure, not a check)")
+
+        # the step's device time and the SVD's share of it
+        b = batches[0]
+        with torch.inference_mode():
+            dev_b = (ev._images(b["image"]), ev._upload(b["pose"]), ev._upload(b["betas"]),
+                     ev._upload(b["gender"]))
+            step_ms = cuda_ms(lambda: ev._batch_metrics(*dev_b), 10)
+            pj = torch.randn(EVAL_BATCH, 14, 3, device=DEVICE)
+            gj = torch.randn(EVAL_BATCH, 14, 3, device=DEVICE)
+            kmat = torch.randn(EVAL_BATCH, 3, 3, device=DEVICE)
+            align_ms = cuda_ms(lambda: procrustes_align(pj, gj), 20)
+            svd_ms = cuda_ms(lambda: torch.linalg.svd(kmat), 20)
+        print(f"timing eval inference: {EVAL_FRAMES / wall:.3f} frames/s ({wall:.3f} s for "
+              f"{EVAL_FRAMES} frames, host clock); a batch of {EVAL_BATCH}: decode "
+              f"{1e3 * timers['decode'] / n_b:.3f} ms, crop {1e3 * timers['crop'] / n_b:.3f} ms, "
+              f"device {1e3 * timers['device'] / n_b:.3f} ms (HMR + 5 SMPL + metrics, "
+              f"synchronised), the rest {1e3 * (wall - sum(timers.values())) / n_b:.3f} ms "
+              f"(normalise, stack, upload, read-back) [{card}]")
+        print(f"timing eval batch on the card (CUDA events, TF32 off): {step_ms:.3f} ms; its "
+              f"Procrustes alignment ({EVAL_BATCH} x 14 joints) {align_ms:.3f} ms "
+              f"({align_ms / step_ms:.1%}), of which one batched 3 x 3 torch.linalg.svd "
+              f"{svd_ms:.3f} ms ({svd_ms / step_ms:.1%} of the batch); SMPL forward "
+              f"(batch {SMPL_BATCH}) {smpl_ms:.3f} ms [{card}]")
+
+        # 14d. inference_joints on SKI and 3DHP schemas, the AGORA export ----
+        ski_root = os.path.join(root, "ski")
+        split = os.path.join(ski_root, "train2", "train")
+        seq, cam, frame = (np.arange(SKI_IMAGES) // 16 + 1, (np.arange(SKI_IMAGES) // 4) % 4,
+                           np.arange(SKI_IMAGES) % 4)
+        yy, xx = np.mgrid[:SKI_HW, :SKI_HW]
+        for i in range(SKI_IMAGES):
+            d = os.path.join(split, f"seq_{seq[i]:03d}", f"cam_{cam[i]:02d}")
+            os.makedirs(d, exist_ok=True)
+            img = np.stack([(xx + 7 * i) % 256, (yy + 3 * i) % 256, (xx + yy) // 2 % 256], -1)
+            write_png(os.path.join(d, f"image_{frame[i]:06d}.png"), img.astype(np.uint8),
+                      compress_level=1)
+        write_h5(os.path.join(split, "labels.h5"), {
+            "seq": seq.astype(np.int64), "cam": cam.astype(np.int64),
+            "frame": frame.astype(np.int64),
+            "3D": (rng.standard_normal((SKI_IMAGES, 51)) * 0.3).astype(np.float32),
+            "2D": rng.uniform(0, 1, (SKI_IMAGES, 34)).astype(np.float32)})
+        t0 = time.perf_counter()
+        ski, _ = _quiet(ev.inference_joints,
+                        H.SkiDataset(ski_root, "train2/train").batches(EVAL_BATCH),
+                        H.SKI_PRED_J14)
+        ski_s = time.perf_counter() - t0
+        np.savez(os.path.join(root, "mpi_inf_3dhp_valid.npz"),
+                 imgname=np.array([FULL_FRAME] * HP3D_FRAMES),
+                 center=np.stack([rng.uniform(500, 1400, HP3D_FRAMES),
+                                  rng.uniform(350, 730, HP3D_FRAMES)], 1).astype(np.float32),
+                 scale=rng.uniform(1.5, 4.0, HP3D_FRAMES).astype(np.float32),
+                 S=(rng.standard_normal((HP3D_FRAMES, 24, 4)) * 0.3).astype(np.float32))
+        t0 = time.perf_counter()
+        hp, _ = _quiet(ev.inference_joints, H.Hp3dDataset(
+            os.path.join(root, "mpi_inf_3dhp_valid.npz"), fixtures).batches(EVAL_BATCH),
+            H.H36M_TO_J17)
+        hp_s = time.perf_counter() - t0
+        check(all(math.isfinite(v) for v in (*ski.values(), *hp.values())),
+              f"inference_joints: SKI {ski}, 3DHP {hp}")
+        ag = os.path.join(root, "agora")
+        os.makedirs(ag)
+        y, x = np.mgrid[:720, :1280]
+        entries = []
+        for i in range(AGORA_PEOPLE):
+            name = f"ag_{i // 4}.png"
+            if i % 4 == 0:
+                write_png(os.path.join(ag, name), np.stack(
+                    [x * 255 // 1280, y * 255 // 720, (x + 2 * y + 40 * i) % 256], -1
+                ).astype(np.uint8), compress_level=1)
+            c = rng.uniform([300, 200], [980, 520])
+            entries.append({"image_name": name, "2dpose": (c + rng.uniform(-120, 120, (1, 17, 2))
+                                                           ).astype(np.float32)})
+        with open(os.path.join(root, "dets.pkl"), "wb") as f:
+            pickle.dump(entries, f)
+        t0 = time.perf_counter()
+        n_pkl = ev.export_agora_predictions(H.AgoraDataset(ag, os.path.join(root, "dets.pkl")),
+                                            os.path.join(root, "agora_out"))
+        ag_s = time.perf_counter() - t0
+        pkls = _glob(os.path.join(root, "agora_out"), "*.pkl")
+        check(n_pkl == AGORA_PEOPLE == len(pkls), f"AGORA export: {n_pkl} people, {len(pkls)} pkls")
+        for path in pkls:
+            with open(path, "rb") as f:
+                d = pickle.load(f)
+            check({k: v.shape for k, v in d.items()} == {"joints": (24, 2), "verts": (6890, 3),
+                                                         "allSmplJoints3d": (24, 3)}
+                  and all(np.isfinite(v).all() for v in d.values()), f"{path}: {d.keys()}")
+        print(f"eval inference_joints: SKI schema ({SKI_IMAGES} PNGs of {SKI_HW}^2, labels.h5 by "
+              f"write_h5, INTER_AREA to 224) {ski_s:.3f} s: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ski.items())
+              + f"; 3DHP schema ({HP3D_FRAMES} crops of the JPEG) {hp_s:.3f} s: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in hp.items()))
+        print(f"eval AGORA export: {AGORA_PEOPLE} people in {-(-AGORA_PEOPLE // 4)} PNGs of "
+              f"720 x 1280, {len(pkls)} "
+              f"pickles read back (joints (24, 2), verts (6890, 3), allSmplJoints3d (24, 3), "
+              f"finite) in {ag_s:.3f} s [{card}]")
+
+        # 14e. train_ski ------------------------------------------------------
+        steps = []
+
+        def recorded(smpl, J_regressor, **kw):
+            opt, step = real_step(smpl, J_regressor, **kw)
+
+            def rec(params, state, opt_state, images, gt, masks):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(params, state, opt_state, images, gt, masks)
+                loss = float(out[2]["spin_loss"])
+                steps.append({"s": time.perf_counter() - t0, "loss": loss})
+                if len(steps) == 1:
+                    steps[0]["inputs"] = (images.cpu(), gt.cpu(),
+                                          [tuple(m.cpu() for m in pair) for pair in masks])
+                return out
+
+            return opt, rec
+
+        SD.make_ski_finetune_step = recorded
+        ski_p, ski_s_ = init_hmr(torch.Generator().manual_seed(4), device=DEVICE)
+        evals = []
+        t0 = time.perf_counter()
+        (params, hist), _ = _quiet(SD.train_ski, ski_p, ski_s_, ski_root, models[0], j_reg,
+                                   epochs=SKI_EPOCHS, batch_size=SKI_BATCH,
+                                   ckpt_dir=os.path.join(root, "ski_ckpt"),
+                                   evaluator=lambda p, s: evals.append(1) or {"n": len(evals)})
+        ski_train_s = time.perf_counter() - t0
+        SD.make_ski_finetune_step = real_step
+        n_steps = SKI_EPOCHS * (SKI_IMAGES // SKI_BATCH)
+        check(len(steps) == n_steps and len(evals) == SKI_EPOCHS
+              and all(math.isfinite(h["ski_loss"]) for h in hist),
+              f"train_ski: {len(steps)} steps, {len(evals)} evaluations, history {hist}")
+        images, gt, masks = steps[0]["inputs"]
+        opt, step = real_step(models_cpu[0], j_reg, lr=5e-5)
+        p_cpu = trainable(_to(torch, ski_p, "cpu"))
+        _, _, stats = step(p_cpu, _to(torch, ski_s_, "cpu"), opt.init(p_cpu), images, gt, masks)
+        loss_cpu = float(stats["spin_loss"])
+        loss_err = abs(steps[0]["loss"] - loss_cpu) / max(abs(loss_cpu), 1e-12)
+        check(loss_err <= SKI_LOSS_TOL, f"train_ski first step's loss card {steps[0]['loss']} vs "
+              f"CPU {loss_cpu}: {loss_err:.3e} > {SKI_LOSS_TOL}")
+        ck = dict(np.load(os.path.join(root, "ski_ckpt", f"spin_ski_{SKI_EPOCHS - 1:03d}.npz")))
+        p_np, s_np = hmr_to_numpy(params, ski_s_)
+        flat = _flatten({"params": p_np, "state": s_np})
+        check(sorted(ck) == sorted(flat) and all(np.array_equal(ck[k], flat[k]) for k in flat),
+              "spin_ski npz: its arrays differ from the trained params")
+        warm = [st["s"] for st in steps[1:]]
+        print(f"eval train_ski: {SKI_EPOCHS} epochs of {SKI_IMAGES} SKI samples at batch "
+              f"{SKI_BATCH} ({len(steps)} steps, losses "
+              + ", ".join(f"{st['loss']:.5f}" for st in steps)
+              + f"), the evaluator hook once an epoch; first step's loss card vs CPU "
+              f"{loss_err:.3e} (bound {SKI_LOSS_TOL}); spin_ski_{SKI_EPOCHS - 1:03d}.npz reads "
+              f"back equal to the trained params ({len(flat)} arrays, JAX's keys)")
+        print(f"timing train_ski: {1e3 * statistics.median(warm):.3f} ms a step (median of the "
+              f"{len(warm)} after the first, synchronised; the first {1e3 * steps[0]['s']:.3f} "
+              f"ms), {ski_train_s:.3f} s for the call with its data [{card}]")
+    finally:
+        H.read_image, H.crop = real_read, real_crop
+        SD.make_ski_finetune_step = real_step
+        torch.backends.cudnn.allow_tf32 = tf32
 
 
 def _glob(d: str, pattern: str):

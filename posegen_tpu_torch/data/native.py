@@ -18,16 +18,15 @@ substituted by one that returns None, as the tests do.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from pathlib import Path
 from typing import Dict, Optional
 
 import numpy as np
 
+from posegen_tpu_torch.utils import hostlib
+
 SRC = Path(__file__).resolve().parent / "csrc" / "host_sampler.cpp"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "posegen_tpu_torch"
+BUILD_DIR = hostlib.BUILD_DIR
 CXX_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC", "-std=c++17")
 
 _I64P = ctypes.POINTER(ctypes.c_int64)
@@ -37,41 +36,13 @@ _F32P = ctypes.POINTER(ctypes.c_float)
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _host_cpu() -> bytes:
-    """The host CPU's model and feature flags: a -march=native build runs
-    only on the CPU it was built for, so they name the library too."""
-    try:
-        with open("/proc/cpuinfo", "rb") as f:
-            lines = f.read().split(b"\n\n")[0].splitlines()
-    except OSError:
-        return b""
-    return b"".join(l for l in lines if l.startswith((b"model name", b"flags")))
-
-
 def library_path() -> Path:
-    h = hashlib.sha256(SRC.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    h.update(_host_cpu())
-    return BUILD_DIR / f"libposegen_host_{h.hexdigest()[:16]}.so"
+    return hostlib.library_path(SRC, BUILD_DIR, "libposegen_host", CXX_FLAGS)
 
 
 def build() -> Path:
     """Compile the sampler unless the hashed library exists -> its path."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = ["g++", *CXX_FLAGS, str(SRC), "-o", str(tmp)]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as e:
-        raise RuntimeError(f"native sampler build failed: {' '.join(cmd)}: {e}") from e
-    if proc.returncode != 0:
-        raise RuntimeError(f"native sampler build failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out
+    return hostlib.build(SRC, BUILD_DIR, "libposegen_host", CXX_FLAGS, "native sampler")
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:

@@ -9,9 +9,9 @@ Capability parity with the reference's data plumbing:
   * `mpii_nerf_dataset` mixing MPII crops with renders at a 1:frac ratio
     (run_gan.py:1657-1720).
 
-Host code, as in the JAX package: images are read by the port's PNG codec
-(`utils/png.read_png`; a file of another format, such as MPII's JPEGs,
-raises ValueError naming it), resized by cv2's uint8 INTER_LINEAR rule
+Host code, as in the JAX package: images are read by the port's readers
+(`utils/images.read_image`: PNG, and baseline JPEG such as MPII's by the
+port's own decoder), resized by cv2's uint8 INTER_LINEAR rule
 (`data/imutils.resize_linear_u8`), and the pose targets come from
 `gen/loop.fk_joints` on the CPU.
 """
@@ -28,7 +28,7 @@ import torch
 
 from posegen_tpu_torch.data.imutils import normalize_for_spin, resize_linear_u8
 from posegen_tpu_torch.gen.loop import fk_joints
-from posegen_tpu_torch.utils.png import read_png
+from posegen_tpu_torch.utils.images import read_image
 
 
 def _joints(bones: np.ndarray, pose_scale: float) -> np.ndarray:
@@ -108,7 +108,7 @@ class RenderedPoseDataset:
     def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
         if self._cache is not None and i in self._cache:
             return self._cache[i]
-        img = read_png(os.path.join(self.img_dir, f"{i:05d}.png"))[..., :3]
+        img = read_image(os.path.join(self.img_dir, f"{i:05d}.png"))[..., :3]
         lo, hi = self.crop
         img = resize_linear_u8(img[lo:hi, lo:hi], (self.res, self.res))
         item = {"image": normalize_for_spin(img),
@@ -128,8 +128,7 @@ class RenderedPoseDataset:
 class MPIIPoseDataset:
     """MPII crops with SMPL pose annotations (reference mpii_nerf_dataset's
     MPII half, run_gan.py:1657-1692): square crop around (center, scale),
-    FK'd 24-joint targets at pose_scale. The images must be PNGs here:
-    JPEG decoding is not ported (ROADMAP.md)."""
+    FK'd 24-joint targets at pose_scale."""
 
     def __init__(self, annot_path: str, img_dir: str, res: int = 224,
                  pose_scale: float = 0.4):
@@ -146,7 +145,7 @@ class MPIIPoseDataset:
         return len(self.imgname)
 
     def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
-        img = read_png(os.path.join(self.img_dir, self.imgname[i]))[..., :3]
+        img = read_image(os.path.join(self.img_dir, self.imgname[i]))[..., :3]
         c, s = self.center[i], self.scale[i] * 200.0
         x1 = int(np.clip(c[0] - s / 2, 0, img.shape[1]))
         x2 = int(np.clip(c[0] + s / 2, 0, img.shape[1]))

@@ -1,5 +1,5 @@
-"""SPIN fine-tuning driver over generated renders (+ optional MPII mix)
-(port of posegen_tpu/gen/spin_driver.py::train_spin).
+"""SPIN fine-tuning drivers: over generated renders (+ optional MPII mix),
+and on SKI-Pose (port of posegen_tpu/gen/spin_driver.py).
 
 Capability parity with reference `train_spin` (run_gan.py:1849-1952): epochs
 over the NeRF-rendered (image, pose) dataset with the hinge-filtered
@@ -7,9 +7,9 @@ scale-normalized joint loss, optional MPII passes (no hinge), periodic 3DPW
 evaluation, checkpoints per epoch. The steps are gen/spin_train.py's, on
 the device of the SPIN params; the datasets are host code. The dropout
 masks come from a torch generator seeded `seed` on that device (the JAX
-driver splits a PRNG key). The per-epoch `spin_{epoch:03d}.npz` files are
-the JAX package's: its keys, its HWIO conv weights. `train_ski` waits for evals/harness.py
-(ROADMAP.md, Queue 1 item 9).
+driver splits a PRNG key). The per-epoch `spin_{epoch:03d}.npz` /
+`spin_ski_{epoch:03d}.npz` files are the JAX package's: its keys, its HWIO
+conv weights.
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import torch
 
 from posegen_tpu_torch.gen.datasets import MPIIPoseDataset, RenderedPoseDataset
 from posegen_tpu_torch.gen.hmr import dropout_masks
-from posegen_tpu_torch.gen.spin_train import make_spin_finetune_step
+from posegen_tpu_torch.gen.spin_train import make_ski_finetune_step, make_spin_finetune_step
 from posegen_tpu_torch.train.checkpoints import _flatten
 from posegen_tpu_torch.train.trainer import trainable
 from posegen_tpu_torch.utils.convert import hmr_to_numpy
@@ -97,5 +97,62 @@ def train_spin(
             # the JAX package's file: its keys, its (HWIO) conv layout
             p_np, s_np = hmr_to_numpy(spin_params, spin_state)
             np.savez(os.path.join(ckpt_dir, f"spin_{epoch:03d}.npz"),
+                     **_flatten({"params": p_np, "state": s_np}))
+    return spin_params, history
+
+
+def train_ski(
+    spin_params: Dict,
+    spin_state: Dict,
+    ski_root: str,
+    smpl_neutral,
+    J_regressor,
+    split: str = "train2/train",  # reference's train split path (:2677)
+    epochs: int = 1,
+    batch_size: int = 32,
+    lr: float = 5e-5,
+    res: int = 224,
+    ckpt_dir: Optional[str] = None,
+    evaluator=None,
+    seed: int = 0,
+):
+    """Fine-tune SPIN on SKI-Pose 3D-joint GT (reference train_ski,
+    render_3dpw_testset.py:2659-2775): shuffled epochs over the SKI train
+    split (numpy's default_rng(seed + epoch) permutation) with the
+    mesh-regressed scale-matched MPJPE loss, per-epoch eval hook (the
+    reference calls evaluate_ski). smpl_neutral: a port SMPLModel, moved to
+    the device of the SPIN params. Returns (params, history)."""
+    from posegen_tpu_torch.evals.harness import SkiDataset
+
+    ds = SkiDataset(ski_root, split=split, res=res)
+    if len(ds) == 0:
+        raise FileNotFoundError(f"no SKI samples under {ski_root}/{split}")
+    spin_params = trainable(spin_params)
+    dev = spin_params["conv1"]["w"].device
+    opt, step = make_ski_finetune_step(smpl_neutral.to(dev), J_regressor, lr=lr)
+    opt_state = opt.init(spin_params)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    history = []
+    for epoch in range(epochs):
+        idxs = np.random.default_rng(seed + epoch).permutation(len(ds))
+        losses = []
+        for s in range(0, len(idxs) - batch_size + 1, batch_size) or [0]:
+            items = [ds[int(i)] for i in idxs[s : s + batch_size]]
+            images = torch.as_tensor(np.stack([it["image"] for it in items])).to(dev)
+            gts = torch.as_tensor(np.stack([it["pose_3d"] for it in items])).to(dev)
+            images = images.permute(0, 3, 1, 2)
+            _, opt_state, stats = step(spin_params, spin_state, opt_state, images, gts,
+                                       dropout_masks(gen, images.shape[0]))
+            losses.append(float(stats["spin_loss"]))
+        entry = {"epoch": epoch, "ski_loss": float(np.mean(losses)) if losses else 0.0}
+        if evaluator is not None:  # reference: evaluate_ski per epoch (:2775)
+            entry["eval"] = evaluator(spin_params, spin_state)
+        history.append(entry)
+        print(f"ski epoch {epoch}: {entry}")
+        if ckpt_dir:
+            os.makedirs(ckpt_dir, exist_ok=True)
+            p_np, s_np = hmr_to_numpy(spin_params, spin_state)
+            np.savez(os.path.join(ckpt_dir, f"spin_ski_{epoch:03d}.npz"),
                      **_flatten({"params": p_np, "state": s_np}))
     return spin_params, history

@@ -141,3 +141,22 @@ def hmr_to_numpy(params, state):
         return a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
 
     return tree_map(leaf, params), tree_map(leaf, state)
+
+
+# ---------------------------------------------------------------------------
+# body models (body/)
+# ---------------------------------------------------------------------------
+
+def smpl_from_numpy(model, device):
+    """A posegen_tpu SMPLModel (its leaves as arrays) -> the port's
+    `body.smpl.SMPLModel` on `device`, the same constants, parents and
+    faces."""
+    from posegen_tpu_torch.body.smpl import SMPLModel
+
+    extra = getattr(model, "extra_joint_regressor", None)
+    return SMPLModel(
+        v_template=np.asarray(model.v_template), shapedirs=np.asarray(model.shapedirs),
+        posedirs=np.asarray(model.posedirs), J_regressor=np.asarray(model.J_regressor),
+        parents=np.asarray(model.parents), lbs_weights=np.asarray(model.lbs_weights),
+        faces=model.faces, extra_joint_regressor=None if extra is None else np.asarray(extra),
+    ).to(device)

@@ -218,6 +218,8 @@ def test_pools_match_jax(tmp_path):
 
 
 def test_mpii_refuses_jpegs_by_name(tmp_path):
+    """A broken JPEG (SOI, then an APP0 segment of length 0) raises naming
+    the file; MPII's valid JPEGs load (tests/test_torch_harness.py)."""
     (tmp_path / "im.jpg").write_bytes(b"\xff\xd8\xff\xe0" + b"\x00" * 64)
     np.savez(tmp_path / "mpii.npz", pose=np.zeros((1, 72), np.float32), imgname=["im.jpg"],
              center=np.zeros((1, 2), np.float32), scale=np.ones(1, np.float32))
