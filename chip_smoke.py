@@ -234,7 +234,32 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               inputs and dropout masks), spin_ski_001.npz equal to the
               trained params, ms a warm step.
 
-Before phase 1 it prints whether h5py, imageio, cv2 and PIL import
+ 15. ingest   the data front on raw trees at the datasets' own sizes
+              (posegen_tpu_torch/data/ingest.py, masks.py, segmenter.py,
+              bench_loader.py): (a) a SURREAL render dump (2 sequences x 16
+              poses x 4 cameras of 512^2: metadata.pkl, segm .mat by scipy,
+              PNGs by write_png) through ingest.main on the card, its H5 key
+              for key against ingest_surreal on the CPU (images, masks and
+              integer arrays equal, float arrays to 1e-5 relative L2, at most
+              1e-4 of the sampling-mask pixels, pruned by the float32
+              cylinders, differing), then run_nerf.train with surreal.txt on
+              that file for 30 steps (--num_workers 0; field_stash 2,
+              field_bwd 2 a step) and
+              its val frame (dual = field = chunks) against the plain pipeline
+              by phase 3's flip rule; (b) an H36M-shaped tree (4 cameras x 8
+              frames of 1000^2 cut from the 1080p fixture, one camera of 1002
+              rows, PNGs; the SPIN and mask h5 files by write_h5): DeepLab-v3
+              (random weights) over the 32 frames on the card, its logits at
+              513^2 card vs CPU (TF32 off) to 1e-4 relative L2 and every
+              person-mask pixel that differs within that tolerance of a top-2
+              tie, masks_from_background (the mask file's masks), ingest.main,
+              an H5RayDataset batch; (c) a ZJU tree (4 views x 4 frames of
+              1024^2, k1 -0.2 .. -0.26) through ingest_zju with
+              make_random_model(6890, 24, 10) on the card against the CPU by
+              (a)'s rule; (d) bench_loader (a subprocess, native and numpy,
+              --num_workers 0 and 16) on (a)'s file; the times of each.
+
+Before phase 1 it prints whether h5py, imageio, cv2, PIL and tensorboard import
 (information only).
 The last two lines of standard output are one JSON object of per-kernel
 numbers and one JSON object naming the device. Without a CUDA device, or
@@ -386,6 +411,18 @@ SKI_EPOCHS, SKI_BATCH = 2, 32  # train_ski on the 64 SKI samples: 2 steps an epo
 SMPL_TOL = 1e-5  # SMPL vertices, card vs CPU: relative L2
 EVAL_TOL = 1e-4  # the evaluator's metrics, card (cuDNN TF32 off) vs CPU: relative
 SKI_LOSS_TOL = 1e-2  # train_ski's first step loss, card vs CPU: relative
+# phase 15: the data front (posegen_tpu_torch/data/ingest.py, masks.py,
+# segmenter.py, bench_loader.py) on raw trees at the datasets' own sizes
+ING_SEQS, ING_POSES, ING_CAMS, ING_HW, ING_FOCAL = 2, 16, 4, 512, 640.0  # SURREAL: 128 images
+ING_ITERS = 30  # run_nerf steps on the ingested SURREAL file
+ING_POSE_TOL = 1e-5  # the pose block, card vs CPU: relative L2
+ING_SMASK_FRAC = 1e-4  # sampling-mask pixels allowed to differ, card vs CPU (see phase 15a)
+H36M_CAMS, H36M_FRAMES, H36M_HW = 4, 8, 1000  # 32 crops of the 1080p fixture, one camera 1002 rows
+SEG_HW = 513  # the DeepLab logits' card-vs-CPU frame
+SEG_TOL = 1e-4  # DeepLab logits, card (TF32 off) vs CPU: relative L2
+ZJU_VIEWS, ZJU_FRAMES, ZJU_HW = 4, 4, 1024
+UNDISTORT_TIMED = 3
+LOADER_WORKERS = (0, 16)  # bench_loader's --num_workers (the loader caps them at cores - 1)
 # figures that a later phase reads: phase 6's bare train step
 TIMES = {}
 DEVICE = "cuda"
@@ -666,9 +703,11 @@ def run(torch) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    marks = [("start", time.perf_counter())]
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print("modules (information only): " + ", ".join(
-        f"{name} {module_version(name)}" for name in ("h5py", "imageio", "cv2", "PIL")))
+        f"{name} {module_version(name)}"
+        for name in ("h5py", "imageio", "cv2", "PIL", "tensorboard")))
 
     # 1. build -------------------------------------------------------------
     from posegen_tpu_torch.data import native
@@ -851,26 +890,37 @@ def run(torch) -> int:
             print(f"timing kernel {name} {tag} ({P} points): {k_ms:.3f} ms, bound {b_ms:.3f} ms "
                   f"({b_by}, {b_ms / k_ms:.1%} of it), plain {p_ms:.3f} ms [{card}]")
 
+    marks.append(("1-4", time.perf_counter()))
     train_rows, train_err, train_launches, train_library, train_floors = train_phases(torch, card)
+    marks.append(("5-6", time.perf_counter()))
     pose_row, pose_err, pose_launches = pose_phases(torch, card)
+    marks.append(("7-8", time.perf_counter()))
     variant_row, variant_err, variant_launches = variant_phases(torch, card)
+    marks.append(("9", time.perf_counter()))
     image_launches, variables = image_phases(torch, card, render_ms)
+    marks.append(("10", time.perf_counter()))
     for k, n in image_launches.items():
         launches[k] += n
     for k, n in gan_phases(torch, card, variables).items():
         launches[k] += n
+    marks.append(("11", time.perf_counter()))
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
         cli_launches, cli_runs = cli_phases(torch, card, tmp)
+        marks.append(("12", time.perf_counter()))
         for k, n in mine_phases(torch, card, cli_runs).items():
             launches[k] += n
+        marks.append(("13", time.perf_counter()))
         eval_phases(torch, card, tmp)
+        marks.append(("14", time.perf_counter()))
+        ingest_launches = ingest_phases(torch, card, tmp)
+        marks.append(("15", time.perf_counter()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in launches:
-        launches[k] += cli_launches[k]
+        launches[k] += cli_launches[k] + ingest_launches[k]
     for k in ("field_stash", "field_bwd"):
-        train_launches[k] += cli_launches[k]
+        train_launches[k] += cli_launches[k] + ingest_launches[k]
     pose_launches += cli_launches["field_bwd_inputs"]
 
     by_name = {(r[0], r[1]): r for r in rows}
@@ -925,6 +975,8 @@ def run(torch) -> int:
         "launches": variant_launches, "max_abs_err": variant_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     })
+    print("timing phases (host clock, s): " + ", ".join(
+        f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in enumerate(marks[1:])))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -2330,6 +2382,7 @@ def _steps_window(torch, F, TR, rec):
         def counted(state, batch, generator=None):
             i = state.step
             rec.setdefault("first", i)
+            rec.setdefault("t_first", time.perf_counter())
             if i == CLI_TIMED[0]:
                 torch.cuda.synchronize()
                 rec["t0"] = time.perf_counter()
@@ -3432,6 +3485,382 @@ def eval_phases(torch, card: str, tmp: str):
         H.read_image, H.crop = real_read, real_crop
         SD.make_ski_finetune_step = real_step
         torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _same_ingest(tag: str, got, ref) -> str:
+    """Two ingests' H5 datasets (read_h5), card against CPU: every image,
+    mask and integer array equal, every float array to ING_POSE_TOL relative
+    L2. The sampling masks are pruned by the float32 cylinders' radius
+    (ingest._prune_sampling_masks_by_cylinder: a pixel whose ray passes
+    within rounding of it may flip), so they, and the index lists drawn
+    from them, may differ in at most ING_SMASK_FRAC of their pixels ->
+    a summary."""
+    import numpy as np
+
+    check(sorted(got) == sorted(ref), f"{tag}: keys {sorted(got)} != {sorted(ref)}")
+    sm, sm_ref = got["sampling_masks"], ref["sampling_masks"]
+    check(sm.shape == sm_ref.shape, f"{tag} sampling_masks: {sm.shape} vs {sm_ref.shape}")
+    n_smask = int((sm != sm_ref).sum())
+    check(n_smask <= ING_SMASK_FRAC * sm.size,
+          f"{tag} sampling_masks: {n_smask} of {sm.size} pixels differ")
+    f_err = 0.0
+    for k in sorted(ref):
+        a, b = np.asarray(got[k]), np.asarray(ref[k])
+        if k in ("sampling_masks", "sampling_idxs", "sampling_idx_offsets") and n_smask:
+            continue  # the index lists follow the masks
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"{tag} {k}: {a.dtype} {a.shape} vs the CPU's {b.dtype} {b.shape}")
+        if np.issubdtype(b.dtype, np.floating):
+            e = float(np.linalg.norm((a - b).astype(np.float64))
+                      / max(float(np.linalg.norm(b.astype(np.float64))), 1e-30))
+            check(e <= ING_POSE_TOL, f"{tag} {k}: card vs CPU relative L2 {e:.3e} > "
+                                     f"{ING_POSE_TOL}")
+            f_err = max(f_err, e)
+        else:
+            check(np.array_equal(a, b), f"{tag} {k}: {int((a != b).sum())} values differ")
+    return (f"{len(ref)} keys; images, masks and integer arrays equal, float arrays within "
+            f"relative L2 {f_err:.3e} (bound {ING_POSE_TOL}); {n_smask} sampling-mask pixels "
+            f"differ")
+
+
+def ingest_phases(torch, card: str, tmp: str):
+    """Phase 15, the data front on raw trees at the datasets' own sizes:
+    (a) a SURREAL render dump ingested by the CLI on the card and on the
+    CPU, then trained through run_nerf; (b) an H36M-shaped tree segmented by
+    DeepLab-v3, background-differenced and ingested; (c) a ZJU tree with
+    real-magnitude distortion ingested on the card and on the CPU; (d) the
+    loader benchmark. -> launches of every kernel on its main path (the
+    training steps and the val render of (a))."""
+    import pickle
+    import statistics
+
+    import numpy as np
+    from scipy.io import savemat
+
+    from posegen_tpu_torch.body.smpl import make_random_model
+    from posegen_tpu_torch.cli import run_nerf as RN
+    from posegen_tpu_torch.data import catalog as CAT
+    from posegen_tpu_torch.data import ingest as ING
+    from posegen_tpu_torch.data import masks as MK
+    from posegen_tpu_torch.data import segmenter as SG
+    from posegen_tpu_torch.data.h5dataset import H5RayDataset, RayBatchLoader
+    from posegen_tpu_torch.data.hdf5 import read_h5, write_h5
+    from posegen_tpu_torch.data.imutils import undistort_u8
+    from posegen_tpu_torch.data.loaders import SURREAL_DATASET_EXT_SCALE, SURREAL_ROT_GLOB
+    from posegen_tpu_torch.data.synthetic import _look_at_c2w
+    from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.render import image as IMG
+    from posegen_tpu_torch.skeleton.cameras import nerf_c2w_to_extrinsic, world_to_cam
+    from posegen_tpu_torch.skeleton.kinematics import smpl_l2ws
+    from posegen_tpu_torch.skeleton.rotations import axisang_to_rot
+    from posegen_tpu_torch.skeleton.skeleton import SMPL_REST_POSE
+    from posegen_tpu_torch.train import trainer as TR
+    from posegen_tpu_torch.utils.jpeg import read_jpeg
+    from posegen_tpu_torch.utils.png import write_png
+
+    t_phase = time.perf_counter()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(tmp, "ingest")
+    os.makedirs(root)
+    rng = np.random.default_rng(15)
+    launches = {k: 0 for k in F.LAUNCHES}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    real_make, counted_make = None, None
+    try:
+        # 15a. SURREAL: a render dump in the real layout ---------------------
+        # posed joints and cameras in the ingested (NeRF) world, written in
+        # SURREAL's: the ingest scales raw units by s and rotates by SURREAL_ROT_GLOB
+        s = SURREAL_DATASET_EXT_SCALE * 0.001
+        rot4 = np.eye(4, dtype=np.float32)
+        rot4[:3, :3] = SURREAL_ROT_GLOB
+        raw = os.path.join(root, "surreal_raw")
+        yy, xx = torch.meshgrid(torch.arange(ING_HW, dtype=torch.float32, device=DEVICE),
+                                torch.arange(ING_HW, dtype=torch.float32, device=DEVICE),
+                                indexing="ij")
+        colors = torch.as_tensor(rng.uniform(0.3, 1.0, (24, 1, 1, 3)) * 255, dtype=torch.float32,
+                                 device=DEVICE)
+        sigma = 2.5 * ING_HW / 64.0
+        t0 = time.perf_counter()
+        for si in range(ING_SEQS):
+            poses = (rng.standard_normal((ING_POSES, 24, 3)) * 0.15).astype(np.float32)
+            with torch.no_grad():
+                kp = smpl_l2ws(torch.as_tensor(poses),
+                               rest_pose=torch.as_tensor(SMPL_REST_POSE * s))[..., :3, 3].numpy()
+            centre = kp[:, 0].mean(0)
+            thetas = np.linspace(0, 2 * np.pi, ING_CAMS, endpoint=False) + si * np.pi / ING_CAMS
+            c2ws = np.stack([_look_at_c2w(centre + np.array([4.5 * np.cos(t), 0.3, 4.5 * np.sin(t)],
+                                                            np.float32), centre) for t in thetas])
+            cams_raw = rot4[None] @ c2ws
+            cams_raw[:, :3, 3] /= s
+            seq = os.path.join(raw, f"seq{si:02d}_0")
+            sub = os.path.join(seq, "0-1")
+            os.makedirs(os.path.join(sub, "imageSequences"))
+            segm = np.zeros((ING_CAMS * ING_POSES, ING_HW, ING_HW), np.uint8)
+            for c in range(ING_CAMS):
+                ext = nerf_c2w_to_extrinsic(c2ws[c])
+                for k in range(ING_POSES):
+                    pix = torch.as_tensor(world_to_cam(kp[k], ext, ING_HW, ING_HW, ING_FOCAL),
+                                          dtype=torch.float32, device=DEVICE)
+                    blob = torch.exp(-((yy - pix[:, 1, None, None]) ** 2
+                                       + (xx - pix[:, 0, None, None]) ** 2) / (2 * sigma ** 2))
+                    img = (blob[..., None] * colors).sum(0).clamp(0, 255).to(torch.uint8)
+                    write_png(os.path.join(sub, "imageSequences", f"{c * ING_POSES + k:04d}.png"),
+                              img.cpu().numpy(), compress_level=1)
+                    segm[c * ING_POSES + k] = (blob.amax(0) > 0.05).cpu().numpy()
+            savemat(os.path.join(sub, "001_segm.mat"), {"data": segm})
+            with open(os.path.join(seq, "metadata.pkl"), "wb") as f:
+                pickle.dump({"focal": ING_FOCAL, "int_scale": 1.0, "render_type": f"ring{si}",
+                             "cams": cams_raw, "N_kp": ING_POSES, "N_cams": ING_CAMS,
+                             "N_cam_per_subdir": ING_CAMS, "joints3D": (kp @ SURREAL_ROT_GLOB) / s,
+                             "poses": poses.reshape(ING_POSES, 72)}, f)
+        n_surreal = ING_SEQS * ING_POSES * ING_CAMS
+        tree_s = time.perf_counter() - t0
+        path = CAT.resolve_h5_path(CAT.DataConfig(dataset="surreal", subject="female",
+                                                  data_root=root))
+        os.makedirs(os.path.dirname(path))
+        t0 = time.perf_counter()
+        _quiet(ING.main, ["surreal", raw, path], device=DEVICE)
+        torch.cuda.synchronize()
+        surreal_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ING.ingest_surreal(raw, os.path.join(root, "surreal_cpu.h5"), device="cpu")
+        surreal_cpu_s = time.perf_counter() - t0
+        got = read_h5(path)[0]
+        check(got["imgs"].shape == (n_surreal, ING_HW, ING_HW, 3)
+              and int(got["masks"].sum()) > 0, f"ingested surreal: imgs {got['imgs'].shape}")
+        surreal_cmp = _same_ingest("ingest surreal", got,
+                                   read_h5(os.path.join(root, "surreal_cpu.h5"))[0])
+        print(f"ingest surreal: a render dump of {ING_SEQS} sequences x {ING_POSES} poses x "
+              f"{ING_CAMS} cameras of {ING_HW}^2 (metadata.pkl, segm .mat, PNGs; written in "
+              f"{tree_s:.1f} s) through ingest.main on the card, against ingest_surreal on the "
+              f"CPU: {surreal_cmp}")
+
+        steps = {"steps": 0, "want": STEP_LAUNCHES}
+        evals = {"calls": 0}
+        real_make, counted_make = _steps_window(torch, F, TR, steps)
+        reals, counted_eval = _eval_window(torch, F, IMG, RN, evals)
+        TR.make_train_step, RN.evaluate_testset = counted_make, counted_eval
+        # the loader in its thread: phase 12 runs the CLI with its 16 workers,
+        # whose start costs each call about 50 s (PERF.md section 5)
+        argv = ["--config", "configs/surreal/surreal.txt",
+                "--datadir", os.path.join(root, "surreal"), "--basedir", os.path.join(root, "logs"),
+                "--n_iters", str(ING_ITERS), "--i_testset", str(ING_ITERS),
+                "--i_weights", str(ING_ITERS), "--i_print", "10", "--i_video", "0",
+                "--num_workers", "0"]
+        F.reset_launches()
+        t0 = time.perf_counter()
+        _, losses, _ = _train_cli(torch, RN, argv)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        start_s = steps["t_first"] - t0
+        for k in launches:
+            launches[k] += F.LAUNCHES[k]
+        check(steps["steps"] == ING_ITERS and steps.get("first") == 0,
+              f"ingested surreal run: {steps['steps']} steps from {steps.get('first')}")
+        check(len(losses) == ING_ITERS // 10 and all(map(math.isfinite, losses)),
+              f"ingested surreal run: printed losses {losses}")
+        ev = dict(evals)
+        want = {k: 0 for k in F.LAUNCHES}
+        want.update(dual=ev["chunks"], field=ev["chunks"])
+        check(ev["calls"] == 1 and ev["launches"] == want,
+              f"ingested surreal val: {ev['calls']} calls, launches {ev.get('launches')} != {want}")
+        frame = check_val_frame(torch, F, IMG, RN, reals[2], ev, "ingested surreal")
+        TR.make_train_step, RN.evaluate_testset = real_make, reals[0]
+        IMG._eval_maps, IMG.render_image = reals[1], reals[2]
+        real_make = None
+        print(f"ingest surreal run: surreal.txt on the ingested file (--num_workers 0), "
+              f"{ING_ITERS} steps "
+              f"(launches per step {STEP_LAUNCHES}), losses {losses}, val {ev['frames']} frames "
+              f"in {ev['chunks']} chunks (dual = field = chunks), {train_s:.1f} s in all, "
+              f"{start_s:.1f} s of it from the call to the first step")
+        print(f"ingest surreal {frame}")
+
+        # 15b. H36M: DeepLab, background differencing, ingest ------------------
+        full = read_jpeg(os.path.join(repo, "tests", "data", "jpeg", FULL_FRAME))
+        flipped = np.ascontiguousarray(full[::-1, ::-1])
+        hdir = os.path.join(root, "h36m_raw")
+        os.makedirs(os.path.join(hdir, "images"))
+        offs = [(0, 0), (40, 300), (80, 600), (10, 900)]  # camera 3 has 1002-row frames
+        plates, frames, paths = [], [], []
+        for c, (y, x) in enumerate(offs[:H36M_CAMS]):
+            tall = c == H36M_CAMS - 1
+            src = full[y:y + H36M_HW + 2 * tall, x:x + H36M_HW]
+            plates.append(src[1:-1] if tall else src)
+            for f in range(H36M_FRAMES):  # a 'person': a block of the flipped frame, walking
+                img = src.copy()
+                py, px = H36M_HW * 3 // 10 + 20 * f, H36M_HW // 10 + H36M_HW * 9 // 100 * f
+                ph, pw = H36M_HW * 2 // 5, H36M_HW // 5
+                img[py:py + ph, px:px + pw] = flipped[py:py + ph, px:px + pw]
+                p = f"images/Walking-{ING.H36M_CAMERAS[c]}_{f:05d}.png"
+                write_png(os.path.join(hdir, p), img, compress_level=1)
+                paths.append(p)
+                frames.append(img[1:-1] if tall else img)
+        frames = np.stack(frames)
+        plate_of = np.stack([plates[i // H36M_FRAMES] for i in range(len(frames))])
+        n_h36m = len(frames)
+
+        segment = SG.deeplab_person_segmenter(device=DEVICE)  # random weights, seed 0
+        segment(frames[0])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        person = np.stack([segment(f) for f in frames])
+        seg_s = time.perf_counter() - t0
+        pc, sc = SG.init_deeplab(torch.Generator().manual_seed(0), device=DEVICE)
+        ph_, sh_ = SG.init_deeplab(torch.Generator().manual_seed(0), device="cpu")
+        x = (frames[0][:SEG_HW, :SEG_HW].astype(np.float32) / 255.0 - SG._IMAGENET_MEAN) \
+            / SG._IMAGENET_STD
+        x = torch.from_numpy(np.ascontiguousarray(x.transpose(2, 0, 1)[None]))
+        with torch.no_grad():
+            lg_card = SG.deeplab_logits(pc, sc, x.to(DEVICE)).cpu()
+            lg_cpu = SG.deeplab_logits(ph_, sh_, x)
+        seg_err = rel_l2(lg_card, lg_cpu)
+        check(seg_err <= SEG_TOL, f"DeepLab logits card vs CPU: relative L2 {seg_err:.3e} > "
+                                  f"{SEG_TOL}")
+        top2 = lg_cpu[0].topk(2, dim=0).values
+        knife = (top2[0] - top2[1]) <= SEG_TOL * float(lg_cpu.abs().max())
+        person_of = [lg[0].argmax(0) == SG.PERSON_CLASS for lg in (lg_card, lg_cpu)]
+        flips = person_of[0] != person_of[1]
+        check(not bool((flips & ~knife).any()),
+              f"DeepLab person mask card vs CPU: {int((flips & ~knife).sum())} pixels differ "
+              "beyond the logits' tolerance")
+        t0 = time.perf_counter()
+        bg = MK.masks_from_background(frames, plate_of)
+        mask_ms = (time.perf_counter() - t0) * 1e3 / n_h36m
+        check(all(int(m.sum()) > 0 for m in bg), "masks_from_background: an empty mask")
+        # random DeepLab weights mark next to no pixel as a person, so the
+        # mask file holds the background-differenced masks
+        write_h5(os.path.join(hdir, "S9_mask_deeplab_crop.h5"), {"masks": bg[..., 0]})
+        np.save(os.path.join(hdir, "S9_clean_bkgds.npy"), np.stack(plates))
+        aa = (rng.standard_normal((n_h36m, 24, 3)) * 0.2).astype(np.float32)
+        write_h5(os.path.join(hdir, "S9_SPIN_rect_output-maxmin.h5"), {
+            "pred_betas": (rng.standard_normal((n_h36m, 10)) * 0.3).astype(np.float32),
+            "pred_rot_mat": axisang_to_rot(torch.from_numpy(aa)).numpy(),
+            "bbox_params": np.tile(np.float32([H36M_HW / 2, H36M_HW / 2, H36M_HW * 0.8]),
+                                   (n_h36m, 1)),
+            "pred_camera": np.stack([np.full(n_h36m, 0.9), rng.uniform(-0.1, 0.1, n_h36m),
+                                     np.full(n_h36m, 0.1)], -1).astype(np.float32),
+            "joints": (rng.standard_normal((n_h36m, 49, 3)) * 0.3).astype(np.float32),
+            "img_path": np.array([p.encode() for p in paths]),
+        })
+        hout = os.path.join(root, "h36m_S9.h5")
+        t0 = time.perf_counter()
+        _quiet(ING.main, ["h36m", hdir, hout, "--subject", "S9"], device=DEVICE)
+        torch.cuda.synchronize()
+        h36m_s = time.perf_counter() - t0
+        ds = H5RayDataset(hout, n_rays_per_image=48)
+        try:
+            check(ds.n_images == n_h36m and (ds.H, ds.W) == (H36M_HW, H36M_HW),
+                  f"ingested h36m: {ds.n_images} images of {ds.H} x {ds.W}")
+            batch = RayBatchLoader(ds, n_images_per_batch=n_h36m, seed=0).make_batch()
+        finally:
+            ds.close()
+        check(batch["rays_o"].shape == (n_h36m * 48, 3)
+              and all(np.isfinite(v).all() for v in batch.values()
+                      if np.issubdtype(np.asarray(v).dtype, np.floating)),
+              f"ingested h36m batch: rays_o {batch['rays_o'].shape}")
+        print(f"ingest h36m: {n_h36m} frames of {H36M_HW}^2 over {H36M_CAMS} cameras (one of "
+              f"{H36M_HW + 2} rows, cut by the ingest), crops of {FULL_FRAME} as PNGs, the SPIN "
+              f"and mask h5 files by write_h5; DeepLab-v3 (random weights, seed 0) marks "
+              f"{float(person.mean()):.2e} of the pixels person, so the mask file holds "
+              f"masks_from_background's ({float(bg.mean()):.4f} foreground); logits at "
+              f"{SEG_HW}^2 card vs CPU (TF32 off) relative L2 {seg_err:.3e} (bound {SEG_TOL}), "
+              f"{int(flips.sum())} person-mask pixels differ, each within the tolerance of a "
+              f"top-2 tie; ingest.main on the card, H5RayDataset batch of "
+              f"{batch['rays_o'].shape[0]} rays")
+
+        # 15c. ZJU: undistortion and the SMPL conversion ------------------------
+        sp = os.path.join(root, "zju_raw", "CoreView_377")
+        os.makedirs(os.path.join(sp, "params"))
+        Ks, Ds, Rs, Ts, ims = [], [], [], [], []
+        for c in range(ZJU_VIEWS):
+            f = 1120.0 + 10 * c
+            Ks.append(np.array([[f, 0, ZJU_HW / 2 + 3 * c], [0, f * 1.001, ZJU_HW / 2 - 2 * c],
+                                [0, 0, 1]]))
+            Ds.append(np.array([[-0.2 - 0.02 * c], [0.1], [1e-3], [-1e-3], [0.0]]))
+            Rs.append(axisang_to_rot(torch.tensor([0.0, 2 * np.pi * c / ZJU_VIEWS, 0.0],
+                                                  dtype=torch.float64)).numpy())
+            Ts.append(np.array([[0.0], [0.0], [2800.0]]))
+        for fi in range(ZJU_FRAMES):
+            frame = []
+            for v in range(ZJU_VIEWS):
+                p = f"images/Camera_B{v + 1}/{fi:06d}.png"
+                os.makedirs(os.path.join(sp, os.path.dirname(p)), exist_ok=True)
+                y, x = 8 * fi, min(200 * v + 20 * fi, full.shape[1] - ZJU_HW)
+                write_png(os.path.join(sp, p), full[y:y + ZJU_HW, x:x + ZJU_HW],
+                          compress_level=1)
+                mp = p.replace("images", "mask")
+                os.makedirs(os.path.join(sp, os.path.dirname(mp)), exist_ok=True)
+                m = np.zeros((ZJU_HW, ZJU_HW), np.uint8)
+                m[ZJU_HW // 5:ZJU_HW * 4 // 5, ZJU_HW * 2 // 5:ZJU_HW * 3 // 5] = 255
+                write_png(os.path.join(sp, mp), m, compress_level=1)
+                frame.append(p)
+            ims.append({"ims": frame})
+            np.save(os.path.join(sp, "params", f"{fi}.npy"), {
+                "poses": (rng.standard_normal((1, 72)) * 0.2).astype(np.float32),
+                "shapes": (rng.standard_normal((1, 10)) * 0.5).astype(np.float32),
+                "Rh": (rng.standard_normal((1, 3)) * 0.2).astype(np.float32),
+                "Th": (rng.standard_normal((1, 3)) * 0.3).astype(np.float32),
+            })
+        np.save(os.path.join(sp, "annots.npy"),
+                {"cams": {"K": Ks, "D": Ds, "R": Rs, "T": Ts}, "ims": ims})
+        n_zju = ZJU_VIEWS * ZJU_FRAMES
+        zout, zcpu = os.path.join(root, "zju_377.h5"), os.path.join(root, "zju_377_cpu.h5")
+        views = tuple(range(ZJU_VIEWS))
+        model = make_random_model(6890, 24, 10, seed=0, device=DEVICE)
+        t0 = time.perf_counter()
+        ING.ingest_zju(os.path.dirname(sp), zout, subject="377", smpl_model=model,
+                       training_views=views, device=DEVICE)
+        torch.cuda.synchronize()
+        zju_s = time.perf_counter() - t0
+        ING.ingest_zju(os.path.dirname(sp), zcpu, subject="377",
+                       smpl_model=make_random_model(6890, 24, 10, seed=0, device="cpu"),
+                       training_views=views, device="cpu")
+        zgot = read_h5(zout)[0]
+        check(zgot["imgs"].shape == (n_zju, ZJU_HW, ZJU_HW, 3), f"zju imgs {zgot['imgs'].shape}")
+        zju_cmp = _same_ingest("ingest zju", zgot, read_h5(zcpu)[0])
+        src = full[:ZJU_HW, :ZJU_HW]
+        ts = []
+        for _ in range(UNDISTORT_TIMED):
+            t0 = time.perf_counter()
+            undistort_u8(src, Ks[0], Ds[0].reshape(-1))
+            ts.append((time.perf_counter() - t0) * 1e3)
+        print(f"ingest zju: {ZJU_VIEWS} views x {ZJU_FRAMES} frames of {ZJU_HW}^2 (k1 -0.2 .. "
+              f"{-0.2 - 0.02 * (ZJU_VIEWS - 1):.2f}), make_random_model(6890, 24, 10) on the "
+              f"card, against the CPU: {zju_cmp}")
+
+        # 15d. the loader benchmark, in a process that initialises no CUDA
+        # (its numpy variant's workers must fork) ---------------------------
+        loader = []
+        for w in LOADER_WORKERS:
+            out = subprocess.run(
+                [sys.executable, "-m", "posegen_tpu_torch.data.bench_loader", "--h5", path,
+                 "--num_workers", str(w)], cwd=repo, capture_output=True, text=True, timeout=600)
+            check(out.returncode == 0, f"bench_loader --num_workers {w}: {out.stderr[-2000:]}")
+            rows = [json.loads(x) for x in out.stdout.splitlines() if x.startswith("{")]
+            check([r["variant"] for r in rows] == ["native", "numpy"],
+                  f"bench_loader --num_workers {w}: {out.stdout[-2000:]}")
+            loader += rows
+        for r in loader:
+            print(f"timing bench_loader {r['variant']}, --num_workers {r['num_workers']} "
+                  f"({r['workers_started']} started): {r['batches_per_s']:.3f} batches/s, "
+                  f"{r['rays_per_s']:.1f} rays/s ({r['n_rand']} rays over {r['n_sample_images']} "
+                  f"of the ingested {ING_HW}^2 images, host) [{card}]")
+        print(f"timing ingest (host clock, per 100 images): surreal "
+              f"{surreal_s / n_surreal * 100:.3f} s on the card, {surreal_cpu_s / n_surreal * 100:.3f} s on the CPU; h36m "
+              f"{h36m_s / n_h36m * 100:.3f} s; zju {zju_s / n_zju * 100:.3f} s [{card}]")
+        print(f"timing segmenter: DeepLab-v3 {n_h36m / seg_s:.3f} frames/s at {H36M_HW}^2 (TF32 "
+              f"off, host normalisation and readback included) [{card}]")
+        print(f"timing undistort_u8: {statistics.median(ts):.3f} ms a {ZJU_HW}^2 RGB frame "
+              f"(median of {UNDISTORT_TIMED}, host); masks_from_background {mask_ms:.3f} ms a "
+              f"{H36M_HW}^2 frame (host) [{card}]")
+        print(f"timing phase 15: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+        if real_make is not None:
+            TR.make_train_step, RN.evaluate_testset = real_make, reals[0]
+            IMG._eval_maps, IMG.render_image = reals[1], reals[2]
+    return launches
 
 
 def _glob(d: str, pattern: str):

@@ -28,7 +28,10 @@ so it computes cv2 5.0's own rules, bit-equal in this package's tests:
   * float (`resize_linear`): float64 weights and sums, cv2's float64 path
     (which `crop`'s float64 canvas takes) to within an ulp of the result:
     cv2 contracts one product into a fused multiply-add.
-`rot_aa` takes cv2.Rodrigues' rules in numpy (float64).
+`rot_aa` takes cv2.Rodrigues' rules in numpy (float64). `undistort_u8` is
+cv2.undistort of a uint8 image (the ZJU ingest's), bit-equal: cv2's
+fixed-point map (positions rounded to 1/32 pixel) and its 15-bit bilinear
+remap; a float remap differs from it in most values.
 """
 
 from __future__ import annotations
@@ -179,6 +182,101 @@ def resize_area_u8(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
         acc = acc + rows[yi[:, j]] * yw[:, j, None, None]
     out = np.clip(np.rint(acc), 0, 255).astype(np.uint8)
     return out.reshape((h, w) + img.shape[2:])
+
+
+_TAB_BITS = 5  # cv2's INTER_BITS: map positions in 1/32 pixel
+_TAB = 1 << _TAB_BITS
+_REMAP_BITS = 15  # cv2's INTER_REMAP_COEF_BITS: remap weights in 1/32768
+
+
+def _bilinear_tab() -> np.ndarray:
+    """cv2's (32 * 32, 4) table of 15-bit bilinear weights: cell (fy, fx)
+    holds round(32768 * the float32 products (1 - y)(1 - x), (1 - y) x,
+    y (1 - x), y x) at x = fx / 32, y = fy / 32. cv2 corrects a cell whose
+    rounded weights do not sum to 32768; at these fractions every product
+    is a whole number of 1/32768 (32 (32 - fx)(32 - fy) and the like), so
+    no cell needs it, which the table checks."""
+    t = (np.arange(_TAB, dtype=np.float32) * np.float32(1.0 / _TAB))
+    one = np.stack([np.float32(1.0) - t, t], -1)  # (32, 2): 1 - x, x
+    w = one[:, None, :, None] * one[None, :, None, :]  # (fy, fx, ky, kx)
+    tab = np.rint(w * np.float32(1 << _REMAP_BITS)).astype(np.int64).reshape(_TAB * _TAB, 4)
+    if not (tab.sum(1) == 1 << _REMAP_BITS).all():
+        raise AssertionError("bilinear table: a cell's weights do not sum to 32768")
+    return tab
+
+
+def _undistort_map(K: np.ndarray, D: np.ndarray, H: int, W: int):
+    """cv2.undistort's map of an H x W image: cv2 builds it in stripes of
+    min(max(1, 4096 // W), H) rows, each stripe's through
+    initUndistortRectifyMap(K, D, I, K', ...) in float64, K' being K with its
+    principal point's row moved up by the stripe's first row; a position u
+    becomes cvRound(u * 32) (to the nearest even), split into its integer
+    part and a 5 + 5 bit fraction index (CV_16SC2 + CV_16UC1) ->
+    (sx, sy, frac), int64 (H, W)."""
+    K = np.asarray(K, np.float64).reshape(3, 3)
+    d = np.asarray(D, np.float64).reshape(-1)
+    if d.size not in (0, 4, 5):
+        raise ValueError(f"undistort_u8: {d.size} distortion coefficients (k1, k2, p1, p2[, k3] "
+                         "are supported)")
+    k1, k2, p1, p2, k3 = np.concatenate([d, np.zeros(5 - d.size)]) if d.size else np.zeros(5)
+    fx, fy, u0, v0 = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+    stripe = min(max(1, 4096 // max(W, 1)), H)
+    j = np.arange(W, dtype=np.float64)
+    us, vs = [], []
+    for y in range(0, H, stripe):
+        n = min(stripe, H - y)
+        Kr = K.copy()
+        Kr[1, 2] = v0 - y
+        ir = np.linalg.inv(Kr).reshape(-1)
+        i = np.arange(n, dtype=np.float64)[:, None]
+        _x = i * ir[1] + ir[2] + j * ir[0]
+        _y = i * ir[4] + ir[5] + j * ir[3]
+        _w = i * ir[7] + ir[8] + j * ir[6]
+        w = 1.0 / _w
+        x, yy = _x * w, _y * w
+        x2, y2 = x * x, yy * yy
+        r2 = x2 + y2
+        _2xy = 2 * x * yy
+        kr = 1 + ((k3 * r2 + k2) * r2 + k1) * r2
+        xd = x * kr + p1 * _2xy + p2 * (r2 + 2 * x2)
+        yd = yy * kr + p1 * (r2 + 2 * y2) + p2 * _2xy
+        us.append(fx * xd + u0)
+        vs.append(fy * yd + v0)
+    lim = float(np.iinfo(np.int32).max)
+    iu = np.rint(np.clip(np.concatenate(us) * _TAB, -lim - 1, lim)).astype(np.int64)
+    iv = np.rint(np.clip(np.concatenate(vs) * _TAB, -lim - 1, lim)).astype(np.int64)
+    # the integer parts are stored as int16: cv2's (short) cast wraps
+    sx = (iu >> _TAB_BITS).astype(np.int16).astype(np.int64)
+    sy = (iv >> _TAB_BITS).astype(np.int16).astype(np.int64)
+    frac = (iv & (_TAB - 1)) * _TAB + (iu & (_TAB - 1))
+    return sx, sy, frac
+
+
+def undistort_u8(img: np.ndarray, K: np.ndarray, D: np.ndarray) -> np.ndarray:
+    """cv2.undistort(img, K, D) of a uint8 (H, W) or (H, W, C) image (C 1 or
+    3), bit-equal: the fixed-point map of `_undistort_map`, then cv2's
+    bilinear remap on it (INTER_LINEAR, BORDER_CONSTANT 0): the four taps
+    of (sx, sy) weighted by the table cell of its fraction index,
+    (sum + (1 << 14)) >> 15 to uint8, a tap outside the image reading 0.
+    D holds k1, k2, p1, p2 and optionally k3 (ZJU's five); more raises. An
+    (H, W, 1) image comes back (H, W), as cv2 returns it."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3) or (img.ndim == 3 and
+                                                          img.shape[2] not in (1, 3)):
+        raise ValueError(f"undistort_u8 takes uint8 (H, W[, 1 | 3]) images, not "
+                         f"{img.dtype} {img.shape}")
+    H, W = img.shape[:2]
+    sx, sy, frac = _undistort_map(K, D, H, W)
+    # a one-pixel border of zeros: a tap outside the image is clipped onto
+    # it, so it reads 0
+    src = np.pad(img.reshape(H, W, -1), ((1, 1), (1, 1), (0, 0))).reshape((H + 2) * (W + 2), -1)
+    w = _bilinear_tab().astype(np.int32)[frac]  # (H, W, 4); sums stay below 2^31
+    acc = np.zeros((H, W, src.shape[1]), np.int32)
+    for k, (dy, dx) in enumerate(((0, 0), (0, 1), (1, 0), (1, 1))):
+        at = (np.clip(sy + dy, -1, H) + 1) * (W + 2) + np.clip(sx + dx, -1, W) + 1
+        acc += w[..., k, None] * src[at]
+    out = (acc + (1 << (_REMAP_BITS - 1))) >> _REMAP_BITS  # at most 255: the weights sum to 2^15
+    return out.astype(np.uint8).reshape(img.shape[:2] if src.shape[1] == 1 else img.shape)
 
 
 def resize_linear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:

@@ -160,3 +160,20 @@ def smpl_from_numpy(model, device):
         parents=np.asarray(model.parents), lbs_weights=np.asarray(model.lbs_weights),
         faces=model.faces, extra_joint_regressor=None if extra is None else np.asarray(extra),
     ).to(device)
+
+
+# ---------------------------------------------------------------------------
+# the DeepLab-v3 person segmenter (data/segmenter.py)
+# ---------------------------------------------------------------------------
+
+def deeplab_from_numpy(params, state, device):
+    """A posegen_tpu DeepLab-v3's (params, bn_state) -> the port's on
+    `device`: the conv weights from JAX's HWIO to PyTorch's OIHW (the only
+    4-D leaves); inference only, so nothing is made trainable."""
+    from posegen_tpu_torch.train.trainer import tree_map
+
+    def leaf(a):
+        a = np.asarray(a)
+        return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a
+
+    return params_from_numpy(tree_map(leaf, params), device), params_from_numpy(state, device)

@@ -23,8 +23,11 @@ def t_linear(sd, name: str, device) -> Dict[str, torch.Tensor]:
             "b": _f32(sd, f"{name}.bias").to(device)}
 
 
-def t_conv(sd, name: str, device) -> Dict[str, torch.Tensor]:
-    return {"w": _f32(sd, f"{name}.weight").to(device)}
+def t_conv(sd, name: str, device, bias: bool = False) -> Dict[str, torch.Tensor]:
+    p = {"w": _f32(sd, f"{name}.weight").to(device)}
+    if bias:
+        p["b"] = _f32(sd, f"{name}.bias").to(device)
+    return p
 
 
 def t_batchnorm(sd, name: str, device) -> Tuple[Dict, Dict]:
