@@ -259,6 +259,34 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               (a)'s rule; (d) bench_loader (a subprocess, native and numpy,
               --num_workers 0 and 16) on (a)'s file; the times of each.
 
+ 16. tooling  tooling and the SMPL family (posegen_tpu_torch/utils/gif.py,
+              render/rasterizer.py, cli/render_mesh.py, body/models.py,
+              body/transfer.py, utils/profiling.py): (a) run_nerf's
+              save_spiral_video of phase 12's surreal run (10 frames at
+              factor 2) with one dual and one field launch per chunk, its
+              disparity GIF read back by read_gif equal to its grey frames and
+              its rgb GIF to the writer's quantisation of its frames; phase
+              13's render_rgb.gif one frame per PNG, each its PNG's
+              quantisation; (b) render_mesh.main on phase 13's res-64 mesh.ply
+              at its defaults (12 views of 256^2): every PNG equal to its
+              frame, view 0 rasterized on the CPU equal to the card's; (c)
+              random SMPL-X (10,475 vertices, 55 joints, 20,908 faces, 10 + 10
+              shape columns, 12 PCA hand components, face contour), MANO (778,
+              16, 1,538) and FLAME (5,023, 5, 9,976, 300 + 100 columns,
+              landmark embeddings) files from a seed loaded on the card and on
+              the CPU, a batch of 128 poses: vertices, joints and full_pose to
+              1e-5 relative L2 (TF32 off); (d) run_fitting on a random SMPL
+              (6,890 / 24 / 13,776) with 8 meshes it makes at sigma 0.2 rad: a
+              short schedule card vs CPU, its fitted vertices to 1e-4
+              relative L2 and its losses to 1e-4 (the params printed beside
+              the CPU's own response to a one-ulp move of the targets), the default
+              schedule's mean v2v at least 10x under the zero start's, and
+              transfer.main on the meshes as .ply writing JAX's npz keys; (e)
+              utils/profiling.trace over three phase-4 renders in
+              annotate("render"): the Chrome trace names the eval kernels and
+              the region; the PhaseTimer's summary of (a)-(d);
+              device_memory_stats within the card's memory. Times of each.
+
 Before phase 1 it prints whether h5py, imageio, cv2, PIL and tensorboard import
 (information only).
 The last two lines of standard output are one JSON object of per-kernel
@@ -423,6 +451,22 @@ SEG_TOL = 1e-4  # DeepLab logits, card (TF32 off) vs CPU: relative L2
 ZJU_VIEWS, ZJU_FRAMES, ZJU_HW = 4, 4, 1024
 UNDISTORT_TIMED = 3
 LOADER_WORKERS = (0, 16)  # bench_loader's --num_workers (the loader caps them at cores - 1)
+# phase 16: tooling and the SMPL family (posegen_tpu_torch/utils/gif.py,
+# render/rasterizer.py, cli/render_mesh.py, body/models.py, body/transfer.py,
+# utils/profiling.py)
+SPIRAL_FRAMES = 10  # save_spiral_video's default
+BODY_BATCH = 128
+BODY_TIMED = 10
+BODY_TOL = 1e-5  # SMPL-X / MANO / FLAME vertices, joints, full_pose, card vs CPU: relative L2
+FIT_MESHES = 8
+FIT_SHORT = dict(part_steps=2, transl_steps=2, vertex_steps=5)
+# run_fitting on FIT_SHORT, card vs CPU: the fitted vertices (relative L2) and
+# both losses (relative); the params are printed beside the CPU's own
+# response to a one-ulp move of the targets (PERF.md section 6)
+FIT_TOL = 1e-4
+# the npz keys JAX's transfer.main writes, in its order
+# (tests/test_torch_body_models.py::test_transfer_cli_matches_jax)
+TRANSFER_KEYS = ["betas", "body_pose", "global_orient", "transl", "mesh_paths"]
 # figures that a later phase reads: phase 6's bare train step
 TIMES = {}
 DEVICE = "cuda"
@@ -915,6 +959,9 @@ def run(torch) -> int:
         marks.append(("14", time.perf_counter()))
         ingest_launches = ingest_phases(torch, card, tmp)
         marks.append(("15", time.perf_counter()))
+        for k, n in tooling_phases(torch, card, cli_runs).items():
+            launches[k] += n
+        marks.append(("16", time.perf_counter()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in launches:
@@ -2976,6 +3023,7 @@ def mine_phases(torch, card: str, runs):
               f"run_render mesh: launches {got} != {want} (one density-only launch)")
         n_verts = int(next(x for x in open(os.path.join(mesh_dir, "mesh.ply"))
                            if x.startswith("element vertex")).split()[-1])
+        runs["val_dir"], runs["mesh_ply"] = val_dir, os.path.join(mesh_dir, "mesh.ply")
         print(f"mine run_render bullet: {MINE_BULLET_N} frames in {bullet_chunks} chunks (dual = "
               f"field = chunks), every PNG equal to its frame; mesh at res {MINE_MESH_RES}: one "
               f"density-only field launch, mesh.ply with {n_verts} vertices")
@@ -3860,6 +3908,399 @@ def ingest_phases(torch, card: str, tmp: str):
         if real_make is not None:
             TR.make_train_step, RN.evaluate_testset = real_make, reals[0]
             IMG._eval_maps, IMG.render_image = reals[1], reals[2]
+    return launches
+
+
+def _body_file_data(rng, V, J, F, n_shapecols, parents=None):
+    """A random body model in the official key layout (float32 arrays; the
+    draws of tests/test_body_models.py's files)."""
+    import numpy as np
+
+    if parents is None:
+        parents = np.zeros(J, np.int64)
+        for j in range(1, J):
+            parents[j] = rng.integers(0, j)
+    kintree = np.stack([parents.astype(np.uint32), np.arange(J, dtype=np.uint32)])
+    kintree[0, 0] = np.uint32(4294967295)  # official files store -1 as uint32
+    J_reg = rng.random((J, V))
+    w = np.exp(rng.standard_normal((V, J)) * 2)
+    f32 = lambda a: a.astype(np.float32)  # noqa: E731
+    return {
+        "v_template": f32(rng.standard_normal((V, 3)) * 0.1),
+        "shapedirs": f32(rng.standard_normal((V, 3, n_shapecols)) * 0.01),
+        "posedirs": f32(rng.standard_normal((V, 3, 9 * (J - 1))) * 0.001),
+        "J_regressor": f32(J_reg / J_reg.sum(1, keepdims=True)),
+        "kintree_table": kintree,
+        "weights": f32(w / w.sum(1, keepdims=True)),
+        "f": rng.integers(0, V, (F, 3)).astype(np.int64),
+    }
+
+
+def _lmk_tables(rng, F, n):
+    """(n,) face ids and (n, 3) barycentrics of a landmark embedding."""
+    import numpy as np
+
+    b = rng.uniform(0.05, 1.0, (n, 3))
+    return rng.integers(0, F, (n,)).astype(np.int64), (b / b.sum(1, keepdims=True)).astype(
+        np.float32)
+
+
+def tooling_phases(torch, card: str, runs):
+    """Phase 16, tooling and the SMPL family: (a) the spiral GIFs of phase
+    12's run through the eval kernels, read back, and phase 13's
+    render_rgb.gif; (b) the turntable of phase 13's mesh through
+    render_mesh.main; (c) SMPL-X, MANO and FLAME at their published shapes,
+    card vs CPU; (d) the transfer fit, card vs CPU, the default schedule's
+    error, and transfer.main; (e) the profiler trace, the phase timer and
+    the memory stats. -> the eval kernels' launches (the spiral and the
+    traced renders)."""
+    import pickle
+    import types
+
+    import numpy as np
+
+    from posegen_tpu_torch.body import models as BM
+    from posegen_tpu_torch.body import transfer as BT
+    from posegen_tpu_torch.body.smpl import make_random_model
+    from posegen_tpu_torch.cli import render_mesh as RM
+    from posegen_tpu_torch.cli import run_nerf as RN
+    from posegen_tpu_torch.cli import run_render as RR
+    from posegen_tpu_torch.cli.config import args_to_data_config
+    from posegen_tpu_torch.data.catalog import load_data
+    from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.render import image as IMG
+    from posegen_tpu_torch.render import rasterizer as RAST
+    from posegen_tpu_torch.render.mesh import save_ply
+    from posegen_tpu_torch.render.raycast import RaycastConfig, render_rays
+    from posegen_tpu_torch.utils import profiling as PROF
+    from posegen_tpu_torch.utils.fixtures import make_problem
+    from posegen_tpu_torch.utils.gif import quantized_frames, read_gif, write_gif
+    from posegen_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    out_root = os.path.join(runs["tmp"], "tooling")
+    os.makedirs(out_root)
+    launches = {"dual": 0, "field": 0}
+    timer = PROF.PhaseTimer()
+    rec = {"chunks": 0, "plain": 0, "rays_max": 0}
+    real_maps = _counted_chunks(torch, F, IMG, rec)
+    real_path, real_turntable = IMG.render_path, RAST.turntable_render
+    u8 = lambda a: (np.clip(a, 0, 1) * 255).astype(np.uint8)  # noqa: E731
+    rel = lambda a, b: float(torch.linalg.vector_norm(a.double().cpu() - b.double().cpu())  # noqa
+                             / torch.linalg.vector_norm(b.double().cpu()).clamp_min(1e-30))
+    try:
+        # 16a. the spiral GIFs through the eval kernels, and render_rgb.gif
+        with timer.phase("videos"):
+            args_txt = os.path.join(runs["surreal_log"], "args.txt")
+            targs, cfg, variables = RR.load_trained(args_txt, runs["surreal_ckpt"],
+                                                    device=DEVICE)
+            dcfg = args_to_data_config(targs)
+            dcfg.num_val_images = 2
+            loader, render_data, _ = load_data(dcfg)
+            loader.close()
+            seen = []
+
+            def path(*args, **kwargs):
+                seen.append(real_path(*args, **kwargs))
+                return seen[-1]
+
+            IMG.render_path = path
+            rec["chunks"] = 0
+            F.reset_launches()
+            t0 = time.perf_counter()
+            rgb_path = RN.save_spiral_video(
+                cfg, types.SimpleNamespace(params=variables, embeds={}), render_data, out_root,
+                CLI_ITERS, n_frames=SPIRAL_FRAMES, factor=2)
+            spiral_s = time.perf_counter() - t0
+            IMG.render_path = real_path
+            torch.cuda.synchronize()
+            got = dict(F.LAUNCHES)
+            for k in launches:
+                launches[k] += got[k]
+            check(len(seen) == 1 and got["dual"] == got["field"] == rec["chunks"] > 0
+                  and sum(got.values()) == 2 * rec["chunks"],
+                  f"save_spiral_video: launches {got}, {rec['chunks']} chunks")
+            out = seen[0]
+            rgb = u8(out["rgbs"])
+            disp = u8(out["disps"] / max(float(out["disps"].max()), 1e-8))
+            H, W = render_data["hwf"][:2]
+            check(rgb.shape[:3] == (SPIRAL_FRAMES, H // 2, W // 2), f"spiral frames {rgb.shape}")
+            t0 = time.perf_counter()
+            back_rgb = read_gif(rgb_path)
+            read_ms = (time.perf_counter() - t0) * 1e3 / len(rgb)
+            back_disp = read_gif(os.path.join(out_root, f"spiral_{CLI_ITERS:06d}_disp.gif"))
+            check(np.array_equal(back_disp, np.repeat(disp[..., None], 3, -1)),
+                  "spiral disparity GIF: not its grey frames")
+            check(np.array_equal(back_rgb, quantized_frames(rgb)),
+                  "spiral rgb GIF: not the writer's quantisation of its frames")
+            n_colours = max(len(np.unique(f.reshape(-1, 3), axis=0)) for f in rgb)
+            t0 = time.perf_counter()
+            write_gif(os.path.join(out_root, "timed.gif"), rgb, fps=5)
+            write_ms = (time.perf_counter() - t0) * 1e3 / len(rgb)
+            val_dir = runs["val_dir"]
+            pngs = _glob(os.path.join(val_dir, "image"), "*.png")
+            frames = read_gif(os.path.join(val_dir, "render_rgb.gif"))
+            check(len(frames) == len(pngs) > 0
+                  and all(np.array_equal(f, quantized_frames(read_png(p)[None])[0])
+                          for f, p in zip(frames, pngs)),
+                  f"run_render's render_rgb.gif: {len(frames)} frames for {len(pngs)} PNGs, "
+                  "or a frame that is not its PNG's quantisation")
+        print(f"tooling spiral (save_spiral_video, {SPIRAL_FRAMES} frames at factor 2, "
+              f"{rgb.shape[1]}x{rgb.shape[2]}): {rec['chunks']} chunks, dual = field = chunks; the "
+              f"disparity GIF reads back as its grey frames, the rgb GIF (up to {n_colours} colours "
+              f"a frame) as the writer's quantisation; run_render val's render_rgb.gif "
+              f"({len(frames)} frames of {frames.shape[1]}^2) as its PNGs' quantisation")
+
+        # 16b. the turntable of phase 13's mesh through render_mesh.main -----
+        with timer.phase("turntable"):
+            views = {}
+
+            def turntable(*args, **kwargs):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                views["frames"] = real_turntable(*args, **kwargs)
+                views["s"] = time.perf_counter() - t0
+                return views["frames"]
+
+            RAST.turntable_render = turntable
+            tt_dir, tt_out = _quiet(RM.main, ["--ply", runs["mesh_ply"], "--outputdir",
+                                              os.path.join(out_root, "turntable")], device=DEVICE)
+            RAST.turntable_render = real_turntable
+            tt = views["frames"]
+            pngs = _glob(tt_dir, "*.png")
+            check(tt.shape == (12, 256, 256, 3) and len(pngs) == 12
+                  and all(np.array_equal(read_png(p), u8(f)) for p, f in zip(pngs, tt)),
+                  f"render_mesh: {tt.shape} frames, {len(pngs)} PNGs, or a PNG not its frame")
+            check((tt != 1.0).any(axis=-1).mean() > 0.01, "render_mesh: the views are empty")
+            verts, faces = RM.load_ply(runs["mesh_ply"])
+            t0 = time.perf_counter()
+            cpu_view = real_turntable(verts, faces, n_views=1, device="cpu")[0]
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            check(np.array_equal(cpu_view, tt[0]), "render_mesh: the CPU's view 0 differs from "
+                  f"the card's in {int((cpu_view != tt[0]).any(-1).sum())} pixels")
+        mp4 = os.path.exists(os.path.join(tt_dir, "turntable.mp4"))
+        check(mp4 or "turntable.mp4 not written" in tt_out,
+              "render_mesh: no mp4 and no word of it")
+        print(f"tooling turntable (render_mesh.main, phase 13's mesh: {len(verts)} vertices, "
+              f"{len(faces)} faces): 12 views of 256^2, every PNG equal to its frame, view 0 "
+              f"on the CPU equal to the card's; turntable.mp4 {'written' if mp4 else 'not written, as it said'}")
+
+        # 16c. SMPL-X, MANO and FLAME at their published shapes -------------
+        with timer.phase("body models"):
+            rng = np.random.default_rng(SEED)
+            bdir = os.path.join(out_root, "body")
+            os.makedirs(bdir)
+            smplx = _body_file_data(rng, 10475, 55, 20908, 20)  # 10 shape + 10 expression
+            lmk_idx, lmk_b = _lmk_tables(rng, 20908, 51)
+            dyn = [_lmk_tables(rng, 20908, 17) for _ in range(79)]
+            smplx.update(
+                hands_componentsl=(rng.standard_normal((45, 45)) * 0.5).astype(np.float32),
+                hands_componentsr=(rng.standard_normal((45, 45)) * 0.5).astype(np.float32),
+                hands_meanl=(rng.standard_normal(45) * 0.1).astype(np.float32),
+                hands_meanr=(rng.standard_normal(45) * 0.1).astype(np.float32),
+                lmk_faces_idx=lmk_idx, lmk_bary_coords=lmk_b,
+                dynamic_lmk_faces_idx=np.stack([d[0] for d in dyn]),
+                dynamic_lmk_bary_coords=np.stack([d[1] for d in dyn]))
+            np.savez(os.path.join(bdir, "SMPLX_NEUTRAL.npz"), **smplx)
+            mano = _body_file_data(rng, 778, 16, 1538, 10)
+            mano.update(hands_components=(rng.standard_normal((45, 45)) * 0.5).astype(np.float32),
+                        hands_mean=(rng.standard_normal(45) * 0.1).astype(np.float32))
+            with open(os.path.join(bdir, "MANO_RIGHT.pkl"), "wb") as f:
+                pickle.dump(mano, f)
+            flame = _body_file_data(rng, 5023, 5, 9976, 400,  # 300 shape + 100 expression
+                                    parents=np.array([0, 0, 1, 1, 1], np.int64))
+            with open(os.path.join(bdir, "FLAME_NEUTRAL.pkl"), "wb") as f:
+                pickle.dump(flame, f)
+            lmk_idx, lmk_b = _lmk_tables(rng, 9976, 51)
+            with open(os.path.join(bdir, "flame_static_embedding.pkl"), "wb") as f:
+                pickle.dump({"lmk_face_idx": lmk_idx, "lmk_b_coords": lmk_b}, f)
+            dyn = [_lmk_tables(rng, 9976, 17) for _ in range(79)]
+            np.save(os.path.join(bdir, "flame_dynamic_embedding.npy"),
+                    {"lmk_face_idx": np.stack([d[0] for d in dyn]),
+                     "lmk_b_coords": np.stack([d[1] for d in dyn])}, allow_pickle=True)
+            n = lambda *s, scale=0.3: torch.as_tensor(  # noqa: E731
+                (rng.standard_normal(s) * scale).astype(np.float32))
+            Bn = BODY_BATCH
+            go = n(Bn, 3, scale=0.5)
+            # head y rotations over +-69 degrees: the contour's bins, its clip at 39 and 78
+            go[:, 1] = torch.as_tensor(np.linspace(-1.2, 1.2, Bn, dtype=np.float32))
+            families = {
+                "SMPL-X": (lambda dev: BM.load_smplx_model(
+                    os.path.join(bdir, "SMPLX_NEUTRAL.npz"), num_pca_comps=12,
+                    use_face_contour=True, device=dev),
+                    dict(betas=n(Bn, 10, scale=0.5), body_pose=n(Bn, 63), global_orient=go,
+                         left_hand_pose=n(Bn, 12), right_hand_pose=n(Bn, 12),
+                         jaw_pose=n(Bn, 3, scale=0.1), leye_pose=n(Bn, 3, scale=0.1),
+                         reye_pose=n(Bn, 3, scale=0.1), expression=n(Bn, 10, scale=0.5),
+                         transl=n(Bn, 3, scale=1.0)), (10475, 144)),
+                "MANO": (lambda dev: BM.load_mano_model(
+                    os.path.join(bdir, "MANO_RIGHT.pkl"), num_pca_comps=6, device=dev),
+                    dict(betas=n(Bn, 10, scale=0.5), hand_pose=n(Bn, 6), global_orient=n(Bn, 3),
+                         transl=n(Bn, 3, scale=1.0)), (778, 16)),
+                "FLAME": (lambda dev: BM.load_flame_model(
+                    os.path.join(bdir, "FLAME_NEUTRAL.pkl"),
+                    landmark_path=os.path.join(bdir, "flame_static_embedding.pkl"),
+                    contour_path=os.path.join(bdir, "flame_dynamic_embedding.npy"), device=dev),
+                    dict(betas=n(Bn, 10, scale=0.5), global_orient=n(Bn, 3, scale=0.4),
+                         neck_pose=n(Bn, 3, scale=0.2), jaw_pose=n(Bn, 3, scale=0.1),
+                         leye_pose=n(Bn, 3, scale=0.1), reye_pose=n(Bn, 3, scale=0.1),
+                         expression=n(Bn, 10, scale=0.5)), (5023, 5 + 51 + 17)),
+            }
+            body_rows = []
+            for name, (load, args, (V, J)) in families.items():
+                m_card, m_cpu = load(DEVICE), load("cpu")
+                on_card = {k: v.to(DEVICE) for k, v in args.items()}
+                with torch.no_grad():
+                    got = m_card(**on_card)
+                    ref = m_cpu(**args)
+                    torch.cuda.synchronize()
+                    errs = {k: rel(got[k], ref[k]) for k in ("vertices", "joints", "full_pose")}
+                    check(tuple(got["vertices"].shape) == (Bn, V, 3)
+                          and tuple(got["joints"].shape) == (Bn, J, 3)
+                          and all(torch.isfinite(got[k]).all() for k in got)
+                          and max(errs.values()) <= BODY_TOL,
+                          f"{name}: {tuple(got['vertices'].shape)}, {tuple(got['joints'].shape)}, "
+                          f"card vs CPU {errs} (> {BODY_TOL})")
+                    ms = cuda_ms(lambda: m_card(**on_card), BODY_TIMED)
+                body_rows.append((name, V, J, errs, ms))
+                print(f"tooling {name} (V {V}, {J} joints, batch {Bn}): card vs CPU relative L2 "
+                      + ", ".join(f"{k} {e:.3e}" for k, e in errs.items()))
+                del m_card, m_cpu
+
+        # 16d. the transfer fit at SMPL's shapes ----------------------------
+        with timer.phase("transfer"):
+            frng = np.random.default_rng(SEED + 1)
+            model = make_random_model(6890, 24, 10, seed=SEED, device=DEVICE)
+            faces = frng.choice(6890, (13776 * 2, 3))
+            ok = (faces[:, 0] != faces[:, 1]) & (faces[:, 1] != faces[:, 2]) & (
+                faces[:, 0] != faces[:, 2])
+            model.faces = faces[ok][:13776].astype(np.int64)
+            pose = torch.as_tensor((frng.standard_normal((FIT_MESHES, 69)) * 0.2).astype(np.float32))
+            orient = torch.as_tensor((frng.standard_normal((FIT_MESHES, 3)) * 0.2).astype(
+                np.float32))
+            with torch.no_grad():
+                target = model(torch.zeros(FIT_MESHES, 10, device=DEVICE), pose.to(DEVICE),
+                               orient.to(DEVICE))["vertices"].cpu().numpy()
+            short = BT.FitConfig(**FIT_SHORT)
+            p_card, l_card = BT.run_fitting(model, target, cfg=short, device=DEVICE)
+            cpu_model = make_random_model(6890, 24, 10, seed=SEED, device="cpu")
+            cpu_model.faces = model.faces
+            p_cpu, l_cpu = BT.run_fitting(cpu_model, target, cfg=short, device="cpu")
+            # the CPU's own response to the targets moved by one float32 ulp
+            p_ulp, _ = BT.run_fitting(cpu_model, np.nextafter(target, np.float32(np.inf)),
+                                      cfg=short, device="cpu")
+
+            def fitted(m, p):
+                with torch.no_grad():
+                    dev = m.v_template.device
+                    return m(**{k: torch.as_tensor(x, device=dev) for k, x in p.items()})[
+                        "vertices"]
+
+            fit_errs = {"vertices": rel(fitted(model, p_card), fitted(cpu_model, p_cpu))}
+            fit_errs.update({k: abs(l_card[k] - l_cpu[k]) / abs(l_cpu[k]) for k in l_cpu})
+            param_errs = {k: rel(torch.as_tensor(p_card[k]), torch.as_tensor(p_cpu[k]))
+                          for k in p_cpu}
+            ulp_errs = {k: rel(torch.as_tensor(p_ulp[k]), torch.as_tensor(p_cpu[k]))
+                        for k in p_cpu}
+            check(list(p_card) == list(p_cpu) and all(np.isfinite(x).all() for x in p_card.values())
+                  and max(fit_errs.values()) <= FIT_TOL,
+                  f"run_fitting {FIT_SHORT}: card vs CPU {fit_errs} (> {FIT_TOL})")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, losses = BT.run_fitting(model, target, device=DEVICE)
+            fit_s = time.perf_counter() - t0
+            cfg_d = BT.FitConfig()
+            n_steps = 23 * cfg_d.part_steps + cfg_d.transl_steps + cfg_d.vertex_steps
+
+            def v2v(p):
+                with torch.no_grad():
+                    v = model(**{k: torch.as_tensor(x, device=DEVICE) for k, x in p.items()})
+                return float(np.linalg.norm(v["vertices"].cpu().numpy() - target, axis=-1).mean())
+
+            start = {k: np.zeros_like(x) for k, x in params.items()}
+            err_fit, err_start = v2v(params), v2v(start)
+            check(err_fit * 10 <= err_start, f"run_fitting: v2v {err_fit:.4e} against the zero "
+                  f"start's {err_start:.4e}: not 10x lower")
+            # the CLI on the same meshes, written as .ply, and the model as a .pkl
+            mdir = os.path.join(out_root, "meshes")
+            os.makedirs(mdir)
+            for i, v in enumerate(target):
+                save_ply(os.path.join(mdir, f"m{i}.ply"), v, model.faces)
+            m = {k: getattr(model, k).cpu().numpy() for k in
+                 ("v_template", "shapedirs", "J_regressor", "lbs_weights")}
+            with open(os.path.join(out_root, "smpl.pkl"), "wb") as f:
+                pickle.dump({"v_template": m["v_template"], "shapedirs": m["shapedirs"],
+                             "posedirs": model.posedirs.cpu().numpy().T.reshape(6890, 3, -1),
+                             "J_regressor": m["J_regressor"], "weights": m["lbs_weights"],
+                             "kintree_table": np.stack([model.parents, np.arange(24)]),
+                             "f": model.faces}, f)
+            fits = os.path.join(out_root, "fits.npz")
+            _quiet(BT.main, ["--target-model", os.path.join(out_root, "smpl.pkl"), "--mesh-dir",
+                             mdir, "--out", fits], device=DEVICE)
+            npz = np.load(fits)
+            check(npz.files == TRANSFER_KEYS and npz["betas"].shape == (FIT_MESHES, 10)
+                  and len(npz["mesh_paths"]) == FIT_MESHES,
+                  f"transfer.main: keys {npz.files} (JAX's {TRANSFER_KEYS})")
+            err_cli = v2v({k: npz[k] for k in TRANSFER_KEYS[:-1]})
+            check(err_cli * 10 <= err_start, f"transfer.main: v2v {err_cli:.4e}")
+        print(f"tooling run_fitting (SMPL shapes: 6890 vertices, 24 joints, {len(model.faces)} "
+              f"faces; {FIT_MESHES} meshes posed at sigma 0.2 rad): {FIT_SHORT} card vs CPU, "
+              "relative: " + ", ".join(f"{k} {e:.3e}" for k, e in fit_errs.items())
+              + "; the params (not held: Adam's first steps turn rounding in near-zero "
+              "gradients into steps) " + ", ".join(f"{k} {e:.3e}" for k, e in param_errs.items())
+              + ", the CPU's own under a one-ulp move of the targets "
+              + ", ".join(f"{k} {e:.3e}" for k, e in ulp_errs.items())
+              + f"; the default schedule's mean v2v {err_fit:.4e} against the zero start's "
+              f"{err_start:.4e}, vertex loss {losses['vertex_loss']:.4e}; transfer.main wrote "
+              f"{npz.files}, mean v2v {err_cli:.4e}")
+
+        # 16e. the profiler trace, the phase timer and the memory stats -----
+        pcfg, pparams, ctx, rays_o, rays_d = make_problem(RaycastConfig(), n_rays=N_RAYS,
+                                                          seed=SEED, device=DEVICE)
+        F.reset_launches()
+        with torch.no_grad(), PROF.trace(os.path.join(out_root, "trace")) as tr:
+            for _ in range(3):
+                with PROF.annotate("render"):
+                    render_rays(pcfg, pparams, rays_o, rays_d, ctx, perturb=0.0,
+                                raw_noise_std=0.0, coarse_rgb=False)
+            torch.cuda.synchronize()
+        got = dict(F.LAUNCHES)
+        check(got["dual"] == got["field"] == 3 and sum(got.values()) == 6,
+              f"traced renders: launches {got}")
+        for k in launches:
+            launches[k] += got[k]
+        with open(tr.path) as f:
+            names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+        kern = {k: sorted(x for x in names if f"eval_sm90_kernel<{i}>" in x)
+                for k, i in (("dual", 2), ("field", 0))}
+        check(all(kern.values()) and "render" in names,
+              f"trace {tr.path}: eval kernels {kern}, 'render' {'render' in names}")
+        mem = PROF.device_memory_stats()
+        total_mb = torch.cuda.get_device_properties(0).total_memory / 2 ** 20
+        check(bool(mem) and 0 < mem["mb_in_use"] <= mem["peak_mb_in_use"] <= mem["mb_limit"]
+              and mem["mb_limit"] == total_mb, f"device_memory_stats: {mem}, total {total_mb}")
+        print(f"tooling trace ({os.path.getsize(tr.path)} bytes of Chrome trace, 3 renders "
+              f"of {N_RAYS} rays each in annotate('render')): dual {kern['dual'][:1]}, "
+              f"field {kern['field'][:1]}, the 'render' region; device_memory_stats "
+              + ", ".join(f"{k} {v:.1f}" for k, v in mem.items()))
+        print(f"tooling PhaseTimer: {timer.summary()}")
+
+        print(f"timing GIF codec ({rgb.shape[1]}x{rgb.shape[2]} rgb, host): write_gif "
+              f"{write_ms:.3f} ms a frame (quantise + LZW), read_gif {read_ms:.3f} ms a frame; "
+              f"save_spiral_video {spiral_s:.3f} s for {SPIRAL_FRAMES} frames [{card}]")
+        print(f"timing rasterizer (render_mesh.main's 12 views of 256^2): "
+              f"{views['s'] * 1e3 / 12:.3f} ms a view on the card, {cpu_ms:.3f} ms the one "
+              f"view on the CPU [{card}]")
+        for name, V, J, errs, ms in body_rows:
+            print(f"timing {name} forward (V {V}, batch {BODY_BATCH}, CUDA events, TF32 off): "
+                  f"{ms:.3f} ms a batch [{card}]")
+        print(f"timing run_fitting (default FitConfig, {FIT_MESHES} meshes of 6890 vertices): "
+              f"{fit_s:.3f} s a fit, {n_steps} Adam steps, {n_steps / fit_s:.1f} steps/s "
+              f"[{card}]")
+        print(f"timing phase 16: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    finally:
+        IMG._eval_maps, IMG.render_path = real_maps, real_path
+        RAST.turntable_render = real_turntable
     return launches
 
 

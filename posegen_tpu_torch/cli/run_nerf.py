@@ -123,8 +123,8 @@ def save_spiral_video(
 ) -> str:
     """Bullet-time turn-around of val pose 0 written as rgb + disp GIFs
     (reference i_video render_poses mp4s, run_nerf.py:557-604 — format
-    adapted: GIFs through imageio)."""
-    import imageio.v2 as imageio
+    adapted: GIFs through the port's own `utils/gif.write_gif`)."""
+    from posegen_tpu_torch.utils.gif import write_gif
 
     from posegen_tpu_torch.render.image import _bullet_c2ws, render_path
     from posegen_tpu_torch.render.raycast import PoseCtx
@@ -146,14 +146,10 @@ def save_spiral_video(
         out = render_path(cfg, params, c2ws, (H, W, focal), [ctx], chunk=chunk,
                           half_readback=True)
     rgb_path = os.path.join(log_dir, f"spiral_{step:06d}_rgb.gif")
-    imageio.mimwrite(
-        rgb_path, (np.clip(out["rgbs"], 0, 1) * 255).astype(np.uint8), fps=5, loop=0,
-    )
+    write_gif(rgb_path, (np.clip(out["rgbs"], 0, 1) * 255).astype(np.uint8), fps=5, loop=0)
     disp = out["disps"] / max(float(out["disps"].max()), 1e-8)
-    imageio.mimwrite(
-        os.path.join(log_dir, f"spiral_{step:06d}_disp.gif"),
-        (np.clip(disp, 0, 1) * 255).astype(np.uint8), fps=5, loop=0,
-    )
+    write_gif(os.path.join(log_dir, f"spiral_{step:06d}_disp.gif"),
+              (np.clip(disp, 0, 1) * 255).astype(np.uint8), fps=5, loop=0)
     return rgb_path
 
 

@@ -19,13 +19,13 @@ kernels the chunk is clamped to 8192 with the gate's reason, as JAX's
 `auto_render_fn` clamps it (posegen_tpu/parallel/mesh.py:206-219).
 
 Every PNG goes through the port's own codec (`utils/png.write_png`). The
-`render_rgb` video goes through `utils/experiment.save_video` (mp4 through
-imageio), with JAX's GIF fallback through it too. Where imageio does not
-import (the card's machine has none), the port prints one line saying that
-the video was not written and why, and writes everything else; JAX stops
-with ImportError before its first PNG there, because it writes its PNGs
-through imageio too. A GIF / mp4 writer of the port's own is queued in
-ROADMAP.md.
+`render_rgb` video goes through `utils/experiment.save_video`: an mp4
+through imageio where it and its ffmpeg writer are installed, else JAX's
+GIF fallback, which goes through the port's own GIF writer
+(`utils/gif.write_gif`), with one line saying that the mp4 was not
+written. JAX stops with ImportError before its first PNG where imageio is
+missing (the card's machine has none), because it writes its PNGs through
+imageio too.
 """
 
 from __future__ import annotations
@@ -448,11 +448,10 @@ def run_render(argv: Optional[Sequence[str]] = None, device="cuda") -> str:
     # render_rgb video (reference :1050 mp4); gif fallback without ffmpeg
     from posegen_tpu_torch.utils.experiment import save_video
 
-    if (save_video(os.path.join(out_dir, "render_rgb.mp4"), out["rgbs"], fps=args.fps) is None
-            and save_video(os.path.join(out_dir, "render_rgb.gif"), out["rgbs"], fps=args.fps,
-                           loop=0) is None):
-        print("render_rgb video not written: imageio is not installed, or has neither an mp4 "
-              "nor a GIF writer here; the PNGs are written")
+    if save_video(os.path.join(out_dir, "render_rgb.mp4"), out["rgbs"], fps=args.fps) is None:
+        print("render_rgb.mp4 not written (imageio with an ffmpeg writer is not installed); "
+              "render_rgb.gif is written")
+        save_video(os.path.join(out_dir, "render_rgb.gif"), out["rgbs"], fps=args.fps, loop=0)
 
     if args.save_extras:
         # acc / disp maps + skeleton overlays

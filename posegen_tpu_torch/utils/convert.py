@@ -177,3 +177,28 @@ def deeplab_from_numpy(params, state, device):
         return a.transpose(3, 2, 0, 1) if a.ndim == 4 else a
 
     return params_from_numpy(tree_map(leaf, params), device), params_from_numpy(state, device)
+
+
+def body_model_from_numpy(kind: str, fields, device="cuda"):
+    """A posegen_tpu SMPL-X, MANO or FLAME model's fields -> the port's
+    `body.models` module of `kind` ("smplx", "mano" or "flame") on `device`
+    (CUDA by default; raises without a card).
+    fields: {name: value} over the JAX dataclass's fields (e.g.
+    `{f.name: np.asarray(getattr(m, f.name)) for f in dataclasses.fields(m)}`),
+    arrays as numpy; an absent field is None or np.asarray(None)."""
+    from posegen_tpu_torch.body.models import FLAMEModel, MANOModel, SMPLXModel
+    from posegen_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    cls = {"smplx": SMPLXModel, "mano": MANOModel, "flame": FLAMEModel}[kind]
+
+    def value(v):
+        a = np.asarray(v) if v is not None else None
+        if a is None or (a.dtype == object and a.ndim == 0 and a.item() is None):
+            return None
+        return a
+
+    kw = {k: value(v) for k, v in fields.items()}
+    if "use_face_contour" in kw:
+        kw["use_face_contour"] = bool(kw["use_face_contour"])
+    return cls(**kw).to(dev)

@@ -1,4 +1,4 @@
-"""Synthetic problem builders (port of posegen_tpu/utils/fixtures.py:20-70).
+"""Synthetic problem builders (port of posegen_tpu/utils/fixtures.py).
 
 The pose and the rays come from numpy's generator exactly as in the JAX
 package, so a seed gives both frameworks the same problem; the weights come
@@ -73,3 +73,48 @@ def make_problem(
     ctx = make_pose_ctx(seed, with_cam_idx=cfg.opt_framecode, device=dev)
     rays_o, rays_d = make_rays(n_rays, seed + 1, device=dev)
     return cfg, params, ctx, rays_o, rays_d
+
+
+def make_train_batch(
+    cfg: RaycastConfig,
+    n_rays: int = 1024,
+    seed: int = 0,
+    opt_pose: bool = False,
+    n_frames: int = 4,
+    n_groups: int = 1,
+    device="cuda",
+) -> Dict[str, torch.Tensor]:
+    """A synthetic training batch matching make_train_step's expectations, on
+    `device`: the JAX package's numpy draws in its order.
+
+    n_groups > 1 produces the RayBatchLoader grouped layout: pose rows
+    (kp3d / skts / bones / cyls) carried per image group (G rows), rays
+    contiguous per group (n_rays % n_groups == 0). With opt_pose the batch
+    holds per-group frame indices `kp_idx` (int32) instead of skts / bones;
+    with cfg.opt_framecode, `cam_idxs` (n_rays, 1) int32 zeros.
+    """
+    if n_rays % n_groups:
+        raise ValueError(f"n_rays {n_rays} is not a multiple of n_groups {n_groups}")
+    dev = resolve_device(device)
+    rng = np.random.default_rng(seed + 7)
+    ctx = make_pose_ctx(seed, n_poses=n_groups, device=dev)
+    rays_o, rays_d = make_rays(n_rays, seed + 1, device=dev)
+    on_dev = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+    batch = {
+        "rays_o": rays_o,
+        "rays_d": rays_d,
+        "target_s": on_dev(rng.uniform(0, 1, (n_rays, 3)).astype(np.float32)),
+        "cyls": ctx.cyls,
+        "fgs": on_dev(rng.integers(0, 2, (n_rays, 1)).astype(np.float32)),
+    }
+    if opt_pose:
+        # kp_idx is per image GROUP (the RayBatchLoader contract)
+        batch["kp_idx"] = on_dev(rng.integers(0, n_frames, (n_groups,)).astype(np.int32))
+        batch["kp3d"] = ctx.kps
+    else:
+        batch["kp3d"] = ctx.kps
+        batch["skts"] = ctx.skts
+        batch["bones"] = ctx.bones
+    if cfg.opt_framecode:
+        batch["cam_idxs"] = torch.zeros((n_rays, 1), dtype=torch.int32, device=dev)
+    return batch

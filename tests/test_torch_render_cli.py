@@ -313,8 +313,9 @@ def test_gate_refusal_clamps_the_chunk(run, tmp_path, monkeypatch):
 
 
 def test_video_is_skipped_without_imageio(run, tmp_path, monkeypatch, capsys):
-    """Where imageio does not import, run_render says so and writes the
-    rest."""
+    """Where imageio does not import, run_render says that the mp4 was not
+    written and writes the rest, render_rgb.gif through the port's own GIF
+    writer: each GIF frame is the writer's quantisation of its PNG."""
     import builtins
 
     real_import = builtins.__import__
@@ -328,8 +329,44 @@ def test_video_is_skipped_without_imageio(run, tmp_path, monkeypatch, capsys):
     d = prr.run_render(["--nerf_args", run["args"], "--ckptpath", run["ckpt"],
                         "--render_type", "bullet", "--bullet_n", "2", "--render_res", "8", "8",
                         "--outputdir", str(tmp_path)], device="cpu")
-    assert "render_rgb video not written" in capsys.readouterr().out
-    assert _files(d) == ["bboxes.npy", "image/00000.png", "image/00001.png"]
+    assert "render_rgb.mp4 not written" in capsys.readouterr().out
+    assert _files(d) == ["bboxes.npy", "image/00000.png", "image/00001.png", "render_rgb.gif"]
+    from posegen_tpu_torch.utils.gif import quantized_frames, read_gif
+
+    pngs = np.stack([read_png(os.path.join(d, "image", f"{i:05d}.png")) for i in range(2)])
+    np.testing.assert_array_equal(read_gif(os.path.join(d, "render_rgb.gif")),
+                                  quantized_frames(pngs))
+
+
+def test_spiral_video_gifs_read_back(run, tmp_path):
+    """run_nerf.save_spiral_video writes its GIFs through the port's own
+    writer: the disparity GIF reads back as its grey frames exactly, the rgb
+    GIF as the writer's quantisation of its frames."""
+    import types
+
+    from posegen_tpu_torch.cli.config import args_to_data_config
+    from posegen_tpu_torch.cli.run_nerf import save_spiral_video
+    from posegen_tpu_torch.data.catalog import load_data
+    from posegen_tpu_torch.utils.gif import quantized_frames, read_gif
+
+    targs, cfg, variables = prr.load_trained(run["args"], run["ckpt"], device="cpu")
+    loader, render_data, _ = load_data(args_to_data_config(targs))
+    loader.close()
+    seen, real = [], pimage.render_path
+    pimage.render_path = lambda *a, **kw: seen.append(real(*a, **kw)) or seen[-1]
+    try:
+        rgb_path = save_spiral_video(cfg, types.SimpleNamespace(params=variables, embeds={}),
+                                     render_data, str(tmp_path), 7, n_frames=4, chunk=CHUNK)
+    finally:
+        pimage.render_path = real
+    out = seen[0]
+    rgb = (np.clip(out["rgbs"], 0, 1) * 255).astype(np.uint8)
+    disp = out["disps"] / max(float(out["disps"].max()), 1e-8)
+    disp = (np.clip(disp, 0, 1) * 255).astype(np.uint8)
+    assert rgb_path == str(tmp_path / "spiral_000007_rgb.gif") and len(rgb) == 4
+    np.testing.assert_array_equal(read_gif(rgb_path), quantized_frames(rgb))
+    np.testing.assert_array_equal(read_gif(str(tmp_path / "spiral_000007_disp.gif")),
+                                  np.repeat(disp[..., None], 3, -1))
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
