@@ -9,8 +9,9 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
   1. build    compile the kernels from posegen_tpu_torch/kernels/csrc with
               nvcc (the build's seconds and each kernel's registers and
               spills printed); no kernel spills, the SASS of the eval
-              kernel (field.cu, all four modes: full, density-only, dual
-              and the stash) and of kernel 4's passes (a), (b) and (c)'s
+              kernel (field.cu, all seven modes: full, density-only, dual,
+              the stash, grouped full and density-only, and the ray
+              ladder) and of kernel 4's passes (a), (b) and (c)'s
               products holds wgmma (HGMMA) and TMA (UTMALDG; UTMASTG in pass
               (a) and pass (c)'s products) by cuobjdump, and the library's plans equal their Python
               mirrors: the shared memory of the eval kernels, the stash
@@ -286,6 +287,28 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               annotate("render"): the Chrome trace names the eval kernels and
               the region; the PhaseTimer's summary of (a)-(d);
               device_memory_stats within the card's memory. Times of each.
+ 17. grouped  kernel 2's last modes (csrc/field.cu): (a) fused_field on
+              grouped poses (a pack_poses table, a view bias per group),
+              full and density-only, against field_plain by phase 2's rule
+              at surreal.txt's train layout (128 groups x 16 rays x 64 and
+              x 80 samples) and h36m_prot2.txt's (256 x 12 x 64), on a
+              framecode net with a code per group and on multires 4 / 2;
+              h36m_prot2's 80-sample batch (960 points a group) refused by
+              fused_run_net's ValueError, as in JAX; (b) one grouped launch
+              on 20 groups x 4096 rays x 80 samples equal, bit for bit, to
+              the 20 single-pose launches with each group's pose and code;
+              (c) render_rays(use_fused=True, coarse_rgb=False) on a
+              perturb-0 grouped batch of 128 x 16 rays at RaycastConfig():
+              launches field_grouped 2, no other kernel, rgb_map against
+              the plain pipeline on the per-ray ctx by phase 3's flip rule;
+              (d) fused_run_net(ray_ladder=True) at 8192 rays x 80, 64 and
+              16 samples: field_ray_ladder 3 launches, each raw equal, bit
+              for bit, to the per-point mode's; density-only, grouped and
+              one-sample calls leave it off; the ladder against its plain
+              version by phase 2's rule; (e) CUDA-event times of the
+              grouped modes, of one grouped launch against the 20
+              single-pose launches, and of the ladder against the
+              per-point mode, beside the bound and the plain version.
 
 Before phase 1 it prints whether h5py, imageio, cv2, PIL and tensorboard import
 (information only).
@@ -339,12 +362,15 @@ ENC_SUM_TOL = 1e-3
 DEEP_OCTAVE = 8
 TRAIN_STEPS = 5
 # the Hopper kernels (by a part of their mangled names: the eval kernel's
-# four modes, kernel 4's passes (a) and (b) and pass (c)'s products) and the
+# seven modes, kernel 4's passes (a) and (b) and pass (c)'s products) and the
 # instructions their SASS must hold
 SM90_KERNELS = {"eval_sm90_kernelILi0E": ("HGMMA", "UTMALDG"),
                 "eval_sm90_kernelILi1E": ("HGMMA", "UTMALDG"),
                 "eval_sm90_kernelILi2E": ("HGMMA", "UTMALDG"),
                 "eval_sm90_kernelILi3E": ("HGMMA", "UTMALDG"),
+                "eval_sm90_kernelILi4E": ("HGMMA", "UTMALDG"),
+                "eval_sm90_kernelILi5E": ("HGMMA", "UTMALDG"),
+                "eval_sm90_kernelILi6E": ("HGMMA", "UTMALDG"),
                 "field_bwd_sm90_kernel": ("HGMMA", "UTMALDG", "UTMASTG"),
                 "wgrad_sm90_kernel": ("HGMMA", "UTMALDG"),
                 "input_sm90_kernel": ("HGMMA", "UTMALDG", "UTMASTG")}
@@ -467,6 +493,17 @@ FIT_TOL = 1e-4
 # the npz keys JAX's transfer.main writes, in its order
 # (tests/test_torch_body_models.py::test_transfer_cli_matches_jax)
 TRANSFER_KEYS = ["betas", "body_pose", "global_orient", "transl", "mesh_paths"]
+# phase 17: kernel 2's grouped poses and per-ray view ladder. Grouped
+# layouts as (tag, pose groups, rays per group, samples): surreal.txt's
+# train batch at both passes' samples, h36m_prot2.txt's at 64 (its 80-sample
+# pass has 960 points a group, which the JAX kernel and fused_run_net
+# refuse)
+GROUP_SHAPES = (("surreal 64", 128, 16, 64), ("surreal 80", 128, 16, 80),
+                ("h36m_prot2 64", 256, 12, 64))
+SPLIT_SHAPE = (20, 4096, 80)  # one grouped launch against 20 single-pose launches
+RENDER_GROUPS = (128, 16)  # the grouped render's batch: groups x rays per group
+LADDER_RAYS, LADDER_SAMPLES = 8192, (80, 64, 16)
+GROUP_TIMED = 10  # CUDA-event launches timed per kernel
 # figures that a later phase reads: phase 6's bare train step
 TIMES = {}
 DEVICE = "cuda"
@@ -841,10 +878,10 @@ def run(torch) -> int:
                   f"{e_den:.3e} (its sigma == full's)")
 
     # 3. the main path, through the launch counters -------------------------
-    expected = {False: {"dual": 1, "field": 1, "field_stash": 0, "field_bwd": 0,
-                        "field_bwd_inputs": 0, "variant": 0},
-                True: {"dual": 0, "field": 2, "field_stash": 0, "field_bwd": 0,
-                       "field_bwd_inputs": 0, "variant": 0}}
+    expected = {False: {"dual": 1, "field": 1, "field_grouped": 0, "field_ray_ladder": 0,
+                        "field_stash": 0, "field_bwd": 0, "field_bwd_inputs": 0, "variant": 0},
+                True: {"dual": 0, "field": 2, "field_grouped": 0, "field_ray_ladder": 0,
+                       "field_stash": 0, "field_bwd": 0, "field_bwd_inputs": 0, "variant": 0}}
     launches = {"dual": 0, "field": 0}
     with torch.no_grad():
         # The last sample's interval is 1e10 long, so a ray is opaque iff the
@@ -962,6 +999,8 @@ def run(torch) -> int:
         for k, n in tooling_phases(torch, card, cli_runs).items():
             launches[k] += n
         marks.append(("16", time.perf_counter()))
+        grouped_rows = grouped_phases(torch, card)
+        marks.append(("17", time.perf_counter()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in launches:
@@ -1022,6 +1061,7 @@ def run(torch) -> int:
         "launches": variant_launches, "max_abs_err": variant_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
     })
+    kernels += grouped_rows
     print("timing phases (host clock, s): " + ", ".join(
         f"{name} {t - marks[i][1]:.1f}" for i, (name, t) in enumerate(marks[1:])))
     print(card)
@@ -1178,8 +1218,8 @@ def train_phases(torch, card: str):
     state_k, stats_k = make_train_step(cfg, tcfg)(state_k, batch)
     torch.cuda.synchronize()
     launches = dict(F.LAUNCHES)
-    want = {"field": 0, "dual": 0, "field_stash": 2, "field_bwd": 2, "field_bwd_inputs": 0,
-            "variant": 0}
+    want = {"field": 0, "field_grouped": 0, "field_ray_ladder": 0, "dual": 0, "field_stash": 2,
+            "field_bwd": 2, "field_bwd_inputs": 0, "variant": 0}
     check(launches == want, f"train step: launches {launches} != {want}")
     state_p, stats_p = make_train_step(cfg, tcfg_plain)(state_p, batch)
     torch.cuda.synchronize()
@@ -1581,8 +1621,8 @@ def pose_phases(torch, card: str):
     state_k, stats_k = step_of(cfg, tcfg)(state_k, batch)
     torch.cuda.synchronize()
     launches = dict(F.LAUNCHES)
-    want = {"field": 0, "dual": 0, "field_stash": 2, "field_bwd": 2, "field_bwd_inputs": 2,
-            "variant": 0}
+    want = {"field": 0, "field_grouped": 0, "field_ray_ladder": 0, "dual": 0, "field_stash": 2,
+            "field_bwd": 2, "field_bwd_inputs": 2, "variant": 0}
     check(launches == want, f"pose step: launches {launches} != {want}")
     state_p, stats_p = step_of(cfg, tcfg_plain)(state_p, batch)
     torch.cuda.synchronize()
@@ -4302,6 +4342,262 @@ def tooling_phases(torch, card: str, runs):
         IMG._eval_maps, IMG.render_path = real_maps, real_path
         RAST.turntable_render = real_turntable
     return launches
+
+def grouped_phases(torch, card: str):
+    """Phase 17, kernel 2's grouped poses and per-ray view ladder: (a) the
+    grouped modes against their plain versions; (b) one grouped launch
+    against the single-pose launches it replaces, bit for bit; (c)
+    render_rays(use_fused=True) on a grouped batch, through the launch
+    counters, against the plain pipeline; (d) the ray ladder against the
+    per-point mode, bit for bit, and where it stays off; (e) times. -> the
+    `kernels` rows of field_grouped and field_ray_ladder."""
+    from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.models.nerf import nerf_apply
+    from posegen_tpu_torch.ops import sampling as samp
+    from posegen_tpu_torch.render.raycast import (
+        PoseCtx, RaycastConfig, encode_inputs, init_raycaster, render_rays,
+    )
+    from posegen_tpu_torch.utils.fixtures import make_problem
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    gen = torch.Generator().manual_seed(SEED)
+    cfg = RaycastConfig()
+    params = init_raycaster(cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
+    cfg_fc = RaycastConfig(opt_framecode=True, n_framecodes=4)
+    params_fc = init_raycaster(cfg_fc, torch.Generator().manual_seed(SEED), device=DEVICE)
+    cfg_42 = RaycastConfig(multires=4, multires_views=2)
+    params_42 = init_raycaster(cfg_42, torch.Generator().manual_seed(SEED), device=DEVICE)
+    layout = lambda c: F.net_layout(c.netdepth, c.multires, c.multires_views)  # noqa: E731
+
+    def grouped_batch(n_groups, rpg, n_s, seed):
+        """(ctx with a pose row per group and a cylinder per ray, rays_o,
+        rays_d, points (N * n_s, 3)) of a train_batch."""
+        b = train_batch(torch, n_groups, rpg, seed)
+        ctx = PoseCtx(kps=b["kp3d"], skts=b["skts"], bones=b["bones"],
+                      cyls=b["cyls"].repeat_interleave(rpg, 0))
+        near, far = samp.get_near_far_in_cylinder(b["rays_o"], b["rays_d"], ctx.cyls,
+                                                  near=cfg.near, far=cfg.far)
+        z = samp.sample_from_lineseg(near, far, n_s)
+        pts = (b["rays_o"][:, None] + b["rays_d"][:, None] * z[..., None]).reshape(-1, 3)
+        return ctx, b["rays_o"], b["rays_d"], pts.contiguous()
+
+    def grouped_net(c, v, ctx, codes=None):
+        """(pose table, packed net, view-bias rows) of config c's fine net."""
+        poses = F.pack_poses(ctx.skts, v["embed_kp"], c.multires, c.multires_views)
+        return (poses, *F.prepare_net_grouped(v["fine"], layout(c), codes))
+
+    with torch.no_grad():
+        # 17a. the grouped modes against their plain versions ---------------
+        err_grouped = 0.0
+        for tag, G, rpg, n_s in GROUP_SHAPES:
+            ctx, _, rd, pts = grouped_batch(G, rpg, n_s, SEED)
+            codes = torch.randn((G, cfg_fc.framecode_ch), generator=gen).to(DEVICE)
+            for net_tag, operands in (
+                    ("framecode net, a code per group", grouped_net(cfg_fc, params_fc, ctx, codes)),
+                    ("multires 4 / 2", grouped_net(cfg_42, params_42, ctx))):
+                poses, net, bview = operands
+                errs = []
+                for density_only in (False, True):
+                    k = F.fused_field(pts, rd, n_s, poses, net, density_only, bview=bview)
+                    p = F.field_plain(pts, rd, n_s, poses, net, density_only, mm_dtype=bf16,
+                                      bview=bview)
+                    torch.cuda.synchronize()
+                    errs.append(compare(f"grouped {tag} {net_tag} density_only={density_only}",
+                                        k, p))
+                    if density_only:
+                        check(bool(torch.equal(k[:, 3], full[:, 3])),
+                              f"grouped {tag} {net_tag}: density_only sigma != the full mode's")
+                        check(float(k[:, :3].abs().max()) == 0.0,
+                              f"grouped {tag} {net_tag}: density_only rgb rows not zero")
+                    full = k
+                err_grouped = max(err_grouped, *errs)
+                print(f"grouped vs plain, {tag} ({G} groups x {rpg} rays x {n_s} samples, "
+                      f"{pts.shape[0]} points), {net_tag}: max|diff| full {errs[0]:.3e}, "
+                      f"density_only {errs[1]:.3e} (its sigma == full's)")
+        G, rpg = GROUP_SHAPES[2][1:3]
+        ctx, _, rd, _ = grouped_batch(G, rpg, 1, SEED)
+        try:
+            F.fused_run_net(cfg_fc, params_fc["fine"], params_fc["embed_kp"],
+                            torch.zeros((G * rpg, 80, 3), device=DEVICE), rd, ctx)
+            check(False, "grouped h36m_prot2 80: fused_run_net took 960 points a group")
+        except ValueError as e:
+            check("not a multiple of any tile" in str(e), f"grouped h36m_prot2 80: {e}")
+            print(f"grouped h36m_prot2 80 ({G} x {rpg} x 80): refused, as in JAX: {e}")
+
+        # 17b. one grouped launch against G single-pose launches -----------
+        n_split, rpg_s, ns_s = SPLIT_SHAPE
+        ctx, _, rd_s, pts_s = grouped_batch(n_split, rpg_s, ns_s, SEED + 3)
+        codes = torch.randn((n_split, cfg_fc.framecode_ch), generator=gen).to(DEVICE)
+        poses_s, net_s, bview_s = grouped_net(cfg_fc, params_fc, ctx, codes)
+        singles = [F.prepare_net(params_fc["fine"], layout(cfg_fc), c) for c in codes]
+        n = rpg_s * ns_s
+
+        def split(density_only):
+            return [F.fused_field(pts_s[g * n:(g + 1) * n], rd_s[g * rpg_s:(g + 1) * rpg_s],
+                                  ns_s, poses_s[g], singles[g], density_only)
+                    for g in range(n_split)]
+
+        for density_only in (False, True):
+            k = F.fused_field(pts_s, rd_s, ns_s, poses_s, net_s, density_only, bview=bview_s)
+            one = torch.cat(split(density_only))
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(k).all()), "grouped split case: raw not finite")
+            check(bool(torch.equal(k, one)),
+                  f"grouped density_only={density_only}: one launch on {n_split} groups != "
+                  f"{n_split} single-pose launches (max|diff| {float((k - one).abs().max()):.3e})")
+        print(f"grouped vs single-pose: one launch on {n_split} groups x {rpg_s} rays x {ns_s} "
+              f"samples ({pts_s.shape[0]} points, a framecode each) == {n_split} posegen_field "
+              "launches, bit for bit, full and density_only")
+
+        # 17c. render_rays(use_fused=True) on a grouped batch ---------------
+        G, rpg = RENDER_GROUPS
+        ctx, ro, rd, _ = grouped_batch(G, rpg, 1, SEED)
+        n_rays = G * rpg
+        F.reset_launches()
+        out = render_rays(cfg, params, ro, rd, ctx, perturb=0.0, raw_noise_std=0.0,
+                          use_fused=True, coarse_rgb=False)
+        torch.cuda.synchronize()
+        render_launches = dict(F.LAUNCHES)
+        want = {k: 2 if k == "field_grouped" else 0 for k in render_launches}
+        check(render_launches == want, f"grouped render: launches {render_launches} != {want}")
+        rep = lambda a: a.repeat_interleave(rpg, 0)  # noqa: E731
+        per_ray = ctx._replace(kps=rep(ctx.kps), skts=rep(ctx.skts), bones=rep(ctx.bones))
+        ref = render_rays(cfg, params, ro, rd, per_ray, perturb=0.0, raw_noise_std=0.0,
+                          use_fused=False, coarse_rgb=False)
+        rgb = out["rgb_map"]
+        check(tuple(rgb.shape) == (n_rays, 3) and bool(torch.isfinite(rgb).all()),
+              f"grouped render: rgb_map {tuple(rgb.shape)} not finite")
+        acc = float(out["acc_map"].mean())
+        check(0.0 < acc and float(rgb.abs().max()) > 0.0, f"grouped render: empty (acc {acc})")
+        # phase 3's flip rule, on each ray's far sample under its group's pose
+        _, far = samp.get_near_far_in_cylinder(ro, rd, ctx.cyls, near=cfg.near, far=cfg.far)
+        far_pts = (ro + rd * far).contiguous()
+        x_pts, x_views, _ = encode_inputs(cfg, params, far_pts[:, None], rd, per_ray)
+        sig_ref = nerf_apply(cfg.nerf_cfg, params["fine"], x_pts, x_views)[:, 0, 3]
+        poses, net_f, bview_f = grouped_net(cfg, params, ctx)
+        sig_ker = F.fused_field(far_pts, rd, 1, poses, net_f, density_only=True,
+                                bview=bview_f)[:, 3]
+        straddles = (sig_ref > 0) != (sig_ker > 0)
+        d_rgb = (rgb - ref["rgb_map"]).abs().amax(-1)
+        flipped = (out["acc_map"] - ref["acc_map"]).abs() > 0.5
+        n_flip = int(flipped.sum())
+        err_render = float(d_rgb[~flipped].max())
+        check(n_flip <= MAX_FLIP_FRAC * n_rays, f"grouped render: {n_flip} rays flipped opacity")
+        check(bool(straddles[flipped].all()),
+              f"grouped render: {int((~straddles[flipped]).sum())} rays flipped opacity with no "
+              "sign change of their far sigma")
+        check(err_render <= RENDER_TOL,
+              f"grouped render: rgb_map vs plain {err_render:.3e} > {RENDER_TOL}")
+        print(f"grouped render ({G} groups x {rpg} rays, RaycastConfig(), coarse_rgb=False): "
+              f"launches {render_launches}; rgb_map max|diff| vs the plain pipeline on the "
+              f"per-ray ctx {err_render:.3e} on {n_rays - n_flip} rays, {n_flip} flipped "
+              f"(each a far-sigma sign change); mean acc {acc:.4f}")
+
+        # 17d. the ray ladder ------------------------------------------------
+        _, _, ctx1, ro, rd = make_problem(cfg, n_rays=LADDER_RAYS, seed=SEED, device=DEVICE)
+        near, far = samp.get_near_far_in_cylinder(ro, rd, ctx1.cyls.expand(LADDER_RAYS, 5),
+                                                  near=cfg.near, far=cfg.far)
+        ladder_pts = {}
+        for n_s in LADDER_SAMPLES:
+            z = samp.sample_from_lineseg(near, far, n_s)
+            ladder_pts[n_s] = (ro[:, None] + rd[:, None] * z[..., None]).contiguous()
+        run = lambda p, c=ctx1, **kw: F.fused_run_net(  # noqa: E731
+            cfg, params["fine"], params["embed_kp"], p, rd[:p.shape[0]], c,
+            view_embed_state=params.get("embed_view"), **kw)
+        F.reset_launches()
+        raws = {n_s: run(p, ray_ladder=True) for n_s, p in ladder_pts.items()}
+        torch.cuda.synchronize()
+        ladder_launches = dict(F.LAUNCHES)
+        want = {k: len(LADDER_SAMPLES) if k == "field_ray_ladder" else 0 for k in ladder_launches}
+        check(ladder_launches == want, f"ray ladder: launches {ladder_launches} != {want}")
+        for n_s, p in ladder_pts.items():
+            per_point = run(p, ray_ladder=False)
+            check(bool(torch.isfinite(raws[n_s]).all()), f"ray ladder S={n_s}: raw not finite")
+            check(bool(torch.equal(raws[n_s], per_point)),
+                  f"ray ladder S={n_s}: raw != the per-point mode's (max|diff| "
+                  f"{float((raws[n_s] - per_point).abs().max()):.3e})")
+        grouped_rd = grouped_batch(*RENDER_GROUPS, 1, SEED)
+        for what, call, key in (
+                ("density_only", lambda: run(ladder_pts[80], density_only=True, ray_ladder=True),
+                 "field"),
+                ("grouped", lambda: F.fused_run_net(
+                    cfg, params["fine"], params["embed_kp"],
+                    ladder_pts[64][:grouped_rd[2].shape[0]], grouped_rd[2], grouped_rd[0],
+                    ray_ladder=True), "field_grouped"),
+                ("S=1", lambda: run(ladder_pts[16][:, :1].contiguous(), ray_ladder=True), "field")):
+            F.reset_launches()
+            call()
+            got = dict(F.LAUNCHES)
+            check(got == {k: int(k == key) for k in got}, f"ray ladder {what}: launches {got}")
+        pose = F.pack_pose(ctx1.skts[0], params["embed_kp"], cfg.multires, cfg.multires_views)
+        net_1 = F.prepare_net(params["fine"], layout(cfg))
+        pts80 = ladder_pts[80].reshape(-1, 3)
+        k = F.fused_field(pts80, rd, 80, pose, net_1, ray_ladder=True)
+        p = F.field_plain(pts80, rd, 80, pose, net_1, mm_dtype=bf16, ray_ladder=True)
+        torch.cuda.synchronize()
+        err_ladder = compare("ray ladder S=80", k, p)
+        print(f"ray ladder: launches {ladder_launches} (S = {', '.join(map(str, LADDER_SAMPLES))} "
+              f"on {LADDER_RAYS} rays), raw == the per-point mode's at each, bit for bit; vs "
+              f"its plain version at S=80 max|diff| {err_ladder:.3e}; off for density_only, "
+              "grouped and S=1 calls")
+
+        # 17e. times ----------------------------------------------------------
+        w_bytes = 2 * net_1.w.numel() + 4 * net_1.b.numel()
+        rows = {}
+        for tag, G, rpg, n_s in GROUP_SHAPES[:2]:
+            ctx, _, rd_g, pts = grouped_batch(G, rpg, n_s, SEED)
+            poses, net, bview = grouped_net(cfg, params, ctx)
+            P = pts.shape[0]
+            for density_only in (False, True):
+                k_ms = cuda_ms(lambda: F.fused_field(pts, rd_g, n_s, poses, net, density_only,
+                                                     bview=bview), GROUP_TIMED)
+                p_ms = cuda_ms(lambda: F.field_plain(pts, rd_g, n_s, poses, net, density_only,
+                                                     mm_dtype=bf16, bview=bview), 3, warmup=1)
+                b_ms, b_by = bound(F.field_flops(net.layout, density_only) * P,
+                                   28 * P + 12 * G * rpg + poses.numel() * 4 + w_bytes)
+                rows[(tag, density_only)] = (P, k_ms, p_ms, b_ms, b_by)
+                print(f"timing grouped {'density_only' if density_only else 'full'} {tag} "
+                      f"({P} points, {G} groups): {k_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}, "
+                      f"{b_ms / k_ms:.1%} of it), plain {p_ms:.3f} ms [{card}]")
+        P = pts_s.shape[0]
+        g_ms = cuda_ms(lambda: F.fused_field(pts_s, rd_s, ns_s, poses_s, net_s, bview=bview_s),
+                       GROUP_TIMED)
+        s_ms = cuda_ms(lambda: split(False), GROUP_TIMED)
+        b_ms, b_by = bound(F.field_flops(net_s.layout, False) * P,
+                           28 * P + 12 * rd_s.shape[0] + 4 * (poses_s.numel() + bview_s.numel())
+                           + w_bytes)
+        print(f"timing grouped vs single-pose ({n_split} groups, {P} points): one "
+              f"grouped launch {g_ms:.3f} ms, the {n_split} single-pose launches "
+              f"{s_ms:.3f} ms together; bound {b_ms:.3f} ms ({b_by}) [{card}]")
+        for n_s, pts in ladder_pts.items():
+            flat = pts.reshape(-1, 3)
+            P = flat.shape[0]
+            l_ms = cuda_ms(lambda: F.fused_field(flat, rd, n_s, pose, net_1, ray_ladder=True),
+                           GROUP_TIMED)
+            pp_ms = cuda_ms(lambda: F.fused_field(flat, rd, n_s, pose, net_1), GROUP_TIMED)
+            p_ms = cuda_ms(lambda: F.field_plain(flat, rd, n_s, pose, net_1, mm_dtype=bf16,
+                                                 ray_ladder=True), 3, warmup=1)
+            b_ms, b_by = bound(F.field_flops(net_1.layout, False) * P,
+                               28 * P + 12 * LADDER_RAYS + pose.numel() * 4 + w_bytes)
+            rows[("ladder", n_s)] = (P, l_ms, p_ms, b_ms, b_by)
+            print(f"timing ray ladder S={n_s} ({P} points): {l_ms:.3f} ms, the per-point mode "
+                  f"{pp_ms:.3f} ms ({l_ms / pp_ms - 1:+.1%}); bound {b_ms:.3f} ms ({b_by}, "
+                  f"{b_ms / l_ms:.1%} of it), plain {p_ms:.3f} ms [{card}]")
+        print(f"timing phase 17: {time.perf_counter() - t_phase:.1f} s [{card}]")
+
+    src = "posegen_tpu_torch/kernels/csrc/field.cu"
+    kernels = []
+    for name, replaces, key, n, err in (
+            ("field_grouped", "posegen_tpu/kernels/field.py:581", ("surreal 80", False),
+             render_launches["field_grouped"], err_grouped),
+            ("field_ray_ladder", "posegen_tpu/kernels/field.py:436", ("ladder", 80),
+             ladder_launches["field_ray_ladder"], err_ladder)):
+        _, k_ms, p_ms, b_ms, b_by = rows[key]
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": replaces,
+                        "launches": n, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+    return kernels
 
 
 def _glob(d: str, pattern: str):

@@ -106,6 +106,11 @@ def load() -> ctypes.CDLL:
     lib.posegen_field.restype = I
     lib.posegen_dual.argtypes = [P, P, I, I, P, IA, I, P, P, P, P, P, P, P, LL, P]
     lib.posegen_dual.restype = I
+    lib.posegen_field_grouped.argtypes = [P, P, I, I, P, I, I, IA, I, P, P, P, I, I, P, I, P,
+                                          LL, P]
+    lib.posegen_field_grouped.restype = I
+    lib.posegen_field_ray_ladder.argtypes = [P, P, I, I, P, IA, I, P, P, P, P, LL, P, LL, P]
+    lib.posegen_field_ray_ladder.restype = I
     for name in ("posegen_field_eval_smem", "posegen_field_eval_slot_bytes",
                  "posegen_field_stash_smem"):
         getattr(lib, name).argtypes = [IA, I]

@@ -1,15 +1,21 @@
 // Fused skeleton-encode + NeRF MLP kernels for Hopper (sm_90a), bound to
 // Python through a plain C interface (ctypes).
 //
-//   posegen_field        replaces posegen_tpu/kernels/field.py::_field_kernel
-//                        (full raw, or density_only: trunk + alpha head only)
-//   posegen_dual         replaces posegen_tpu/kernels/field.py::_dual_kernel
-//                        (one encode, coarse trunk + alpha head and the full
-//                        fine net)
-//   posegen_field_stash  replaces posegen_tpu/kernels/field_grad.py::
-//                        _field_fwd_stash_kernel (the full net on grouped
-//                        poses, its bf16 encodings written out for the
-//                        backward, csrc/field_grad.cu)
+//   posegen_field            replaces posegen_tpu/kernels/field.py::_field_kernel
+//                            (full raw, or density_only: trunk + alpha head only)
+//   posegen_field_grouped    the same on grouped poses (_field_kernel under
+//                            grouped_specs, field.py:581): kFullGroups,
+//                            kDensityGroups
+//   posegen_field_ray_ladder the same with the per-ray view ladder (the ray_s
+//                            branch of encode_channels, field.py:436):
+//                            kFullLadder
+//   posegen_dual             replaces posegen_tpu/kernels/field.py::_dual_kernel
+//                            (one encode, coarse trunk + alpha head and the full
+//                            fine net)
+//   posegen_field_stash      replaces posegen_tpu/kernels/field_grad.py::
+//                            _field_fwd_stash_kernel (the full net on grouped
+//                            poses, its bf16 encodings written out for the
+//                            backward, csrc/field_grad.cu)
 //
 // Bound on an H100: operations. The flagship field evaluation is 1,723,648
 // FLOP per point and the dual one 3,084,032, against 40-56 bytes of input and
@@ -17,10 +23,10 @@
 // TFLOP/s (bf16 dense) that is 1.74 ns and 3.12 ns per point (the stash's
 // bytes 0.64 ns at 3.35 TB/s).
 //
-// One template, four instantiations (kFull, kDensity, kDual, kStash), on the
-// 128-point tile of sm90_tile.cuh (kernel 4's pass (a) design): a persistent
-// grid of min(tiles, slots) blocks, each of two consumer warpgroups and one
-// producer warp, walks the tiles blockIdx.x, + gridDim.x, ... For each tile:
+// One template, seven instantiations (the Mode enum), on the 128-point tile
+// of sm90_tile.cuh (kernel 4's pass (a) design): a persistent grid of
+// min(tiles, slots) blocks, each of two consumer warpgroups and one producer
+// warp, walks the tiles blockIdx.x, + gridDim.x, ... For each tile:
 //   1. The consumers encode the tile's points on the CUDA cores (encode_slot:
 //      field.cuh's encode_tile arithmetic) into the block's slot of a device
 //      scratch buffer: 128 rows of e_pts (pc) and of e_view (vc) bf16, the
@@ -57,6 +63,31 @@
 // e_view (n_pts, vc), so no slot is reused and the grid is min(tiles, SMs).
 // Rows past n_pts are neither encoded nor stored; TMA reads them as zeros.
 // On one group its raw is kFull's, bit for bit.
+//
+// kFullGroups and kDensityGroups are kFull and kDensity on kStash's grouped
+// operands (the pose table, the view-bias rows), encoding into the slots as
+// kFull does: rows past n_pts encode a copy of the last point. On one group
+// their raw is kFull's / kDensity's, bit for bit, and a launch on G groups is
+// G single-pose launches' raws, bit for bit: every row of a product depends
+// only on its own row of the operands.
+//
+// kFullLadder is kFull with the view ladder built once per ray. A ray's view
+// channels are its direction in each joint frame, normalised, and their
+// sin / cos octaves, scaled per point by that point's cutoff gates (and the
+// BARF weights): only the gates depend on the point. A first pass
+// (view_ladder_kernel) writes each ray's ungated ladder, view_ch(nf_view)
+// float32 values in e_view's channel order, to a device buffer of
+// (n_pts / spr) rows; the encode then reads its ray's row through L1 and
+// multiplies it by the gates. Per point that leaves 12 float4 loads and the
+// multiplies of each joint quad, in place of 3 rotations, a normalisation, 3
+// sin / cos pairs and the double-angle recurrence of every octave. The buffer,
+// not shared memory: a 128-point tile touches up to 65 rays (spr 2), 168,480
+// bytes of ladders at multires_views 4, and the eval plan leaves 31,144 of
+// the 232,448 bytes a block may take; the buffer (21.2 MB at 8192 rays) stays
+// in the 50 MB L2 between the two passes at the render's chunk sizes, and
+// every spr takes the same code. Both passes compute the ladder in the same
+// inline functions (local_dir, double_angle) and keep it in float32 up to the
+// per-point multiply, so the raw is the per-point mode's, bit for bit.
 
 #include <limits.h>
 
@@ -66,14 +97,33 @@
 
 namespace posegen {
 
-enum Mode { kFull = 0, kDensity = 1, kDual = 2, kStash = 3 };
+enum Mode {
+  kFull = 0,
+  kDensity = 1,
+  kDual = 2,
+  kStash = 3,
+  kFullGroups = 4,
+  kDensityGroups = 5,
+  kFullLadder = 6
+};
+
+// Whether the mode encodes the view channels (some net runs the view layer).
+__host__ __device__ constexpr bool has_view(int mode) {
+  return mode != kDensity && mode != kDensityGroups;
+}
+
+// Whether the mode reads a pose table and view-bias rows per point (Groups).
+__host__ __device__ constexpr bool grouped(int mode) {
+  return mode == kStash || mode == kFullGroups || mode == kDensityGroups;
+}
 
 // Whether net k of the mode runs the feature and view layers and rgb head.
 __host__ __device__ constexpr bool full_net(int mode, int k) {
-  return mode == kFull || mode == kStash || (mode == kDual && k == 1);
+  return mode == kFull || mode == kStash || mode == kFullGroups || mode == kFullLadder ||
+         (mode == kDual && k == 1);
 }
 
-// kStash's grouped operands: point p reads pose row p / ppg (rows pose_ld
+// The grouped modes' operands: point p reads pose row p / ppg (rows pose_ld
 // floats apart) and view-bias row p / vppg of bview (rows vb_ld floats
 // apart; vb_ld == 0: one row for every point).
 struct Groups {
@@ -190,29 +240,66 @@ __device__ __forceinline__ void st_bf16x4(bf16* p, float a, float b, float c, fl
   *reinterpret_cast<uint2*>(p) = v;
 }
 
+// Joint frame R's direction of the ray direction (dx, dy, dz), normalised:
+// the per-point and the per-ray view ladders both compute it here, so that
+// they round alike.
+__device__ __forceinline__ void local_dir(const float* R, float dx, float dy, float dz,
+                                          float (&dn)[3]) {
+  const float D0 = R[0] * dx + R[1] * dy + R[2] * dz;
+  const float D1 = R[3] * dx + R[4] * dy + R[5] * dz;
+  const float D2 = R[6] * dx + R[7] * dy + R[8] * dz;
+  const float dn_inv = rsqrtf(fmaxf(D0 * D0 + D1 * D1 + D2 * D2, 1e-24f));
+  dn[0] = D0 * dn_inv;
+  dn[1] = D1 * dn_inv;
+  dn[2] = D2 * dn_inv;
+}
+
+// One octave up a ladder: (sin, cos) of 2x from those of x.
+__device__ __forceinline__ void double_angle(float& s, float& c) {
+  const float s2 = 2.f * s * c;
+  c = 1.f - 2.f * s * s;
+  s = s2;
+}
+
+// 12 floats from p (16-byte aligned), through L1.
+__device__ __forceinline__ void ld_f32x12(const float* p, float (&v)[12]) {
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p) + k);
+    v[4 * k] = x.x;
+    v[4 * k + 1] = x.y;
+    v[4 * k + 2] = x.z;
+    v[4 * k + 3] = x.w;
+  }
+}
+
 // The encodings of the 64 points from p0 (rows past n_pts repeat the last
-// point; with kRows they are skipped) into 64 slot rows: e_pts rows of pc
-// and, with kView, e_view rows of vc bf16, in encode_tile's channel order and
-// arithmetic (field.cuh). `pose` is the one pose in shared memory or, with
-// kRows, a table whose row gp / ppg (pose_ld floats apart) point gp reads.
+// point; kStash skips them) into 64 slot rows: e_pts rows of pc and, with
+// the view channels, e_view rows of vc bf16, in encode_tile's channel order
+// and arithmetic (field.cuh). `pose` is the one pose in shared memory or, in
+// the grouped modes, a table whose row gp / ppg (pose_ld floats apart) point
+// gp reads. kFullLadder reads its ray's view ladder from vlad (rows of vc
+// floats, view_ladder_kernel) in place of computing it.
 // Work item (p, q) is point p's joints 4q .. 4q + 3: their kp channels in
 // 8-byte vectors of 4 joints, their reldir and view channels in three vectors
 // of 12 (joint, axis) values; a warpgroup's 128 threads take 3 items each.
-template <bool kView, bool kRows>
+template <int MODE>
 __device__ __forceinline__ void encode_slot(const float* __restrict__ pts,
                                             const float* __restrict__ dirs, int n_pts, int spr,
                                             int p0, const float* pose, int pose_ld, int ppg,
-                                            const Layout& L, bf16* __restrict__ e_pts,
-                                            bf16* __restrict__ e_view, int t) {
+                                            const float* __restrict__ vlad, const Layout& L,
+                                            bf16* __restrict__ e_pts, bf16* __restrict__ e_view,
+                                            int t) {
+  constexpr bool kView = has_view(MODE), kTable = grouped(MODE);
   const int kc = kJoints * (1 + 2 * L.nf_kp);
   const float* s_pose = pose;
   float tau = s_pose[kJoints * 13];
   const float* sw = s_pose + kPoseFloats;  // kp octaves, then view octaves
   for (int item = t; item < 64 * 6; item += 128) {
     const int p = item / 6, q = item - 6 * p;
-    if (kRows && p0 + p >= n_pts) break;  // items run in point order
+    if (MODE == kStash && p0 + p >= n_pts) break;  // items run in point order
     const int gp = min(p0 + p, n_pts - 1);
-    if (kRows) {
+    if (kTable) {
       s_pose = pose + static_cast<size_t>(gp / ppg) * pose_ld;
       tau = s_pose[kJoints * 13];
       sw = s_pose + kPoseFloats;
@@ -258,28 +345,41 @@ __device__ __forceinline__ void encode_slot(const float* __restrict__ pts,
 
     if (kView) {
       const int ray = gp / spr;
-      const float dx = __ldg(dirs + 3 * ray), dy = __ldg(dirs + 3 * ray + 1),
-                  dz = __ldg(dirs + 3 * ray + 2);
+      bf16* ev = e_view + static_cast<size_t>(p) * L.vc + 12 * q;
       float sq[12], cq[12], o[12];
+      // block 0: dn * w; then per octave sin, cos * w * the BARF weight
+      const float* lr =
+          MODE == kFullLadder ? vlad + static_cast<size_t>(ray) * L.vc + 12 * q : nullptr;
+      if (MODE == kFullLadder) {
+        ld_f32x12(lr, sq);
+      } else {
+        const float dx = __ldg(dirs + 3 * ray), dy = __ldg(dirs + 3 * ray + 1),
+                    dz = __ldg(dirs + 3 * ray + 2);
 #pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const float* R = s_pose + 9 * (4 * q + a);
-        const float D0 = R[0] * dx + R[1] * dy + R[2] * dz;
-        const float D1 = R[3] * dx + R[4] * dy + R[5] * dz;
-        const float D2 = R[6] * dx + R[7] * dy + R[8] * dz;
-        const float dn_inv = rsqrtf(fmaxf(D0 * D0 + D1 * D1 + D2 * D2, 1e-24f));
-        const float dn[3] = {D0 * dn_inv, D1 * dn_inv, D2 * dn_inv};
+        for (int a = 0; a < 4; ++a) {
+          float dn[3];
+          local_dir(s_pose + 9 * (4 * q + a), dx, dy, dz, dn);
 #pragma unroll
-        for (int b = 0; b < 3; ++b) {
-          o[3 * a + b] = dn[b] * w[a];
-          sincosf(dn[b], &sq[3 * a + b], &cq[3 * a + b]);
+          for (int b = 0; b < 3; ++b) sq[3 * a + b] = dn[b];
         }
       }
-      bf16* ev = e_view + static_cast<size_t>(p) * L.vc + 12 * q;
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+          const int i = 3 * a + b;
+          o[i] = sq[i] * w[a];
+          if (MODE != kFullLadder) sincosf(sq[i], &sq[i], &cq[i]);
+        }
+      }
 #pragma unroll
       for (int k = 0; k < 3; ++k) st_bf16x4(ev + 4 * k, o[4 * k], o[4 * k + 1], o[4 * k + 2], o[4 * k + 3]);
       for (int f = 0; f < L.nf_view; ++f) {
         float oc[12];
+        if (MODE == kFullLadder) {
+          ld_f32x12(lr + (1 + 2 * f) * 3 * kJoints, sq);
+          ld_f32x12(lr + (2 + 2 * f) * 3 * kJoints, cq);
+        }
 #pragma unroll
         for (int a = 0; a < 4; ++a) {
           const float wf = w[a] * sw[L.nf_kp + f];
@@ -288,9 +388,7 @@ __device__ __forceinline__ void encode_slot(const float* __restrict__ pts,
             const int i = 3 * a + b;
             o[i] = sq[i] * wf;
             oc[i] = cq[i] * wf;
-            const float s2 = 2.f * sq[i] * cq[i];
-            cq[i] = 1.f - 2.f * sq[i] * sq[i];
-            sq[i] = s2;
+            if (MODE != kFullLadder) double_angle(sq[i], cq[i]);
           }
         }
         bf16* es = ev + (1 + 2 * f) * 3 * kJoints;
@@ -301,6 +399,36 @@ __device__ __forceinline__ void encode_slot(const float* __restrict__ pts,
           st_bf16x4(ec + 4 * k, oc[4 * k], oc[4 * k + 1], oc[4 * k + 2], oc[4 * k + 3]);
         }
       }
+    }
+  }
+}
+
+// kFullLadder's first pass: each ray's view ladder, once per ray, into vlad
+// (n_rays rows of view_ch(nf_view) floats) in e_view's channel order,
+// ungated and without the BARF weights: [dn (24 joints x 3) | per octave f:
+// sin, cos of 2^f dn (24 x 3 each)]. One thread per (ray, joint).
+__global__ void __launch_bounds__(256)
+    view_ladder_kernel(const float* __restrict__ dirs, int n_rays,
+                       const float* __restrict__ pose, int nf_view, int vc,
+                       float* __restrict__ vlad) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= static_cast<long long>(n_rays) * kJoints) return;
+  const int ray = static_cast<int>(i / kJoints), j = static_cast<int>(i % kJoints);
+  float dn[3], s[3], c[3];
+  local_dir(pose + 9 * j, __ldg(dirs + 3 * ray), __ldg(dirs + 3 * ray + 1),
+            __ldg(dirs + 3 * ray + 2), dn);
+  float* out = vlad + static_cast<size_t>(ray) * vc + 3 * j;
+#pragma unroll
+  for (int b = 0; b < 3; ++b) {
+    out[b] = dn[b];
+    sincosf(dn[b], &s[b], &c[b]);
+  }
+  for (int f = 0; f < nf_view; ++f) {
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      out[(1 + 2 * f) * 3 * kJoints + b] = s[b];
+      out[(2 + 2 * f) * 3 * kJoints + b] = c[b];
+      double_angle(s[b], c[b]);
     }
   }
 }
@@ -328,9 +456,10 @@ __device__ __forceinline__ void head_dot(const float (&v)[128], const bf16* w, i
   s[1] = b;
 }
 
-// out0 / w0 / b0: the net (kFull, kDensity, kStash) or the coarse net
-// (kDual); out1 / w1 / b1: the fine net of kDual. ep / ev: the scratch's
-// slots (kStash: the stashes). pose: the one pose (kStash: the table of G).
+// out0 / w0 / b0: the net (kDual: the coarse net); out1 / w1 / b1: the fine
+// net of kDual. ep / ev: the scratch's slots (kStash: the stashes). pose: the
+// one pose (the grouped modes: the table of G). vlad: kFullLadder's per-ray
+// view ladders.
 template <int MODE>
 __global__ void __launch_bounds__(kAThreads, 1)
     eval_sm90_kernel(const __grid_constant__ EvalMaps M, const float* __restrict__ pts,
@@ -339,8 +468,8 @@ __global__ void __launch_bounds__(kAThreads, 1)
                      const bf16* __restrict__ w0, const float* __restrict__ b0,
                      const bf16* __restrict__ w1, const float* __restrict__ b1,
                      bf16* __restrict__ ep, bf16* __restrict__ ev, float* __restrict__ out0,
-                     float* __restrict__ out1, const Groups G) {
-  constexpr bool kView = MODE != kDensity;
+                     float* __restrict__ out1, const float* __restrict__ vlad, const Groups G) {
+  constexpr bool kView = has_view(MODE);
   constexpr int kNets = MODE == kDual ? 2 : 1;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = sm90::smem_u32(smem_raw);
@@ -365,7 +494,7 @@ __global__ void __launch_bounds__(kAThreads, 1)
     sm90::fence_mbar_init();
   }
   const int n_pose = kPoseFloats + L.nf_kp + L.nf_view;
-  if (MODE != kStash) {
+  if (!grouped(MODE)) {
     for (int i = threadIdx.x; i < n_pose; i += kAThreads) s_pose[i] = pose[i];
   }
   {
@@ -409,9 +538,8 @@ __global__ void __launch_bounds__(kAThreads, 1)
       ev_t = ev + static_cast<size_t>(p0 + 64 * f.wg) * L.vc;
     }
     sm90::fence_async_global();
-    encode_slot<kView, MODE == kStash>(pts, dirs, n_pts, spr, p0 + 64 * f.wg,
-                                       MODE == kStash ? pose : s_pose, G.pose_ld, G.ppg, L, ep_t,
-                                       ev_t, f.t);
+    encode_slot<MODE>(pts, dirs, n_pts, spr, p0 + 64 * f.wg, grouped(MODE) ? pose : s_pose,
+                      G.pose_ld, G.ppg, vlad, L, ep_t, ev_t, f.t);
     sm90::fence_async_global();
     sm90::bar_sync(1 + f.wg, 128);
     if (f.t == 0) sm90::mbar_arrive(slot_bar);
@@ -452,11 +580,11 @@ __global__ void __launch_bounds__(kAThreads, 1)
       if (full) {  // the view layer on [feat | e_view], then the rgb head
         consume<128, 0>(acc, 4, false, tile, true, it, ie, R, f.wg);
         consume<128, 0>(acc, nk_v, true, 0, false, it, ie, R, f.wg);
-        // the view bias of rows r0 and r0 + 8: the packed b's, or (kStash)
+        // the view bias of rows r0 and r0 + 8: the packed b's, or (grouped)
         // each row's group row of G.bview
         const float* bview = B + L.b_view + 2 * quad;
         const float* bview8 = bview;
-        if (MODE == kStash) {
+        if (grouped(MODE)) {
           const int r = min(p0 + f.r0, n_pts - 1), r8 = min(p0 + f.r0 + 8, n_pts - 1);
           bview = G.bview + static_cast<size_t>(r / G.vppg) * G.vb_ld + 2 * quad;
           bview8 = G.bview + static_cast<size_t>(r8 / G.vppg) * G.vb_ld + 2 * quad;
@@ -466,7 +594,7 @@ __global__ void __launch_bounds__(kAThreads, 1)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const float bb = __ldg(bview + 8 * j + e);
-            const float bb8 = MODE == kStash ? __ldg(bview8 + 8 * j + e) : bb;
+            const float bb8 = grouped(MODE) ? __ldg(bview8 + 8 * j + e) : bb;
             acc[4 * j + e] = fmaxf(acc[4 * j + e] + bb, 0.f);
             acc[4 * j + e + 2] = fmaxf(acc[4 * j + e + 2] + bb8, 0.f);
           }
@@ -515,11 +643,14 @@ static bool net_maps(const Layout& L, const bf16* W, NetMaps* N) {
   return ok;
 }
 
+// The slot modes' launch: the scratch's slots, the maps and the grid. G: the
+// grouped modes' operands; vlad: kFullLadder's per-ray ladders.
 template <int MODE>
 static int launch(const float* pts, const float* dirs, int n_pts, int spr, const float* pose,
                   const int* layout, int n_layout, const void* w0, const float* b0,
                   const void* w1, const float* b1, float* out0, float* out1, void* scratch,
-                  long long scratch_bytes, cudaStream_t stream) {
+                  long long scratch_bytes, cudaStream_t stream, const Groups& G = Groups{},
+                  const float* vlad = nullptr) {
   Layout L;
   if (!read_layout(layout, n_layout, &L) || n_pts <= 0 || spr <= 0 || scratch == nullptr ||
       scratch_bytes <= 0) {
@@ -536,14 +667,14 @@ static int launch(const float* pts, const float* dirs, int n_pts, int spr, const
   EvalMaps M{};
   if (!net_maps(L, W0, &M.net[0]) || (MODE == kDual && !net_maps(L, W1, &M.net[1])) ||
       !sm90::make_map(&M.ep, ep, L.pc, slot_rows, L.pc, kATile) ||
-      (MODE != kDensity && !sm90::make_map(&M.ev, ev, L.vc, slot_rows, L.vc, kATile))) {
+      (has_view(MODE) && !sm90::make_map(&M.ev, ev, L.vc, slot_rows, L.vc, kATile))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const size_t smem = eval_smem_bytes();
   const cudaError_t e = set_smem(eval_sm90_kernel<MODE>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   eval_sm90_kernel<MODE><<<eval_grid(n_pts, n_slots), kAThreads, smem, stream>>>(
-      M, pts, dirs, n_pts, spr, pose, L, W0, b0, W1, b1, ep, ev, out0, out1, Groups{});
+      M, pts, dirs, n_pts, spr, pose, L, W0, b0, W1, b1, ep, ev, out0, out1, vlad, G);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -568,6 +699,60 @@ int posegen_field(const float* pts, const float* dirs, int n_pts, int spr, const
   }
   return launch<kFull>(pts, dirs, n_pts, spr, pose, layout, n_layout, w, b, nullptr, nullptr,
                        out, nullptr, scratch, scratch_bytes, s);
+}
+
+// posegen_field on grouped poses: point p reads pose row p / ppg of `poses`
+// (rows pose_ld floats apart, each as field.py pack_pose) and view-bias row
+// p / vppg of bview (rows vb_ld floats apart; vb_ld == 0: one row for every
+// point); b's view bias slot is not read. The rest as posegen_field.
+int posegen_field_grouped(const float* pts, const float* dirs, int n_pts, int spr,
+                          const float* poses, int pose_ld, int ppg, const int* layout,
+                          int n_layout, const void* w, const float* b, const float* bview,
+                          int vb_ld, int vppg, float* out, int density_only, void* scratch,
+                          long long scratch_bytes, void* stream) {
+  using namespace posegen;
+  Layout L;
+  if (!read_layout(layout, n_layout, &L) || ppg <= 0 || vppg <= 0 || poses == nullptr ||
+      bview == nullptr || pose_ld < kPoseFloats + L.nf_kp + L.nf_view ||
+      (vb_ld != 0 && vb_ld < kViewWidth)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  const Groups G{bview, pose_ld, ppg, vb_ld, vppg};
+  if (density_only) {
+    return launch<kDensityGroups>(pts, dirs, n_pts, spr, poses, layout, n_layout, w, b, nullptr,
+                                  nullptr, out, nullptr, scratch, scratch_bytes, s, G);
+  }
+  return launch<kFullGroups>(pts, dirs, n_pts, spr, poses, layout, n_layout, w, b, nullptr,
+                             nullptr, out, nullptr, scratch, scratch_bytes, s, G);
+}
+
+// posegen_field (full raw) with the per-ray view ladder: view_ladder_kernel
+// writes each ray's ladder to vlad (vlad_bytes of device memory, at least
+// n_pts / spr rows of view_ch(nf_view) floats), then the eval kernel's
+// kFullLadder mode reads it. n_pts must be a multiple of spr.
+int posegen_field_ray_ladder(const float* pts, const float* dirs, int n_pts, int spr,
+                             const float* pose, const int* layout, int n_layout, const void* w,
+                             const float* b, float* out, float* vlad, long long vlad_bytes,
+                             void* scratch, long long scratch_bytes, void* stream) {
+  using namespace posegen;
+  Layout L;
+  if (!read_layout(layout, n_layout, &L) || n_pts <= 0 || spr <= 0 || n_pts % spr != 0 ||
+      vlad == nullptr) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n_rays = n_pts / spr;
+  if (vlad_bytes < n_rays * L.vc * static_cast<long long>(sizeof(float))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto s = static_cast<cudaStream_t>(stream);
+  const long long n_threads = n_rays * kJoints;
+  view_ladder_kernel<<<static_cast<unsigned>((n_threads + 255) / 256), 256, 0, s>>>(
+      dirs, static_cast<int>(n_rays), pose, L.nf_view, L.vc, vlad);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return launch<kFullLadder>(pts, dirs, n_pts, spr, pose, layout, n_layout, w, b, nullptr,
+                             nullptr, out, nullptr, scratch, scratch_bytes, s, Groups{}, vlad);
 }
 
 // (raw_c with rgb zero, raw_f): the coarse net's density and the fine net's
@@ -625,7 +810,8 @@ int posegen_field_stash(const float* pts, const float* dirs, int n_pts, int spr,
   const Groups G{bview, pose_ld, ppg, n_vgroups > 1 ? kViewWidth : 0, vppg};
   eval_sm90_kernel<kStash><<<eval_grid(n_pts, n_sm), kAThreads, smem,
                              static_cast<cudaStream_t>(stream)>>>(
-      M, pts, dirs, n_pts, spr, poses, L, W, b, nullptr, nullptr, ep, ev, out, nullptr, G);
+      M, pts, dirs, n_pts, spr, poses, L, W, b, nullptr, nullptr, ep, ev, out, nullptr, nullptr,
+      G);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,12 @@ Two CUDA kernels (csrc/field.cu) replace the two Pallas kernels of the
 render path:
 
   fused_field  <- posegen_tpu/kernels/field.py::_field_kernel (full raw, or
-                  density_only: the alpha head alone, rgb rows zero)
+                  density_only: the alpha head alone, rgb rows zero), in its
+                  three operand modes: one pose; grouped poses (a
+                  `pack_poses` table of G rows and a view bias per group,
+                  the rays contiguous per group: the JAX kernel under
+                  `grouped_specs`); and the per-ray view ladder (one pose,
+                  full raw: the `ray_s` branch of `encode_channels`)
   fused_dual   <- posegen_tpu/kernels/field.py::_dual_kernel (one encode,
                   coarse density + fine full raw)
 
@@ -62,13 +67,16 @@ POSE_FLOATS = N_JOINTS * 9 + N_JOINTS * 3 + N_JOINTS + 1  # rot | trn | cut | ta
 MAX_OCTAVES = 64  # nf_kp + nf_view, csrc/field.cuh kMaxOctaves
 
 # launches per kernel since the last reset_launches(); "field" counts the
-# full and the density-only instantiation of the field kernel together;
+# full and the density-only instantiation of the field kernel on one pose
+# together, "field_grouped" the same on grouped poses and "field_ray_ladder"
+# the per-ray view ladder's (a launch counts under one key);
 # "field_stash" and "field_bwd" are the training pair (kernels/field_grad.py),
 # "field_bwd_inputs" counts the backward launches that also ran its
 # input-gradient branch, and "variant" the A/B harness's variant kernel
 # (kernels/variants.py)
-LAUNCHES: Dict[str, int] = {"field": 0, "dual": 0, "field_stash": 0, "field_bwd": 0,
-                            "field_bwd_inputs": 0, "variant": 0}
+LAUNCHES: Dict[str, int] = {"field": 0, "field_grouped": 0, "field_ray_ladder": 0, "dual": 0,
+                            "field_stash": 0, "field_bwd": 0, "field_bwd_inputs": 0,
+                            "variant": 0}
 
 
 def reset_launches() -> None:
@@ -152,10 +160,9 @@ def fused_config_disqualification(cfg) -> Optional[str]:
     return field_eval_refusal(layout)
 
 
-def fused_disqualification(cfg, ctx, net_params: Dict) -> Optional[str]:
-    """First reason this config/pose cannot run the inference kernels.
-    Framecode models qualify with or without ctx.cam_idxs (a missing index
-    means the mean code)."""
+def fused_net_disqualification(cfg, net_params: Dict) -> Optional[str]:
+    """First reason this config and net cannot run the inference kernels, on
+    any number of pose groups (`render_rays(use_fused=True)`'s gate)."""
     reason = fused_config_disqualification(cfg)
     if reason is not None:
         return reason
@@ -164,6 +171,17 @@ def fused_disqualification(cfg, ctx, net_params: Dict) -> Optional[str]:
             f"{len(net_params['views_linears'])} view layers "
             "(kernel needs exactly 1)"
         )
+    return None
+
+
+def fused_disqualification(cfg, ctx, net_params: Dict) -> Optional[str]:
+    """First reason this config/pose cannot run the inference kernels on the
+    automatic route, which takes a single pose as the JAX gate does.
+    Framecode models qualify with or without ctx.cam_idxs (a missing index
+    means the mean code)."""
+    reason = fused_net_disqualification(cfg, net_params)
+    if reason is not None:
+        return reason
     if ctx.kps.shape[0] != 1:
         return (
             f"{ctx.kps.shape[0]} pose groups in ctx "
@@ -193,6 +211,26 @@ def warn_fused_fallback(where: str, reason: str, extra: str = "") -> None:
         f"device memory).{extra}",
         stacklevel=3,
     )
+
+
+# The JAX eval kernel refuses a grouped batch whose points per group none of
+# its tiles (2048 ... 128, each a multiple of 128) divides
+# (posegen_tpu/kernels/field.py:932-942). The CUDA kernels take any group
+# size; fused_run_net keeps the refusal, so that both packages take the same
+# batches.
+GROUP_TILE = 128
+
+
+def ray_tile(S: int) -> Optional[int]:
+    """The JAX ray-ladder tile (posegen_tpu/kernels/field.py:169-177): the
+    largest point tile <= 2048 of whole rays of S samples, at most 128 of
+    them, a multiple of 128; None when S admits none (odd S > 16, say).
+    fused_run_net runs the ladder where this is not None, as JAX does; the
+    CUDA ladder itself takes any S."""
+    base = S * 128 // math.gcd(S, 128)  # lcm(S, 128)
+    if base > min(2048, 128 * S):
+        return None
+    return min((2048 // base) * base, 128 * S)
 
 
 def supports_dual_eval(cfg, ctx, net_params: Dict) -> bool:
@@ -415,19 +453,47 @@ def prepare_net(net: Dict, layout: NetLayout,
 
     code: this pose group's framecode (code_ch,); its product with the
       (bf16-rounded) framecode rows of the view head is folded into the view
-      bias. Required when the view head has framecode rows.
+      bias (`eval_view_bias`). Required when the view head has framecode
+      rows.
     """
     L = layout
     w, b, _ = pack_net_f32(net, L)
-    wv = net["views_linears"][0]["w"]
-    n_code = wv.shape[0] - WIDTH - L.vc
+    n_code = net["views_linears"][0]["w"].shape[0] - WIDTH - L.vc
     if n_code:
         if code is None or code.numel() != n_code:
             raise ValueError(f"view head has {n_code} framecode rows; pass the code")
-        w_code = wv[WIDTH + L.vc:].to(torch.bfloat16).float()
         b = b.clone()
-        b[L.b_view:L.b_view + VIEW_WIDTH] += (code.reshape(1, n_code).float() @ w_code)[0]
+        b[L.b_view:L.b_view + VIEW_WIDTH] = eval_view_bias(net, L, code.reshape(1, n_code))[0]
     return FieldNet(w.to(torch.bfloat16).contiguous(), b.contiguous(), L)
+
+
+def prepare_net_grouped(net: Dict, layout: NetLayout,
+                        codes: Optional[torch.Tensor] = None):
+    """`prepare_net` for G pose groups -> (the packed net, its view-bias slot
+    the plain bias; `eval_view_bias`'s (1 or G, 128) rows for `fused_field`)."""
+    w, b, _ = pack_net_f32(net, layout)
+    return (FieldNet(w.to(torch.bfloat16).contiguous(), b.contiguous(), layout),
+            eval_view_bias(net, layout, codes))
+
+
+def eval_view_bias(net: Dict, layout: NetLayout,
+                   codes: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The eval kernels' view bias per pose group: (1, 128) the plain bias,
+    or with framecodes (G, code_ch) -> (G, 128), row g the plain bias + code_g
+    @ the bf16-rounded framecode rows. Each row is its own (1, code_ch)
+    product, the one `prepare_net` folds for a single code, so group g's row
+    is that net's view bias bit for bit (a batched product may round
+    otherwise; `group_view_bias` is the training path's float32 packing)."""
+    wv = net["views_linears"][0]["w"]
+    bv = net["views_linears"][0]["b"].float()
+    n_code = wv.shape[0] - WIDTH - layout.vc
+    if n_code == 0:
+        return bv.reshape(1, VIEW_WIDTH).contiguous()
+    if codes is None or codes.dim() != 2 or codes.shape[1] != n_code:
+        raise ValueError(f"view head has {n_code} framecode rows; pass (G, {n_code}) codes")
+    w_code = wv[WIDTH + layout.vc:].to(torch.bfloat16).float()
+    return torch.stack([bv + (codes[g:g + 1].float() @ w_code)[0]
+                        for g in range(codes.shape[0])]).contiguous()
 
 
 def group_view_bias(net: Dict, layout: NetLayout,
@@ -501,14 +567,38 @@ def _unpack(net: FieldNet):
 # ---------------------------------------------------------------------------
 
 
+def view_ladder_plain(dirs: torch.Tensor, pose: torch.Tensor,
+                      nf_view: int) -> List[torch.Tensor]:
+    """(R, 3) ray dirs -> the rays' ungated view ladder: 1 + 2 nf_view blocks
+    (R, 24, 3), [dn | per octave sin, cos], dn the direction in each joint
+    frame, normalised; octaves by one sin/cos pair and the double-angle
+    recurrence, as the kernels do."""
+    R = pose[:216].view(N_JOINTS, 9)
+    dx, dy, dz = dirs[:, 0:1], dirs[:, 1:2], dirs[:, 2:3]
+    DX = R[:, 0] * dx + R[:, 1] * dy + R[:, 2] * dz
+    DY = R[:, 3] * dx + R[:, 4] * dy + R[:, 5] * dz
+    DZ = R[:, 6] * dx + R[:, 7] * dy + R[:, 8] * dz
+    dn_inv = torch.rsqrt(torch.clamp(DX * DX + DY * DY + DZ * DZ, min=1e-24))
+    q = torch.stack([DX * dn_inv, DY * dn_inv, DZ * dn_inv], -1)  # (R, 24, 3)
+    blocks = [q]
+    s, c = torch.sin(q), torch.cos(q)
+    for f in range(nf_view):
+        blocks += [s, c]
+        if f + 1 < nf_view:
+            s, c = 2.0 * s * c, 1.0 - 2.0 * s * s
+    return blocks
+
+
 def encode_plain(pts: torch.Tensor, dirs: torch.Tensor, spr: int,
                  pose: torch.Tensor, nf_kp: int, nf_view: int,
-                 with_view: bool = True):
+                 with_view: bool = True, ray_ladder: bool = False):
     """(P, 3) points, (P / spr, 3) ray dirs -> (e_pts (P, pc), e_view (P, vc)
     or None), joint-major: e_pts = [v*w | per octave sin*w, cos*w | reldir],
     each kp block 24 wide and reldir (j, xyz); e_view = [dn*w | per octave
     sin*w, cos*w], each block (j, xyz). Octaves use one sin/cos pair and the
-    double-angle recurrence, as the kernels do."""
+    double-angle recurrence, as the kernels do. The view ladder is built per
+    point, or with ray_ladder once per ray and repeated to the ray's points
+    (the same values: each is a function of the ray alone)."""
     R = pose[:216].view(N_JOINTS, 9)
     t = pose[216:288].view(N_JOINTS, 3)
     cut = pose[288:312]
@@ -537,21 +627,15 @@ def encode_plain(pts: torch.Tensor, dirs: torch.Tensor, spr: int,
     if not with_view:
         return e_pts, None
 
-    d = dirs.repeat_interleave(spr, dim=0)
-    dx, dy, dz = d[:, 0:1], d[:, 1:2], d[:, 2:3]
-    DX = R[:, 0] * dx + R[:, 1] * dy + R[:, 2] * dz
-    DY = R[:, 3] * dx + R[:, 4] * dy + R[:, 5] * dz
-    DZ = R[:, 6] * dx + R[:, 7] * dy + R[:, 8] * dz
-    dn_inv = torch.rsqrt(torch.clamp(DX * DX + DY * DY + DZ * DZ, min=1e-24))
-    q = torch.stack([DX * dn_inv, DY * dn_inv, DZ * dn_inv], -1)  # (P, 24, 3)
+    if ray_ladder:
+        blocks = [b.repeat_interleave(spr, dim=0) for b in view_ladder_plain(dirs, pose, nf_view)]
+    else:
+        blocks = view_ladder_plain(dirs.repeat_interleave(spr, dim=0), pose, nf_view)
     wq = w[..., None]
-    vrows = [q * wq]
-    s, c = torch.sin(q), torch.cos(q)
+    vrows = [blocks[0] * wq]
     for f in range(nf_view):
         wf = wq * sw_view[f]
-        vrows += [s * wf, c * wf]
-        if f + 1 < nf_view:
-            s, c = 2.0 * s * c, 1.0 - 2.0 * s * s
+        vrows += [blocks[1 + 2 * f] * wf, blocks[2 + 2 * f] * wf]
     e_view = torch.stack(vrows, 1).reshape(P, -1)
     return e_pts, e_view
 
@@ -605,14 +689,44 @@ def mlp_plain(net: FieldNet, e_pts: torch.Tensor, e_view: Optional[torch.Tensor]
     return torch.cat([rgb, alpha], -1)
 
 
+def encode_groups_plain(pts, dirs, spr: int, poses, nf_kp: int, nf_view: int,
+                        with_view: bool = True):
+    """`encode_plain` on a (G, n_pose) table of pose groups: group g's points
+    g P / G .. (whole rays of spr) on its pose row."""
+    P, G = pts.shape[0], poses.shape[0]
+    ppg = P // G
+    parts = [encode_plain(pts[g * ppg:(g + 1) * ppg], dirs[g * ppg // spr:(g + 1) * ppg // spr],
+                          spr, poses[g], nf_kp, nf_view, with_view=with_view)
+             for g in range(G)]
+    e_view = torch.cat([p[1] for p in parts]) if with_view else None
+    return torch.cat([p[0] for p in parts]), e_view
+
+
+def view_bias_rows(bview: torch.Tensor, n_pts: int) -> torch.Tensor:
+    """(Gb, 128) per-group view bias -> (128,) or per point (P, 128)."""
+    if bview.shape[0] == 1:
+        return bview[0]
+    return bview.repeat_interleave(n_pts // bview.shape[0], dim=0)
+
+
 def field_plain(pts, dirs, spr: int, pose, net: FieldNet,
                 density_only: bool = False,
-                mm_dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Plain version of the field kernel -> (P, 4) raw."""
+                mm_dtype: torch.dtype = torch.float32,
+                bview: Optional[torch.Tensor] = None,
+                ray_ladder: bool = False) -> torch.Tensor:
+    """Plain version of the field kernel -> (P, 4) raw, in `fused_field`'s
+    modes: pose one row, or a (G, n_pose) table whose group g takes points
+    g P / G .. of whole rays, with its bview rows (1 or G, 128); ray_ladder
+    builds the view ladder per ray."""
     L = net.layout
-    e_pts, e_view = encode_plain(pts, dirs, spr, pose, L.nf_kp, L.nf_view,
-                                 with_view=not density_only)
-    return mlp_plain(net, e_pts, e_view, density_only, mm_dtype)
+    if pose.dim() == 1:
+        e_pts, e_view = encode_plain(pts, dirs, spr, pose, L.nf_kp, L.nf_view,
+                                     with_view=not density_only, ray_ladder=ray_ladder)
+    else:
+        e_pts, e_view = encode_groups_plain(pts, dirs, spr, pose, L.nf_kp, L.nf_view,
+                                            with_view=not density_only)
+    rows = None if bview is None else view_bias_rows(bview, pts.shape[0])
+    return mlp_plain(net, e_pts, e_view, density_only, mm_dtype, bview=rows)
 
 
 def dual_plain(pts, dirs, spr: int, pose, net_c: FieldNet, net_f: FieldNet,
@@ -629,22 +743,35 @@ def dual_plain(pts, dirs, spr: int, pose, net_c: FieldNet, net_f: FieldNet,
 # ---------------------------------------------------------------------------
 
 
-def _check_operands(pts, dirs, spr, pose, nets):
+def _check_operands(pts, dirs, spr, pose, nets, bview=None):
     if pts.dim() != 2 or pts.shape[1] != 3 or dirs.dim() != 2 or dirs.shape[1] != 3:
         raise ValueError(f"pts {tuple(pts.shape)} / dirs {tuple(dirs.shape)} must be (*, 3)")
-    if spr < 1 or pts.shape[0] != dirs.shape[0] * spr:
-        raise ValueError(f"{pts.shape[0]} points != {dirs.shape[0]} rays x {spr} samples")
+    P = pts.shape[0]
+    if spr < 1 or P != dirs.shape[0] * spr:
+        raise ValueError(f"{P} points != {dirs.shape[0]} rays x {spr} samples")
     for net in nets:
         if net.layout != nets[0].layout:
             raise ValueError("the nets of one launch must share a layout")
     n_pose = POSE_FLOATS + nets[0].layout.nf_kp + nets[0].layout.nf_view
-    if pose.shape != (n_pose,):
+    if pose.dim() == 2 and len(nets) == 1:  # a table of pose groups
+        G = pose.shape[0]
+        if pose.shape[1] != n_pose or G < 1:
+            raise ValueError(f"poses {tuple(pose.shape)} != (G, {n_pose})")
+        if P % G or (P // G) % spr:
+            raise ValueError(f"{P} points do not split into {G} pose groups of whole rays")
+        shape = None if bview is None else tuple(bview.shape)
+        if shape not in ((1, VIEW_WIDTH), (G, VIEW_WIDTH)):
+            raise ValueError(f"view bias {shape} != (1 or {G}, {VIEW_WIDTH})")
+    elif pose.shape != (n_pose,):
         raise ValueError(f"pose {tuple(pose.shape)} != ({n_pose},)")
+    elif bview is not None:
+        raise ValueError("a view bias per group needs a table of pose groups")
     if not pts.is_cuda:
         return
     dev = pts.device
+    extra = () if bview is None else (("view bias", bview, torch.float32),)
     for name, t, dt in (("pts", pts, torch.float32), ("dirs", dirs, torch.float32),
-                        ("pose", pose, torch.float32)):
+                        ("pose", pose, torch.float32)) + extra:
         if t.device != dev or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"{name}: need a contiguous {dt} tensor on {dev}")
     for net in nets:
@@ -690,31 +817,64 @@ def _eval_launch_operands(where: str, layout: NetLayout, device):
 
 def fused_field(pts: torch.Tensor, dirs: torch.Tensor, spr: int,
                 pose: torch.Tensor, net: FieldNet,
-                density_only: bool = False) -> torch.Tensor:
+                density_only: bool = False, bview: Optional[torch.Tensor] = None,
+                ray_ladder: bool = False) -> torch.Tensor:
     """Fused encode + MLP field -> (P, 4) raw [r, g, b, sigma] (rgb zero when
     density_only). pts (P, 3) f32; dirs (P / spr, 3) f32, one per ray of spr
-    consecutive points; pose from `pack_pose`; net from `prepare_net`."""
-    _check_operands(pts, dirs, spr, pose, (net,))
-    _no_grad_operands("fused_field", pts, dirs, pose, net.w, net.b)
+    consecutive points; net from `prepare_net`.
+
+    pose: one pose from `pack_pose`, or a (G, n_pose) table from
+      `pack_poses` (grouped poses: group g takes points g P / G .., whole
+      rays; the kernel's grouped mode, counted as "field_grouped").
+    bview: with a table, its view bias (1 or G, 128) from `eval_view_bias`
+      (`prepare_net_grouped`; the packed view bias is not read).
+    ray_ladder: one pose, full raw: the view ladder is built once per ray
+      ("field_ray_ladder"); the raw is the same, bit for bit."""
+    _check_operands(pts, dirs, spr, pose, (net,), bview)
+    grouped = pose.dim() == 2
+    if ray_ladder and (grouped or density_only):
+        raise ValueError("the ray ladder runs the full net on one pose")
+    _no_grad_operands("fused_field", pts, dirs, pose, net.w, net.b,
+                      *(() if bview is None else (bview,)))
     if not pts.is_cuda:
-        return field_plain(pts, dirs, spr, pose, net, density_only)
+        return field_plain(pts, dirs, spr, pose, net, density_only, bview=bview,
+                           ray_ladder=ray_ladder)
     from posegen_tpu_torch.kernels import build
 
     lib = build.load()
-    out = torch.empty((pts.shape[0], 4), dtype=torch.float32, device=pts.device)
-    if pts.shape[0] == 0:
+    L = net.layout
+    P = pts.shape[0]
+    out = torch.empty((P, 4), dtype=torch.float32, device=pts.device)
+    if P == 0:
         return out
-    layout, n_layout = _layout_arg(net.layout)
+    layout, n_layout = _layout_arg(L)
     with torch.cuda.device(pts.device):
-        scratch, n_scratch = _eval_launch_operands("fused_field", net.layout, pts.device)
-        rc = lib.posegen_field(
-            _ptr(pts), _ptr(dirs), pts.shape[0], spr, _ptr(pose), layout,
-            n_layout, _ptr(net.w), _ptr(net.b), _ptr(out), int(density_only),
-            _ptr(scratch), n_scratch,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
-        )
-    build.check(lib, rc, "field")
-    LAUNCHES["field"] += 1
+        stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+        scratch, n_scratch = _eval_launch_operands("fused_field", L, pts.device)
+        if grouped:
+            key = "field_grouped"
+            G, Gb = pose.shape[0], bview.shape[0]
+            rc = lib.posegen_field_grouped(
+                _ptr(pts), _ptr(dirs), P, spr, _ptr(pose), pose.shape[1], P // G, layout,
+                n_layout, _ptr(net.w), _ptr(net.b), _ptr(bview), VIEW_WIDTH if Gb > 1 else 0,
+                P // Gb, _ptr(out), int(density_only), _ptr(scratch), n_scratch, stream,
+            )
+        elif ray_ladder:
+            key = "field_ray_ladder"
+            vlad = torch.empty((P // spr, L.vc), dtype=torch.float32, device=pts.device)
+            rc = lib.posegen_field_ray_ladder(
+                _ptr(pts), _ptr(dirs), P, spr, _ptr(pose), layout, n_layout, _ptr(net.w),
+                _ptr(net.b), _ptr(out), _ptr(vlad), ctypes.c_longlong(vlad.numel() * 4),
+                _ptr(scratch), n_scratch, stream,
+            )
+        else:
+            key = "field"
+            rc = lib.posegen_field(
+                _ptr(pts), _ptr(dirs), P, spr, _ptr(pose), layout, n_layout, _ptr(net.w),
+                _ptr(net.b), _ptr(out), int(density_only), _ptr(scratch), n_scratch, stream,
+            )
+    build.check(lib, rc, key)
+    LAUNCHES[key] += 1
     return out
 
 
@@ -792,25 +952,39 @@ def fused_run_net(
     eval_mean_code: bool = False,
     density_only: bool = False,
     view_embed_state: Optional[Dict] = None,  # for the view ladder's BARF alpha
+    ray_ladder: Optional[bool] = None,  # the per-ray view ladder; None = off
     dual_params: Optional[Dict] = None,  # fine net: dual-net coarse pass
     trainable: bool = False,
     input_grads: bool = False,
 ):
     """Drop-in replacement for raycast._run_net on the supported subset:
     -> raw (N, S, 4), or with dual_params (the fine net; requires
-    density_only) -> (raw_coarse [rgb zero], raw_fine).
+    density_only and one pose group) -> (raw_coarse [rgb zero], raw_fine).
 
-    trainable: the training path (kernels/field_grad.py): ctx carries G
-    pose rows with the rays contiguous per group, and the raw has gradients
-    for the net's weights, biases and framecodes; with input_grads (pose
-    refinement) also for pts, rays_d and ctx.skts, else those get none, as
-    in the JAX kernel. On the host its wrappers run their plain versions at
-    float32; the eval wrappers run theirs with bf16 weights and float32
-    activations."""
+    ctx carries G pose rows with the rays contiguous per group (G divides
+    N). The eval kernels take G > 1 in their grouped mode, where, as in the
+    JAX kernel, the points per group must be a multiple of 128
+    (`GROUP_TILE`).
+
+    ray_ladder: the eval kernel's per-ray view ladder (the same raw, bit for
+    bit). It stays off unless asked for, and also for density_only, G > 1,
+    S < 2, trainable or an S whose `ray_tile` is None: JAX's rules.
+
+    trainable: the training path (kernels/field_grad.py): the raw has
+    gradients for the net's weights, biases and framecodes; with input_grads
+    (pose refinement) also for pts, rays_d and ctx.skts, else those get
+    none, as in the JAX kernel. On the host its wrappers run their plain
+    versions at float32; the eval wrappers run theirs with bf16 weights and
+    float32 activations."""
     N, S = pts.shape[:2]
     G = ctx.skts.shape[0]
     if input_grads and not trainable:
         raise ValueError("input_grads needs the trainable path")
+    if N % G:
+        raise ValueError(f"rays ({N}) not divisible into {G} pose groups")
+    if dual_params is not None and (not density_only or trainable or G != 1):
+        raise ValueError("dual_params needs the density-only, "
+                         "single-group eval pass")
     layout = net_layout(cfg.netdepth, cfg.multires, cfg.multires_views)
     code_ch = cfg.framecode_ch if cfg.opt_framecode else 0
     sched = _barf_sched(cfg, embed_state, view_embed_state)
@@ -819,10 +993,8 @@ def fused_run_net(
     if trainable:
         from posegen_tpu_torch.kernels.field_grad import trainable_field
 
-        if dual_params is not None or density_only:
+        if density_only:
             raise ValueError("the trainable path evaluates the full net in one pass")
-        if N % G:
-            raise ValueError(f"rays ({N}) not divisible into {G} pose groups")
         poses = pack_poses(ctx.skts, embed_state, cfg.multires, cfg.multires_views, sched)
         if not input_grads:
             pts_f, dirs, poses = pts_f.detach(), dirs.detach(), poses.detach()
@@ -830,13 +1002,17 @@ def fused_run_net(
         raw = trainable_field(pts_f, dirs, S, poses, pack_net_f32(net_params, layout),
                               group_view_bias(net_params, layout, codes))
         return raw.view(N, S, 4)
-    if G != 1:
-        raise NotImplementedError(
-            f"{G} pose groups: the ported eval kernels take a single pose group"
-        )
-    if dual_params is not None and not density_only:
-        raise ValueError("dual_params needs the density-only, "
-                         "single-group eval pass")
+    ray_ladder = (bool(ray_ladder) and not density_only and G == 1 and S >= 2
+                  and ray_tile(S) is not None)
+    ppg = N * S // G
+    if G > 1 and ppg % GROUP_TILE:
+        raise ValueError(f"points per group ({ppg}) not a multiple of any tile")
+    if G > 1:
+        poses = pack_poses(ctx.skts, embed_state, cfg.multires, cfg.multires_views, sched)
+        net, bview = prepare_net_grouped(
+            net_params, layout, _group_codes(net_params, ctx, G, N, code_ch, eval_mean_code))
+        raw = fused_field(pts_f, dirs, S, poses, net, density_only, bview=bview)
+        return raw.view(N, S, 4)
     pose = pack_pose(ctx.skts[0], embed_state, cfg.multires, cfg.multires_views, sched)
 
     def prep(net):
@@ -847,5 +1023,6 @@ def fused_run_net(
         raw_c, raw_f = fused_dual(pts_f, dirs, S, pose, prep(net_params),
                                   prep(dual_params))
         return raw_c.view(N, S, 4), raw_f.view(N, S, 4)
-    raw = fused_field(pts_f, dirs, S, pose, prep(net_params), density_only)
+    raw = fused_field(pts_f, dirs, S, pose, prep(net_params), density_only,
+                      ray_ladder=ray_ladder)
     return raw.view(N, S, 4)

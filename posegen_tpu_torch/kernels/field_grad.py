@@ -50,10 +50,11 @@ from posegen_tpu_torch.kernels.field import (
     _mm,
     _ptr,
     _unpack,
-    encode_plain,
+    encode_groups_plain,
     eval_smem_bytes,
     field_eval_refusal,
     mlp_plain,
+    view_bias_rows,
 )
 
 
@@ -65,13 +66,6 @@ class FieldInputs(NamedTuple):
     dirs: torch.Tensor
     spr: int
     poses: torch.Tensor
-
-
-def _view_bias_rows(bview: torch.Tensor, n_pts: int) -> torch.Tensor:
-    """(Gb, 128) per-group view bias -> (128,) or per point (P, 128)."""
-    if bview.shape[0] == 1:
-        return bview[0]
-    return bview.repeat_interleave(n_pts // bview.shape[0], dim=0)
 
 
 def _check_operands(pts, dirs, spr: int, poses, net: FieldNet, bview) -> None:
@@ -110,14 +104,8 @@ def field_stash_plain(pts, dirs, spr: int, poses, net: FieldNet, bview,
     e_view (P, vc)), the stashes in mm_dtype. The raw is `field_plain`'s on
     each group's pose and view bias."""
     L = net.layout
-    P, G = pts.shape[0], poses.shape[0]
-    ppg = P // G
-    parts = [encode_plain(pts[g * ppg:(g + 1) * ppg],
-                          dirs[g * ppg // spr:(g + 1) * ppg // spr], spr, poses[g],
-                          L.nf_kp, L.nf_view) for g in range(G)]
-    e_pts = torch.cat([p[0] for p in parts])
-    e_view = torch.cat([p[1] for p in parts])
-    raw = mlp_plain(net, e_pts, e_view, False, mm_dtype, bview=_view_bias_rows(bview, P))
+    e_pts, e_view = encode_groups_plain(pts, dirs, spr, poses, L.nf_kp, L.nf_view)
+    raw = mlp_plain(net, e_pts, e_view, False, mm_dtype, bview=view_bias_rows(bview, pts.shape[0]))
     return raw, e_pts.to(mm_dtype), e_view.to(mm_dtype)
 
 
@@ -147,7 +135,7 @@ def _bwd_forward_backward(e_pts, e_view, g, net: FieldNet, bview, mm_dtype: torc
         hs.append(h)
     feat = mm(h, wf) + bf
     zv = (mm(feat, wv[:, :WIDTH]) + mm(e_view, wv[:, WIDTH:WIDTH + L.vc])
-          + _view_bias_rows(bview, P))
+          + view_bias_rows(bview, P))
     hv = torch.relu(zv)
 
     g = g.float()

@@ -313,6 +313,24 @@ def _run_net(
     return nerf_apply(cfg.nerf_cfg, net_params, x_pts, x_views, frame_idx, eval_mean_code)
 
 
+def fused_route(cfg: RaycastConfig, ctx: PoseCtx, net_params: Dict, use_fused,
+                on_card: bool) -> bool:
+    """render_rays' choice of the eval kernels for use_fused True or None.
+    True takes them where the config and the net pass the gate
+    (`fused_net_disqualification`), on any number of pose groups; None
+    takes them on the card only, where `fused_disqualification` passes,
+    which also asks for a single pose. A refusal warns once, by name."""
+    if use_fused is None and not on_card:
+        return False
+    if use_fused is True:
+        reason = fused.fused_net_disqualification(cfg, net_params)
+    else:
+        reason = fused.fused_disqualification(cfg, ctx, net_params)
+    if reason is not None:
+        fused.warn_fused_fallback("render_rays", reason)
+    return reason is None
+
+
 def render_rays(
     cfg: RaycastConfig,
     params: Dict[str, Any],
@@ -340,24 +358,20 @@ def render_rays(
     det_noise: {'coarse': (N,S), 'importance': (N,I), 'sigma0': (N,S),
       'sigma': (N,S+I)} pre-drawn noise for parity runs.
     use_fused: the fused field kernels (on the CPU, their plain versions):
-      True the eval kernels, "train" the trainable pair (pose groups in
-      ctx, rays contiguous per group), "full" the same with input gradients,
-      False the plain pipeline; None =
-      auto: the eval kernels for CUDA tensors whose config/pose passes the
-      gate. True and auto both fall back to the plain pipeline, with a
-      one-time named warning, where the gate (`fused_disqualification`)
-      refuses the config or pose.
+      True the eval kernels, "train" the trainable pair, "full" the same
+      with input gradients, False the plain pipeline; None = auto: the eval
+      kernels for CUDA tensors whose config and pose pass the gate. ctx may
+      carry G pose rows, the rays contiguous per group: True and the
+      trainable pair take them (the eval kernels' grouped mode), while auto
+      takes a single pose, as the JAX package's auto route does. True and
+      auto fall back to the plain pipeline, with a one-time named warning,
+      where their gate (`fused_route`) refuses.
     Returns rgb_map/disp_map/acc_map/alpha (+ *0 coarse copies).
     """
     perturb = cfg.perturb if perturb is None else perturb
     raw_noise_std = cfg.raw_noise_std if raw_noise_std is None else raw_noise_std
-    if use_fused is True or (use_fused is None and rays_o.is_cuda):
-        reason = fused.fused_disqualification(cfg, ctx, params["coarse"])
-        use_fused = reason is None
-        if reason is not None:
-            fused.warn_fused_fallback("render_rays", reason)
-    elif use_fused is None:
-        use_fused = False
+    if use_fused is None or use_fused is True:
+        use_fused = fused_route(cfg, ctx, params["coarse"], use_fused, rays_o.is_cuda)
     act = density_activation(cfg.nerf_cfg)
     dn = det_noise or {}
 
