@@ -310,6 +310,28 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               single-pose launches, and of the ladder against the
               per-point mode, beside the bound and the plain version.
 
+ 18. parallel data parallelism over ranks (posegen_tpu_torch/parallel/): a
+              2-rank world on the one card (gloo: NCCL takes one rank a
+              device), CUDA tensors, spawned by parallel.mesh.launch: (a)
+              the flagship train step (128 groups x 16 rays, perturb 0)
+              on halves of the batch, 2 steps through
+              make_shardmap_train_step: field_stash 4, field_bwd 4 and no
+              other launch on each rank, each gradient tensor against this
+              process's step on the whole batch to GRAD_TOL relative L2
+              (phase 5's), the losses to it relatively, each parameter
+              tensor's change over the 2 steps to it too; (b) one render_image frame (512^2, chunk 8192)
+              through make_shardmap_render_cam: one dual and one field
+              launch per chunk on each rank, every ray whose near / far the
+              two chunkings give alike bit-equal to the single frame, the
+              rest by phase 3's flip rule; (c) the G, D and SPIN fine-tune
+              steps at GenConfig() and the ResNet-50 HMR at 224, batch 32,
+              through parallel/gan.py: losses to 1e-4 relative, Adam's
+              moments (G, D to 1e-3, SPIN to 1e-2 relative L2), the synced
+              BN state and the gathered poses to 1e-4; the ranks' states
+              bit-equal; (d) a 1-rank NCCL world: the train step through
+              make_mesh equal to the plain step bit for bit; host-clock
+              times of each arm (median of 5) beside the single process's.
+
 Before phase 1 it prints whether h5py, imageio, cv2, PIL and tensorboard import
 (information only).
 The last two lines of standard output are one JSON object of per-kernel
@@ -1001,12 +1023,14 @@ def run(torch) -> int:
         marks.append(("16", time.perf_counter()))
         grouped_rows = grouped_phases(torch, card)
         marks.append(("17", time.perf_counter()))
+        par_launches = parallel_phases(torch, card)
+        marks.append(("18", time.perf_counter()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in launches:
-        launches[k] += cli_launches[k] + ingest_launches[k]
+        launches[k] += cli_launches[k] + ingest_launches[k] + par_launches[k]
     for k in ("field_stash", "field_bwd"):
-        train_launches[k] += cli_launches[k] + ingest_launches[k]
+        train_launches[k] += cli_launches[k] + ingest_launches[k] + par_launches[k]
     pose_launches += cli_launches["field_bwd_inputs"]
 
     by_name = {(r[0], r[1]): r for r in rows}
@@ -4598,6 +4622,380 @@ def grouped_phases(torch, card: str):
                         "launches": n, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
     return kernels
+
+# phase 18: data parallelism over ranks (posegen_tpu_torch/parallel/)
+PAR_RANKS = 2  # ranks of the gloo world on the one card
+PAR_TIMED = 5  # timed steps / renders of each arm, after the compared ones
+PAR_BATCH = 32  # the G / D / SPIN batch (train_spin's default), 16 a rank
+PAR_LOSS_TOL = 1e-4  # G / D / SPIN losses, 2 ranks vs one process: relative
+
+
+def _par_time(torch, fn, n: int) -> float:
+    """Median host-clock ms of n synchronised calls of fn."""
+    import statistics
+
+    out = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(out)
+
+
+def _par_hash(torch, tensors) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def parallel_work(torch, mesh):
+    """Phase 18's main paths on one rank of `mesh`, or in one process
+    (mesh None): the flagship train step, one render_image frame, the G /
+    D / SPIN fine-tune steps -> results, CPU tensors and numbers."""
+    import numpy as np
+
+    from posegen_tpu_torch.gen import loop as GL
+    from posegen_tpu_torch.gen.discriminators import init_pos3d_discriminator
+    from posegen_tpu_torch.gen.gan import make_discriminator_step, make_generator_step
+    from posegen_tpu_torch.gen.generators import GenConfig, draw_noises, init_pose_generator
+    from posegen_tpu_torch.gen.hmr import init_hmr
+    from posegen_tpu_torch.gen.spin_train import make_spin_finetune_step
+    from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.parallel import gan as PG
+    from posegen_tpu_torch.parallel import mesh as PM
+    from posegen_tpu_torch.render import image as IMG
+    from posegen_tpu_torch.render.raycast import RaycastConfig, init_raycaster
+    from posegen_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state, make_train_step, param_leaves, trainable,
+    )
+    from posegen_tpu_torch.utils.fixtures import make_pose_ctx
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    res = {"rank": 0 if mesh is None else mesh.rank}
+    cpu = lambda ts: [t.detach().cpu().clone() for t in ts]  # noqa: E731
+
+    # 18a. the flagship train step, 2 compared steps
+    cfg = RaycastConfig(perturb=0.0, raw_noise_std=0.0)
+    tcfg = TrainConfig(rays_per_image=RAYS_PER_GROUP, use_background=True)
+    state = create_train_state(init_raycaster(cfg, torch.Generator().manual_seed(SEED),
+                                              device=DEVICE), tcfg)
+    batch = train_batch(torch, N_GROUPS, RAYS_PER_GROUP, SEED)
+    if mesh is None:
+        step = make_train_step(cfg, tcfg)
+    else:
+        state = PM.replicate(state, mesh)
+        step = PM.make_shardmap_train_step(cfg, tcfg, mesh=mesh, fold_key_per_device=False)
+        batch = PM.shard_batch(batch, mesh)
+    res["train_params0"] = cpu(param_leaves(state.params))
+    F.reset_launches()
+    grads, losses = [], []
+    for _ in range(2):
+        state, st = step(state, batch)
+        grads.append(cpu(p.grad for p in param_leaves(state.params)))
+        losses.append({k: float(v) for k, v in st.items()})
+    torch.cuda.synchronize()
+    res["train_launches"] = dict(F.LAUNCHES)
+    res.update(train_grads=grads, train_losses=losses,
+               train_params=cpu(param_leaves(state.params)),
+               train_rows=int(batch["rays_o"].shape[0]))
+    res["train_ms"] = _par_time(torch, lambda: step(state, batch), PAR_TIMED)
+
+    # 18b. one render_image frame (the val render's route)
+    variables = init_raycaster(RaycastConfig(), torch.Generator().manual_seed(SEED),
+                               device=DEVICE)
+    ctx = make_pose_ctx(SEED, device=DEVICE)
+    c2w = IMG._bullet_c2ws(ctx.kps[0, 0].cpu().numpy(), BULLET_DIST, 1)[0]
+    fn = (None if mesh is None
+          else PM.make_shardmap_render_cam(RaycastConfig(), mesh, FRAME_CHUNK))
+    kw = dict(chunk=FRAME_CHUNK, render_fn=fn)
+    with torch.no_grad():
+        F.reset_launches()
+        out = IMG.render_image(RaycastConfig(), variables, FRAME_HW, FRAME_HW, FRAME_FOCAL,
+                               c2w, ctx, **kw)
+        torch.cuda.synchronize()
+        res["render_launches"] = dict(F.LAUNCHES)
+        res.update(render_rgb=out["rgb"], render_acc=out["acc"], render_idx=out["valid_idx"])
+        res["render_ms"] = _par_time(torch, lambda: IMG.render_image(
+            RaycastConfig(), variables, FRAME_HW, FRAME_HW, FRAME_FOCAL, c2w, ctx, **kw),
+            PAR_TIMED)
+
+    # 18c. the G, D and SPIN fine-tune steps at full width, batch 32
+    gen_cfg = GenConfig()
+    rng = np.random.default_rng(SEED)
+    real = torch.as_tensor((rng.standard_normal((PAR_BATCH, 24, 3)) * 0.2).astype(np.float32),
+                           device=DEVICE)
+    spin_pred = torch.as_tensor((rng.standard_normal((GAN_RPI, 14, 3)) * 0.3).astype(
+        np.float32), device=DEVICE)
+    sel = torch.as_tensor(rng.integers(0, PAR_BATCH, GAN_RPI), device=DEVICE)
+    noises = draw_noises(torch.Generator(device=DEVICE).manual_seed(SEED), PAR_BATCH, gen_cfg)
+    g_p, g_s = init_pose_generator(torch.Generator().manual_seed(0), gen_cfg, DEVICE)
+    g_p = trainable(g_p)
+    d_p = trainable(init_pos3d_discriminator(torch.Generator().manual_seed(1), DEVICE))
+    fk = lambda b: GL.fk_joints(b, 0.4)  # noqa: E731
+    if mesh is None:
+        g_opt, g_step = make_generator_step(fk, gen_cfg)
+        d_opt, d_step = make_discriminator_step()
+        f_opt, f_step = make_spin_finetune_step()
+    else:
+        g_opt, g_step = PG.make_parallel_generator_step(mesh, fk, gen_cfg)
+        d_opt, d_step = PG.make_parallel_discriminator_step(mesh)
+        f_opt, f_step = PG.make_parallel_spin_finetune_step(mesh)
+    g_st, d_st = g_opt.init(g_p), d_opt.init(d_p)
+    g_call = lambda: g_step(g_p, g_s, g_st, d_p, noises, real, spin_pred, sel, 1.0)  # noqa: E731
+    _, g_s2, _, g_out, g_stats = g_call()
+    fake = g_out["pose_ba"]
+    d_call = lambda: d_step(d_p, d_st, real, fake)  # noqa: E731
+    _, _, d_stats = d_call()
+    res.update(g_stats={k: float(v) for k, v in g_stats.items()},
+               d_stats={k: float(v) for k, v in d_stats.items()},
+               g_mu=cpu(param_leaves(g_st.mu)), g_state=cpu(param_leaves(g_s2)),
+               d_mu=cpu(param_leaves(d_st.mu)), g_out=fake.detach().cpu())
+    spin_p, spin_s = init_hmr(torch.Generator().manual_seed(2), device=DEVICE)
+    spin_p = trainable(spin_p)
+    images = torch.randn((PAR_BATCH, 3, 224, 224), generator=torch.Generator().manual_seed(SEED))
+    images = images.to(DEVICE)
+    gt = GL.fk_joints(real, 0.4)
+    f_st = f_opt.init(spin_p)
+    f_call = lambda: f_step(spin_p, spin_s, f_st, images, gt, None)  # noqa: E731
+    _, _, f_stats = f_call()
+    mu = torch.cat([t.reshape(-1) for t in param_leaves(f_st.mu)])
+    res.update(spin_loss=float(f_stats["spin_loss"]), spin_mu_hash=_par_hash(torch, [mu]))
+    if res["rank"] == 0:
+        res["spin_mu"] = mu.cpu()
+    res["g_ms"] = _par_time(torch, g_call, PAR_TIMED)
+    res["d_ms"] = _par_time(torch, d_call, PAR_TIMED)
+    res["spin_ms"] = _par_time(torch, f_call, PAR_TIMED)
+    return res
+
+
+def parallel_rank(mesh, out_dir: str) -> None:
+    """One rank of phase 18's gloo world -> out_dir/rank{r}.pt."""
+    import torch
+
+    torch.save(parallel_work(torch, mesh), os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+
+
+def parallel_nccl(mesh, out_dir: str) -> None:
+    """The 1-rank NCCL world: the flagship train step through make_mesh /
+    make_shardmap_train_step and the plain single step from the same state
+    -> out_dir/nccl.pt (whether params and gradients are bit-equal)."""
+    import torch
+
+    from posegen_tpu_torch.parallel import mesh as PM
+    from posegen_tpu_torch.render.raycast import RaycastConfig, init_raycaster
+    from posegen_tpu_torch.train.trainer import (
+        TrainConfig, create_train_state, make_train_step, param_leaves,
+    )
+
+    cfg = RaycastConfig(perturb=0.0, raw_noise_std=0.0)
+    tcfg = TrainConfig(rays_per_image=RAYS_PER_GROUP, use_background=True)
+    batch = train_batch(torch, N_GROUPS, RAYS_PER_GROUP, SEED)
+    out = {"backend": mesh.backend, "size": mesh.size}
+    for tag, step, b in (
+            ("mesh", PM.make_shardmap_train_step(cfg, tcfg, mesh=mesh), PM.shard_batch(batch, mesh)),
+            ("single", make_train_step(cfg, tcfg), batch)):
+        state = create_train_state(init_raycaster(cfg, torch.Generator().manual_seed(SEED),
+                                                  device=DEVICE), tcfg)
+        for _ in range(2):
+            state, _ = step(state, b)
+        out[tag] = [t.detach().cpu().clone() for t in param_leaves(state.params)]
+        out[tag + "_grads"] = [p.grad.detach().cpu().clone() for p in param_leaves(state.params)]
+    torch.save(out, os.path.join(out_dir, "nccl.pt"))
+
+
+def parallel_phases(torch, card: str):
+    """Phase 18, data parallelism over ranks (posegen_tpu_torch/parallel/):
+    a 2-rank gloo world on the one card (CUDA tensors) runs the flagship
+    train step, one render_image frame and the G / D / SPIN fine-tune
+    steps at full width on halves of each batch, against this process's
+    single runs on the whole batches; then a 1-rank NCCL world's step
+    through make_mesh against the plain step, bit for bit -> launches of
+    the ranks' main paths by kernel."""
+    import tempfile
+
+    import numpy as np
+
+    from posegen_tpu_torch.parallel import mesh as PM
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        t0 = time.perf_counter()
+        check(PM.backend_for("cuda", PAR_RANKS) == "gloo" and PM.backend_for("cuda", 1) == "nccl",
+              "phase 18: backends")
+        PM.launch(parallel_rank, PAR_RANKS, "cuda", args=(tmp,))
+        t_world = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+                 for r in range(PAR_RANKS)]
+        one = parallel_work(torch, None)
+        t0 = time.perf_counter()
+        PM.launch(parallel_nccl, 1, "cuda", args=(tmp,))
+        t_nccl = time.perf_counter() - t0
+        nccl = torch.load(os.path.join(tmp, "nccl.pt"), weights_only=False)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    r0, r1 = ranks
+
+    # the ranks end equal, bit for bit
+    for key in ("train_params", "g_mu", "g_state", "d_mu"):
+        check(all(torch.equal(a, b) for a, b in zip(r0[key], r1[key], strict=True)),
+              f"phase 18: the ranks' {key} differ")
+    check(r0["spin_mu_hash"] == r1["spin_mu_hash"], "phase 18: the ranks' SPIN moments differ")
+    check(all(torch.equal(a, b) for g0, g1 in zip(r0["train_grads"], r1["train_grads"])
+              for a, b in zip(g0, g1)), "phase 18: the ranks' train gradients differ")
+
+    # 18a. the train step: launches on each rank, gradients and losses
+    want = {k: 0 for k in r0["train_launches"]}
+    want.update(field_stash=4, field_bwd=4)
+    for r in ranks:
+        check(r["train_launches"] == want,
+              f"phase 18 rank {r['rank']}: train launches {r['train_launches']} != {want}")
+        check(r["train_rows"] == N_GROUPS * RAYS_PER_GROUP // PAR_RANKS,
+              f"phase 18: rank {r['rank']} trained on {r['train_rows']} rays")
+    errs = [rel_l2(a, b) for g, h in zip(r0["train_grads"], one["train_grads"])
+            for a, b in zip(g, h)]
+    check(max(errs) <= GRAD_TOL, f"phase 18: train gradients, 2 ranks vs one, relative L2 "
+                                 f"{max(errs):.3e} > {GRAD_TOL}")
+    for i, (a, b) in enumerate(zip(r0["train_losses"], one["train_losses"])):
+        for k in ("total_loss", "rgb_loss", "rgb0_loss"):
+            check(abs(a[k] - b[k]) <= GRAD_TOL * abs(b[k]),
+                  f"phase 18: step {i} {k} {a[k]} vs one process {b[k]}")
+    d_par = max(float((a - b).abs().max()) for a, b in zip(r0["train_params"],
+                                                           one["train_params"]))
+    # each tensor's change over the 2 steps, relative L2 (an H100 at 700 W
+    # read 6.3e-4 at most, max|diff| 5.2e-5 of lr 5e-4: no Adam step turned)
+    upd = [rel_l2(a - p0, b - p0) for a, b, p0 in zip(r0["train_params"], one["train_params"],
+                                                     one["train_params0"], strict=True)]
+    check(max(upd) <= GRAD_TOL, f"phase 18: the params' change over 2 steps, 2 ranks vs one, "
+                                f"relative L2 {max(upd):.3e} > {GRAD_TOL}")
+    print(f"parallel train step ({PAR_RANKS} gloo ranks on cuda:0, {N_GROUPS} groups x "
+          f"{RAYS_PER_GROUP} rays split in halves): launches a rank {r0['train_launches']}; "
+          f"gradients vs one process, relative L2 per tensor max {max(errs):.3e}, median "
+          f"{sorted(errs)[len(errs) // 2]:.3e}; total_loss {r0['train_losses'][1]['total_loss']:.6f}"
+          f" (one process {one['train_losses'][1]['total_loss']:.6f}); params after 2 steps "
+          f"max|diff| {d_par:.3e}, their change relative L2 per tensor max {max(upd):.3e}; the "
+          f"ranks bit-equal")
+
+    # 18b. the frame
+    idx = one["render_idx"]
+    chunks = -(-len(idx) // FRAME_CHUNK)
+    for r in ranks:
+        got = r["render_launches"]
+        check(got["dual"] == chunks and got["field"] == chunks
+              and sum(got.values()) == 2 * chunks,
+              f"phase 18 rank {r['rank']}: render launches {got}, {chunks} chunks")
+    rgb_k = r0["render_rgb"].reshape(-1, 3)[idx]
+    rgb_1 = one["render_rgb"].reshape(-1, 3)[idx]
+    equal = (rgb_k == rgb_1).all(-1)
+    flipped = np.abs(r0["render_acc"].reshape(-1)[idx] - one["render_acc"].reshape(-1)[idx]) > 0.5
+    d_rgb = np.abs(rgb_k - rgb_1).max(-1)
+    err = float(d_rgb[~flipped].max())
+    check(int(flipped.sum()) <= MAX_FLIP_FRAC * len(idx),
+          f"phase 18: {int(flipped.sum())} rays flipped opacity")
+    check(err <= RENDER_TOL, f"phase 18: frame vs one process {err:.3e} > {RENDER_TOL}")
+    # a ray that misses the pose cylinder takes its chunk's mean near / far,
+    # and a rank's chunk is half the single render's: every ray whose near /
+    # far the two chunkings give alike must come out bit-equal
+    same = _same_near_far(torch, one, idx)
+    check(bool(equal[same].all()), f"phase 18: {int((~equal[same]).sum())} rays with the same "
+                                   "samples differ")
+    print(f"parallel render_image {FRAME_HW} x {FRAME_HW} ({len(idx)} rays, {chunks} chunks of "
+          f"{FRAME_CHUNK}, {FRAME_CHUNK // PAR_RANKS} a rank): launches a rank dual {chunks} "
+          f"field {chunks}; {int(equal.sum())} rays bit-equal to one process ({int(same.sum())} "
+          f"with the same near / far, all equal), max|diff| {err:.3e} on the rest of "
+          f"{len(idx) - int(flipped.sum())}, {int(flipped.sum())} flipped opacity")
+
+    # 18c. G / D / SPIN
+    for part, stats in (("g", "g_stats"), ("d", "d_stats")):
+        for k, v in one[stats].items():
+            check(abs(r0[stats][k] - v) <= PAR_LOSS_TOL * max(abs(v), 1e-6),
+                  f"phase 18: {part} {k} {r0[stats][k]} vs one process {v}")
+    g_err = rel_l2(torch.cat([t.reshape(-1) for t in r0["g_mu"]]),
+                   torch.cat([t.reshape(-1) for t in one["g_mu"]]))
+    d_err = rel_l2(torch.cat([t.reshape(-1) for t in r0["d_mu"]]),
+                   torch.cat([t.reshape(-1) for t in one["d_mu"]]))
+    s_err = rel_l2(r0["spin_mu"], one["spin_mu"])
+    bn_err = max(float((a - b).abs().max()) for a, b in zip(r0["g_state"], one["g_state"]))
+    out_err = float((r0["g_out"] - one["g_out"]).abs().max())
+    check(g_err <= GAN_MOMENT_TOL and d_err <= GAN_MOMENT_TOL,
+          f"phase 18: G / D Adam moments vs one process {g_err:.3e} / {d_err:.3e}")
+    check(s_err <= SPIN_FT_TOL and abs(r0["spin_loss"] - one["spin_loss"])
+          <= PAR_LOSS_TOL * abs(one["spin_loss"]),
+          f"phase 18: SPIN step vs one process: moments {s_err:.3e}, loss "
+          f"{r0['spin_loss']} vs {one['spin_loss']}")
+    check(bn_err <= 1e-4 and out_err <= 1e-4,
+          f"phase 18: synced BN state {bn_err:.3e}, generated poses {out_err:.3e}")
+    print(f"parallel G / D / SPIN steps (GenConfig(), ResNet-50 HMR at 224, batch {PAR_BATCH}, "
+          f"{PAR_BATCH // PAR_RANKS} a rank) vs one process: Adam moments relative L2 G "
+          f"{g_err:.3e}, D {d_err:.3e}, SPIN {s_err:.3e}; BN running stats max|diff| "
+          f"{bn_err:.3e}; gathered poses {out_err:.3e}; losses G {r0['g_stats']['gen_loss']:.6f}"
+          f" ({one['g_stats']['gen_loss']:.6f}), D {r0['d_stats']['dis_loss']:.6f} "
+          f"({one['d_stats']['dis_loss']:.6f}), SPIN {r0['spin_loss']:.6f} "
+          f"({one['spin_loss']:.6f})")
+
+    # 18d. the 1-rank NCCL world
+    check(nccl["backend"] == "nccl" and nccl["size"] == 1, f"phase 18: {nccl['backend']}")
+    check(all(torch.equal(a, b) for a, b in zip(nccl["mesh"], nccl["single"], strict=True))
+          and all(torch.equal(a, b) for a, b in zip(nccl["mesh_grads"], nccl["single_grads"])),
+          "phase 18: the 1-rank NCCL step is not the plain step bit for bit")
+    print("parallel 1-rank NCCL world: the train step through make_mesh / "
+          "make_shardmap_train_step equals the plain step bit for bit (params and gradients "
+          "after 2 steps)")
+
+    for name in ("train", "render", "g", "d", "spin"):
+        print(f"timing parallel {name}: {PAR_RANKS} ranks {r0[name + '_ms']:.3f} ms (rank 1 "
+              f"{r1[name + '_ms']:.3f}), one process {one[name + '_ms']:.3f} ms, median of "
+              f"{PAR_TIMED} by the host clock [{card}]")
+    print(f"timing parallel worlds: gloo {t_world:.1f} s with spawn, NCCL {t_nccl:.1f} s "
+          f"[{card}]")
+    launches = {k: 0 for k in r0["train_launches"]}
+    for r in ranks:
+        for part in ("train_launches", "render_launches"):
+            for k, v in r[part].items():
+                launches[k] += v
+    return launches
+
+
+def _same_near_far(torch, one, idx):
+    """Per ray of the frame: whether its near / far are the same when the
+    frame's box is cut into FRAME_CHUNK chunks and into the ranks' halves
+    of them (rays that miss the cylinder take their chunk's mean)."""
+    import numpy as np
+
+    from posegen_tpu_torch.ops import sampling as samp
+    from posegen_tpu_torch.render import image as IMG
+    from posegen_tpu_torch.render.raycast import RaycastConfig
+    from posegen_tpu_torch.utils.fixtures import make_pose_ctx
+
+    cfg = RaycastConfig()
+    ctx = make_pose_ctx(SEED, device=DEVICE)
+    c2w = IMG._bullet_c2ws(ctx.kps[0, 0].cpu().numpy(), BULLET_DIST, 1)[0]
+    cyl = ctx.cyls[0].cpu().numpy()
+    tl, br, valid = IMG.valid_box_for_pose(FRAME_HW, FRAME_HW, FRAME_FOCAL, c2w, cyl)
+    cam = {k: torch.as_tensor(v).to(DEVICE)
+           for k, v in IMG.make_cam(FRAME_HW, FRAME_HW, FRAME_FOCAL, c2w, tl, br).items()}
+    n = len(valid)
+
+    def near_far(chunk, padded):
+        """A rank renders chunk rays at every offset, those past the box
+        clamped to its last ray (make_shardmap_render_cam); one process
+        renders what is left of the box."""
+        out = []
+        for i in range(0, n, chunk):
+            o, d = IMG.rays_from_box(cam, i, chunk if padded else min(chunk, n - i))
+            nr, fr = samp.get_near_far_in_cylinder(o, d, ctx.cyls.expand(o.shape[0], 5),
+                                                   near=cfg.near, far=cfg.far)
+            out.append(torch.cat([nr, fr], -1)[:min(chunk, n - i)])
+        return torch.cat(out)
+
+    with torch.no_grad():
+        a, b = near_far(FRAME_CHUNK, False), near_far(FRAME_CHUNK // PAR_RANKS, True)
+    return (a == b).all(-1).cpu().numpy()
 
 
 def _glob(d: str, pattern: str):

@@ -10,10 +10,19 @@ a trained (resident) NeRF; optional SPIN fine-tuning afterwards on the
 flags are the JAX package's, the dead ones too; the device is a keyword
 argument, `main(argv, device="cpu")`, CUDA by default. The feedback frames
 render through `gen/loop.NeRFRenderer` at `--chunk` rays (on the card, one
-dual and one field launch per chunk). The JAX package's data-parallel
-branch (`jax.device_count() > 1`) is not ported (ROADMAP.md Queue 1 item
-10): the port runs on the one device it is given. The noises of the probe
-come from a torch generator seeded `seed + 777` (JAX: a PRNG key).
+dual and one field launch per chunk). The noises of the probe come from a
+torch generator seeded `seed + 777` (JAX: a PRNG key).
+
+Data parallelism (JAX run_gan.py:161-168): under a world of ranks,
+
+    torchrun --nproc_per_node N -m posegen_tpu_torch.cli.run_gan ...
+
+the G, D and SPIN fine-tune steps run over every rank (parallel/gan.py),
+each rank on its card, and the feedback frames render over the ranks;
+every rank runs the same loop on the same pose batches, and rank 0 alone
+writes the sink, the checkpoints and epochs.jsonl. A --batch_size that
+the world does not divide is refused. Without a world it runs on the one
+device it is given.
 """
 
 from __future__ import annotations
@@ -108,16 +117,52 @@ def load_pose_pool(path: Optional[str], seed: int = 0, n: int = 4096) -> np.ndar
     return (rng.standard_normal((n, 24, 3)) * 0.3).astype(np.float32)
 
 
+def gan_mesh(batch_size: int):
+    """The mesh of the data-parallel G / D / SPIN steps (parallel/gan.py)
+    under a world of ranks, else None. The reference's GAN loop is
+    single-GPU (run_gan.py:1956). A world whose size does not divide
+    `batch_size` is refused: where the JAX package falls back to one
+    device in its one controller, each rank here would run the whole loop
+    and write the same files."""
+    from posegen_tpu_torch.parallel import mesh as pmesh
+
+    size = pmesh.world_size()
+    if size == 1:
+        return None
+    if batch_size % size:
+        raise ValueError(f"--batch_size ({batch_size}) must divide evenly over the {size} ranks "
+                         "of the world")
+    mesh = pmesh.make_mesh()
+    print(f"data-parallel GAN over {mesh.size} devices")
+    return mesh
+
+
 def main(argv: Optional[Sequence[str]] = None, device="cuda"):
     from posegen_tpu_torch.cli.config import parse_with_config
     from posegen_tpu_torch.device import resolve_device
+    from posegen_tpu_torch.parallel import mesh as pmesh
+
+    args = parse_with_config(gan_parser(), argv)
+    dev = resolve_device(device)
+    started = False
+    if "WORLD_SIZE" in os.environ and not torch.distributed.is_initialized():
+        dev, started = pmesh.init_from_env(dev.type), True
+    try:
+        return _main(args, dev)
+    finally:
+        if started:
+            pmesh.shutdown()
+
+
+def _main(args, dev):
     from posegen_tpu_torch.gen.generators import GenConfig, draw_noises
     from posegen_tpu_torch.gen.loop import (
         GanLoopConfig, GanTrainer, NeRFRenderer, probe_hardness,
     )
+    from posegen_tpu_torch.parallel import mesh as pmesh
 
-    args = parse_with_config(gan_parser(), argv)
-    dev = resolve_device(device)
+    mesh = gan_mesh(args.batch_size)
+    writer_rank = pmesh.world_rank() == 0
 
     renderer = None
     spin_params = spin_state = None
@@ -163,7 +208,7 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda"):
         rpi=args.rpi, render_hw=args.render_hw, output_dir=run_dir,
     )
     trainer = GanTrainer(loop_cfg, renderer, spin_params, spin_state, gen_cfg=GenConfig(),
-                         steps_per_epoch=steps_per_epoch, seed=args.seed, device=dev)
+                         steps_per_epoch=steps_per_epoch, seed=args.seed, mesh=mesh, device=dev)
 
     # auto-resume: the latest gan_*.npz restores the full run (params,
     # optimizers, generator state, fake pool)
@@ -184,7 +229,6 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda"):
                                    args.probe_n, trainer.gen_cfg)
 
     def _probe_and_log(epoch: int, stats, dt: float, n_iters: int) -> None:
-        os.makedirs(run_dir, exist_ok=True)
         rec = {"epoch": epoch, "iters": n_iters, "wall_s": round(dt, 1),
                **{k: round(float(v), 6) for k, v in stats.items()}}
         if probe_real is not None:
@@ -192,6 +236,9 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda"):
             rec["probe_mpjpe"] = round(probe_hardness(trainer, probe_real, probe_noises), 6)
             rec["probe_s"] = round(time.time() - t0, 1)
             print(f"  probe: {rec['probe_mpjpe']:.4f} MPJPE ({rec['probe_s']:.1f} s)", flush=True)
+        if not writer_rank:
+            return
+        os.makedirs(run_dir, exist_ok=True)
         with open(os.path.join(run_dir, "epochs.jsonl"), "a") as f:
             f.write(json.dumps(rec) + "\n")
 
@@ -209,7 +256,7 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda"):
         dt = time.time() - t0
         print(f"epoch {epoch}: {stats} ({dt:.1f} s, {len(batches) / dt:.2f} it/s)", flush=True)
         _probe_and_log(epoch, stats, dt, len(batches))
-        if args.i_gan_ckpt and (epoch + 1) % args.i_gan_ckpt == 0:
+        if writer_rank and args.i_gan_ckpt and (epoch + 1) % args.i_gan_ckpt == 0:
             path = trainer.save_checkpoint(os.path.join(ckpt_dir, f"gan_{epoch:03d}.npz"))
             print(f"saved {path}")
     trainer.flush_sink()
@@ -219,7 +266,8 @@ def main(argv: Optional[Sequence[str]] = None, device="cuda"):
 
         spin_params, history = train_spin(
             spin_params, spin_state, render_dir=run_dir, epochs=args.train_spin_epochs,
-            ckpt_dir=os.path.join(run_dir, "spin_ckpts"), seed=args.seed, lr=args.lr_spin,
+            ckpt_dir=os.path.join(run_dir, "spin_ckpts"), seed=args.seed, mesh=mesh,
+            lr=args.lr_spin,
         )
         print(f"SPIN fine-tuning done: {history[-1]}")
     return trainer

@@ -11,16 +11,30 @@ asks for the CPU: `train(argv, device="cpu")` (a keyword argument, not a
 flag). The loader hands out pinned batches on CUDA, uploaded without a
 stream synchronisation; the steps run the trainable field kernels and the
 val renders the eval kernels.
+
+Data parallelism (JAX run_nerf.py:245-275; parallel/mesh.py): `--n_devices`
+picks the ranks (`rank_count`), which `train` spawns on this node, or
+
+    torchrun --nproc_per_node N -m posegen_tpu_torch.cli.run_nerf ...
+
+starts them (WORLD_SIZE set: every rank of torchrun's world joins). Each
+rank reads the node's whole batch and trains on its whole image groups
+(`shard_batch`), gradients and stats averaged over the ranks; the val
+frames and the spiral video render over the ranks too. Rank 0 alone writes
+checkpoints, logs and images; at the end the ranks' states are checked
+bit-equal.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as tnf
 
 from posegen_tpu_torch.cli.config import (
@@ -33,6 +47,7 @@ from posegen_tpu_torch.cli.config import (
     validate_args,
 )
 from posegen_tpu_torch.device import resolve_device
+from posegen_tpu_torch.parallel import mesh as pmesh
 
 
 def _resize_bilinear(img: np.ndarray, hw, dev: torch.device, antialias: bool) -> np.ndarray:
@@ -52,7 +67,8 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s)
 
 
-def evaluate_testset(cfg, state, render_data, chunk: int = 4096, render_factor: int = 0):
+def evaluate_testset(cfg, state, render_data, chunk: int = 4096, render_factor: int = 0,
+                     mesh=None):
     """Render held-out views and compute PSNR/SSIM
     (reference render_testset + evaluate_metric, run_nerf.py:557-604), on
     the device of the state.
@@ -61,7 +77,12 @@ def evaluate_testset(cfg, state, render_data, chunk: int = 4096, render_factor: 
     opt_framecode (cams_val, run_nerf.py:574), GT composited over the
     stored backgrounds when the H5 has them (masked_gts, :580-584), and
     render_factor > 0 renders at H//f then bilinear-upsamples back to GT
-    resolution for the metrics (evaluation_helpers.py:309-313)."""
+    resolution for the metrics (evaluation_helpers.py:309-313).
+
+    mesh: a mesh of more than one rank splits each chunk's rays over its
+    ranks (`parallel.mesh.make_shardmap_render_cam`, the chunk rounded down
+    to a multiple of the ranks; JAX run_nerf.py:54-59); every rank gets the
+    frames."""
     from posegen_tpu_torch.evals.image import evaluate_metric
     from posegen_tpu_torch.kernels.field import fused_config_disqualification
     from posegen_tpu_torch.render.image import render_image
@@ -70,6 +91,10 @@ def evaluate_testset(cfg, state, render_data, chunk: int = 4096, render_factor: 
     if fused_config_disqualification(cfg) is not None:
         # the plain pipeline materializes the per-point encodings
         chunk = min(chunk, 8192)
+    render_fn = None
+    if mesh is not None and mesh.size > 1:
+        chunk = chunk - (chunk % mesh.size) or mesh.size
+        render_fn = pmesh.make_shardmap_render_cam(cfg, mesh, chunk)
     params = {**state.params, **state.embeds}
     dev = state.params["coarse"]["pts_linears"][0]["w"].device
     on_dev = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
@@ -100,7 +125,7 @@ def evaluate_testset(cfg, state, render_data, chunk: int = 4096, render_factor: 
                     bg = _resize_bilinear(bg, (RH, RW), dev, antialias=True)
             out = render_image(
                 cfg, params, RH, RW, focal / max(render_factor, 1),
-                render_data["c2ws"][i], ctx, chunk=chunk, bg=bg,
+                render_data["c2ws"][i], ctx, chunk=chunk, bg=bg, render_fn=render_fn,
             )
             rgb = out["rgb"]
             if render_factor > 0:
@@ -123,7 +148,9 @@ def save_spiral_video(
 ) -> str:
     """Bullet-time turn-around of val pose 0 written as rgb + disp GIFs
     (reference i_video render_poses mp4s, run_nerf.py:557-604 — format
-    adapted: GIFs through the port's own `utils/gif.write_gif`)."""
+    adapted: GIFs through the port's own `utils/gif.write_gif`). The frames
+    render through `parallel.mesh.auto_render_fn` (over every rank of a
+    world); rank 0 writes the GIFs."""
     from posegen_tpu_torch.utils.gif import write_gif
 
     from posegen_tpu_torch.render.image import _bullet_c2ws, render_path
@@ -141,11 +168,14 @@ def save_spiral_video(
         kps=on_dev(render_data["kp3d"][:1]), skts=on_dev(render_data["skts"][:1]),
         bones=on_dev(render_data["bones"][:1]), cyls=on_dev(render_data["cyls"][:1]),
     )
+    # u8 GIF output: f16 readback is free accuracy-wise
+    render_fn, chunk = pmesh.auto_render_fn(cfg, chunk, half_readback=True)
     with torch.no_grad():
-        # u8 GIF output: f16 readback is free accuracy-wise
         out = render_path(cfg, params, c2ws, (H, W, focal), [ctx], chunk=chunk,
-                          half_readback=True)
+                          render_fn=render_fn, half_readback=True)
     rgb_path = os.path.join(log_dir, f"spiral_{step:06d}_rgb.gif")
+    if pmesh.world_rank() != 0:
+        return rgb_path
     write_gif(rgb_path, (np.clip(out["rgbs"], 0, 1) * 255).astype(np.uint8), fps=5, loop=0)
     disp = out["disps"] / max(float(out["disps"].max()), 1e-8)
     write_gif(os.path.join(log_dir, f"spiral_{step:06d}_disp.gif"),
@@ -153,14 +183,57 @@ def save_spiral_video(
     return rgb_path
 
 
+def rank_count(n_devices: int, dev: torch.device) -> int:
+    """The ranks `train` spawns for --n_devices on `dev` (the JAX package's
+    rule over its devices): on CUDA every card for 0, else min(n, cards),
+    never more ranks than cards; on the CPU n gloo ranks for n > 1, else
+    one."""
+    if dev.type == "cuda":
+        cards = torch.cuda.device_count()
+        return cards if n_devices == 0 else max(min(n_devices, cards), 1)
+    return max(n_devices, 1)
+
+
 def train(argv: Optional[Sequence[str]] = None, device="cuda") -> str:
     """Train a NeRF from the config and flags of `argv` on `device` (CUDA
-    by default; raises without a card) -> the run's log dir."""
+    by default; raises without a card) -> the run's log dir. Data-parallel
+    over `rank_count` ranks, or over torchrun's world."""
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_with_config(nerf_config_parser(), argv)
     validate_args(args)
     dev = resolve_device(device)
+    if "WORLD_SIZE" in os.environ and not dist.is_initialized():
+        pmesh.init_from_env(dev.type)
+        try:
+            return _train(args, pmesh.make_mesh())
+        finally:
+            pmesh.shutdown()
+    n = rank_count(args.n_devices, dev)
+    if n > 1:
+        _check_groups(args, n)
+        pmesh.launch(_train_rank, n, dev.type, args=(argv,))
+        return os.path.join(args.basedir, args.expname)
+    return _train(args, None, dev)
+
+
+def _check_groups(args, n: int) -> None:
+    if args.N_sample_images % n != 0:
+        raise SystemExit(
+            f"--N_sample_images ({args.N_sample_images}) must be a multiple of the device "
+            f"count ({n}) so each chip gets whole image groups")
+
+
+def _train_rank(mesh, argv) -> None:
+    _train(parse_with_config(nerf_config_parser(), argv), mesh)
+
+
+def _train(args, mesh, dev=None) -> str:
+    """The training run of one rank of `mesh` (None: one device, `dev`)."""
+    dev = mesh.device if mesh is not None else dev
+    writer_rank = mesh is None or pmesh.world_rank() == 0
     log_dir = os.path.join(args.basedir, args.expname)
-    dump_args(log_dir, args)
+    if writer_rank:
+        dump_args(log_dir, args)
 
     from posegen_tpu_torch.data.catalog import load_data
     from posegen_tpu_torch.pose.opt import PoseOptConfig, init_pose_params
@@ -174,15 +247,13 @@ def train(argv: Optional[Sequence[str]] = None, device="cuda") -> str:
     )
     from posegen_tpu_torch.train.trainer import create_train_state, make_train_step
 
-    if args.n_devices != 1 and dev.type == "cuda" and torch.cuda.device_count() > 1:
-        raise NotImplementedError(
-            f"{torch.cuda.device_count()} CUDA devices with --n_devices {args.n_devices}: "
-            "multi-device training is not ported yet (ROADMAP.md, Queue 1 item 10); "
-            "pass --n_devices 1"
-        )
-    loader, render_data, attrs = load_data(
-        args_to_data_config(args), pin_memory=dev.type == "cuda"
-    )
+    dcfg = args_to_data_config(args)
+    if mesh is not None:
+        _check_groups(args, mesh.size)
+        # multi-node: each node draws a disjoint image shard per epoch; the
+        # ranks of a node all build its whole batch (JAX run_nerf.py:174-175)
+        dcfg.process_index, dcfg.process_count = pmesh.node_index_count()
+    loader, render_data, attrs = load_data(dcfg, pin_memory=dev.type == "cuda")
     cfg = args_to_raycast_config(args, n_framecodes=attrs["n_framecodes"])
     tcfg = args_to_train_config(args)
 
@@ -250,20 +321,30 @@ def train(argv: Optional[Sequence[str]] = None, device="cuda") -> str:
             print(f"resumed from {ckpt} at step {start}")
 
     rest_pose = torch.as_tensor(attrs["rest_pose"], device=dev)
-    step_fn = make_train_step(
-        cfg, tcfg, pcfg, rest_pose=rest_pose, kp_map=kp_map, n_frames=attrs["n_kps"],
-    )
-    # pinned batches go up without a stream synchronisation
-    prep = lambda b: {k: torch.as_tensor(v).to(dev, non_blocking=True)  # noqa: E731
-                      for k, v in b.items()}
+    if mesh is not None:
+        # the full step per rank on its whole image groups, gradients and
+        # stats averaged over the ranks (JAX run_nerf.py:245-275)
+        state = pmesh.replicate(state, mesh)
+        step_fn = pmesh.make_shardmap_train_step(
+            cfg, tcfg, pcfg, mesh=mesh, rest_pose=rest_pose, kp_map=kp_map,
+            n_frames=attrs["n_kps"])
+        prep = lambda b: pmesh.shard_batch(b, mesh)  # noqa: E731
+    else:
+        step_fn = make_train_step(
+            cfg, tcfg, pcfg, rest_pose=rest_pose, kp_map=kp_map, n_frames=attrs["n_kps"],
+        )
+        # pinned batches go up without a stream synchronisation
+        prep = lambda b: {k: torch.as_tensor(v).to(dev, non_blocking=True)  # noqa: E731
+                          for k, v in b.items()}
 
     writer = None
-    try:
-        from torch.utils.tensorboard import SummaryWriter
+    if writer_rank:
+        try:
+            from torch.utils.tensorboard import SummaryWriter
 
-        writer = SummaryWriter(log_dir)
-    except Exception:
-        pass
+            writer = SummaryWriter(log_dir)
+        except Exception:
+            pass
 
     it = iter(loader)
     try:
@@ -272,7 +353,7 @@ def train(argv: Optional[Sequence[str]] = None, device="cuda") -> str:
             batch = prep(next(it))
             state, stats = step_fn(state, batch, step_generator(args.seed, i, dev))
 
-            if args.i_print > 0 and (i + 1) % args.i_print == 0:
+            if writer_rank and args.i_print > 0 and (i + 1) % args.i_print == 0:
                 s = {k: float(v) for k, v in stats.items()}
                 rate = args.i_print / (time.time() - t0)
                 t0 = time.time()
@@ -303,11 +384,12 @@ def train(argv: Optional[Sequence[str]] = None, device="cuda") -> str:
                         + "\n"
                     )
 
-            if args.i_weights > 0 and (i + 1) % args.i_weights == 0:
+            if writer_rank and args.i_weights > 0 and (i + 1) % args.i_weights == 0:
                 path = save_checkpoint(log_dir, state, step=i + 1)
                 print(f"saved {path}")
 
-            if args.opt_pose and args.i_pose_weights > 0 and (i + 1) % args.i_pose_weights == 0:
+            if (writer_rank and args.opt_pose and args.i_pose_weights > 0
+                    and (i + 1) % args.i_pose_weights == 0):
                 save_pose_checkpoint(log_dir, state, step=i + 1)
 
             if args.i_video > 0 and (i + 1) % args.i_video == 0:
@@ -320,7 +402,10 @@ def train(argv: Optional[Sequence[str]] = None, device="cuda") -> str:
             if args.i_testset > 0 and (i + 1) % args.i_testset == 0:
                 metrics, _ = evaluate_testset(
                     cfg, state, render_data, args.chunk, render_factor=args.render_factor,
+                    mesh=mesh,
                 )
+                if not writer_rank:
+                    continue
                 print(f"iter {i + 1} val: {metrics}")
                 if writer:
                     writer.add_scalar("Val/PSNR", metrics["psnr"], i + 1)
@@ -333,7 +418,10 @@ def train(argv: Optional[Sequence[str]] = None, device="cuda") -> str:
         loader.close()
         if writer:
             writer.close()
-    save_checkpoint(log_dir, state, step=args.n_iters)
+    if mesh is not None:
+        pmesh.check_replicated(state, mesh)
+    if writer_rank:
+        save_checkpoint(log_dir, state, step=args.n_iters)
     return log_dir
 
 

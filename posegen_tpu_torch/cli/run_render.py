@@ -389,26 +389,17 @@ def run_render(argv: Optional[Sequence[str]] = None, device="cuda") -> str:
         ctxs = [ctx_for(i, code_i=i if is_surreal else None) for i in range(n)]
         c2ws = render_data["c2ws"]
 
-    from posegen_tpu_torch.kernels.field import (
-        fused_config_disqualification, warn_fused_fallback,
-    )
+    from posegen_tpu_torch.parallel.mesh import auto_render_fn
 
-    chunk = args.chunk
-    reason = fused_config_disqualification(cfg)
-    if reason is not None:
-        # the plain pipeline materialises the per-point encodings: clamp to
-        # the reference's own eval tiling, as JAX's auto_render_fn does
-        if chunk > 8192:
-            warn_fused_fallback("run_render", reason, extra=f" Eval chunk clamped {chunk} -> 8192.")
-            chunk = 8192
-        else:
-            warn_fused_fallback("run_render", reason)
     # u8 PNG outputs: f16 readback halves the device-to-host copy; --eval
-    # keeps f32
+    # keeps f32. On a world of ranks each chunk's rays split over them (the
+    # reference DataParallel's render role, core/raycasters.py:157)
     half_readback = not args.eval
+    render_fn, chunk = auto_render_fn(cfg, args.chunk, half_readback=half_readback)
     with torch.no_grad():
         out = render_path(cfg, variables, c2ws, (H, W, focal), ctxs, chunk=chunk,
-                          white_bkgd=args.white_bkgd, half_readback=half_readback)
+                          white_bkgd=args.white_bkgd, render_fn=render_fn,
+                          half_readback=half_readback)
 
     if args.eval and args.render_type == "val":
         from posegen_tpu_torch.evals.image import evaluate_metric

@@ -63,6 +63,8 @@ class DataConfig:
     seed: int = 0
     subject_idx: int = 0  # which subject's views to render for multi-subject
     #                       models (reference --subject_idx, run_render.py:60)
+    process_index: int = 0  # multi-node input sharding: this node's index and
+    process_count: int = 1  # the node count (parallel.mesh.node_index_count)
 
 
 def resolve_h5_path(cfg: DataConfig, subject: Optional[str] = None) -> str:
@@ -146,6 +148,7 @@ def load_data(
     loader = RayBatchLoader(
         ds, n_images_per_batch=cfg.n_sample_images, seed=cfg.seed,
         num_workers=cfg.num_workers, pin_memory=pin_memory,
+        process_index=cfg.process_index, process_count=cfg.process_count,
     )
 
     # held-out render/eval views: evenly spaced over the val source (the

@@ -651,6 +651,15 @@ class RayBatchLoader:
     count > 0. (It is not the in-process sequence, which draws from the
     loader's own RNG.)
 
+    Multi-host (process_count > 1, the JAX loader's rule,
+    posegen_tpu/data/h5dataset.py:689-726): every node builds the same
+    global image permutation (seeded identically) and takes its strided
+    `process_index::process_count` slice of each epoch, so data-parallel
+    nodes draw disjoint image subsets with no communication; the pixel
+    stream is drawn from (seed, process_index) and the workers' seeds are
+    offset by 100003 x process_index. One node (count 1) draws exactly what
+    it drew before.
+
     pin_memory: every batch is handed out as a dict of CPU tensors in pinned
     (page-locked) memory, ready for `.to("cuda", non_blocking=True)`. Each
     batch gets freshly allocated pinned buffers: PyTorch's caching host
@@ -667,16 +676,24 @@ class RayBatchLoader:
         seed: int = 0,
         num_workers: int = 0,
         pin_memory: bool = False,
+        process_index: int = 0,
+        process_count: int = 1,
     ):
         self.dataset = dataset
         self.pin_memory = pin_memory
         self.n_images = n_images_per_batch
         self.num_workers = num_workers
-        # image permutations and pixel draws: two streams of one seed, as
-        # the JAX loader draws them
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} not in [0, {process_count})")
+        self.process_index = process_index
+        self.process_count = process_count
+        # image permutations and pixel draws: two streams, as the JAX loader
+        # draws them; the permutation stream is the same on every node, the
+        # pixel stream node-distinct
         self._perm_rng = np.random.default_rng(seed)
-        self.rng = np.random.default_rng(seed)
-        self.seed = seed
+        self.rng = (np.random.default_rng(seed) if process_count == 1
+                    else np.random.default_rng((seed, process_index)))
+        self.seed = seed + 100003 * process_index
         self._perm: np.ndarray = np.array([], dtype=np.int64)
         self._q: queue.Queue = queue.Queue(maxsize=prefetch)
         self._stop = threading.Event()
@@ -691,6 +708,8 @@ class RayBatchLoader:
         # full-permutation sampler (reference RandIntGenerator, dataset.py:730)
         while self._perm.size < self.n_images:
             epoch = self._perm_rng.permutation(self.dataset.n_images)
+            if self.process_count > 1:  # this node's shard of the epoch
+                epoch = epoch[self.process_index::self.process_count]
             self._perm = np.concatenate([self._perm, epoch])
         idxs, self._perm = self._perm[: self.n_images], self._perm[self.n_images :]
         return idxs

@@ -201,6 +201,19 @@ def _detached(tree):
 # the steps
 # ---------------------------------------------------------------------------
 
+def _summed_over(mesh, grads, stats):
+    """(grads, stats) summed over the ranks of `mesh` in one collective
+    (JAX's psum of both); None gradient leaves stay None."""
+    if mesh is None:
+        return grads, stats
+    from posegen_tpu_torch.parallel.mesh import all_reduce_sum
+
+    leaves = param_leaves(grads)
+    red = iter(all_reduce_sum(mesh, [g for g in leaves if g is not None] + list(stats.values())))
+    grads = _rebuild(grads, iter([None if g is None else next(red) for g in leaves]))
+    return grads, {k: next(red) for k in stats}
+
+
 def make_generator_step(
     fk_fn: Callable[[torch.Tensor], torch.Tensor],
     cfg: GenConfig = GenConfig(),
@@ -209,6 +222,7 @@ def make_generator_step(
     steps_per_epoch: int = 1000,
     spin_coef: float = 0.1,
     grad_clip: float = 1.0,
+    mesh=None,
 ):
     """Generator update (reference run_gan.py:2014-2107) -> (opt, step).
 
@@ -222,35 +236,59 @@ def make_generator_step(
     spin_pred (K, 14, 3), spin_sel (K,) int64, spin_active 0 or 1) ->
     (g_params, new_state, g_opt_state, out, stats); the params and the
     optimiser state are updated in place. noises: the generator's {'ba',
-    'r', 'eps', 't'} (the JAX step's PRNG key)."""
+    'r', 'eps', 't'} (the JAX step's PRNG key).
+
+    mesh: the data-parallel step of one rank (JAX's axis_name,
+    posegen_tpu/gen/gan.py:138-204; `parallel.gan` wraps it), on its rows of
+    `real_pose` with everything else replicated: `noises` are the GLOBAL
+    batch's (drawn from the replicated generator) and the rank takes its
+    rows, BN runs synced, the generated poses are gathered so that
+    `spin_sel` indexes the global batch (FK is per row: gathering the bones
+    before FK of the selection gives the gathered joints' selection), and
+    the losses are local sums over global counts (the gathered SPIN term
+    divided by the rank count), so the gradients and stats summed over the
+    ranks are the single-device step's on the concatenated batch; `out`
+    holds the rank's rows."""
     opt = TreeAdam(lambda_lr(lr, n_epochs, steps_per_epoch), clip=grad_clip)
+    n_dev = 1 if mesh is None else mesh.size
 
     def step(g_params, g_state, g_opt_state: AdamState, d_params, noises, real_pose,
              spin_pred, spin_sel, spin_active):
+        if mesh is not None:
+            b = real_pose.shape[0]
+            noises = {k: v[mesh.rank * b:(mesh.rank + 1) * b] for k, v in noises.items()}
         with torch.enable_grad():
             out, new_state = pose_generator_apply(g_params, g_state, None, real_pose, cfg,
-                                                  noises=noises)
+                                                  noises=noises, mesh=mesh)
             # only pose_ba enters the loss, as in the reference's default
             # train_gan: its feedback render uses a fixed extrinsic and its
             # adv / spin terms touch outputs_axis_angle only, so the R / T
             # trunks get no gradient (their moments stay 0)
             logits = pos3d_discriminator_apply(d_params, out["pose_ba"])
-            adv = ((logits - 1.0) ** 2).sum() * 0.5 / logits.shape[0]
+            adv = ((logits - 1.0) ** 2).sum() * 0.5 / (logits.shape[0] * n_dev)
+            bones = out["pose_ba"]
+            if mesh is not None:
+                from posegen_tpu_torch.parallel.mesh import gather_rows
+
+                bones = gather_rows(mesh, bones)
             # FK of the selected poses only: the same joints as FK of all,
             # then the selection
-            joints = fk_fn(out["pose_ba"].index_select(0, spin_sel))
+            joints = fk_fn(bones.index_select(0, spin_sel))
             j_sel = joints.index_select(1, j14_index(joints.device))
             j_sel = j_sel - j_sel[:, :1]
             pred = spin_pred - spin_pred[:, :1]
             # eps-safe norm: the plain norm has a NaN gradient at exactly-zero
             # differences (root joints coincide when feedback is inactive)
             err = torch.sqrt(((pred - j_sel) ** 2).sum(-1) + 1e-12).mean()
-            spin_loss = (1.0 - err) * spin_active
+            # every rank computes it from the gathered poses: / n_dev keeps
+            # the sum over the ranks the global term
+            spin_loss = (1.0 - err) * spin_active / n_dev
             total = adv + spin_coef * spin_loss
             grads = tree_grads(total, g_params)
-        opt.update(g_opt_state, g_params, grads)
         stats = {"adv_loss": adv.detach(), "spin_loss": spin_loss.detach(),
                  "gen_loss": total.detach()}
+        grads, stats = _summed_over(mesh, grads, stats)
+        opt.update(g_opt_state, g_params, grads)
         return g_params, _detached(new_state), g_opt_state, _detached(out), stats
 
     return opt, step
@@ -261,25 +299,31 @@ def make_discriminator_step(
     n_epochs: int = 50,
     steps_per_epoch: int = 1000,
     grad_clip: float = 1.0,
+    mesh=None,
 ):
     """Discriminator update with pooled fakes (reference train_dis,
     run_gan.py:1143-1178) -> (opt, step). step(d_params, d_opt_state,
-    real_kp3d, fake_kp3d) -> (d_params, d_opt_state, stats), in place."""
+    real_kp3d, fake_kp3d) -> (d_params, d_opt_state, stats), in place.
+
+    mesh: one rank's step on its rows of both batches (JAX's axis_name,
+    posegen_tpu/gen/gan.py:210-251): local sums over global counts, the
+    gradients and stats summed over the ranks."""
     opt = TreeAdam(lambda_lr(lr, n_epochs, steps_per_epoch), clip=grad_clip)
+    n_dev = 1 if mesh is None else mesh.size
 
     def step(d_params, d_opt_state: AdamState, real_kp3d, fake_kp3d):
         with torch.enable_grad():
             real_logits = pos3d_discriminator_apply(d_params, real_kp3d)
             fake_logits = pos3d_discriminator_apply(d_params, fake_kp3d.detach())
-            loss = 0.5 * (((real_logits - 1.0) ** 2).sum() / real_logits.shape[0]
-                          + (fake_logits ** 2).sum() / fake_logits.shape[0])
+            loss = 0.5 * (((real_logits - 1.0) ** 2).sum() / (real_logits.shape[0] * n_dev)
+                          + (fake_logits ** 2).sum() / (fake_logits.shape[0] * n_dev))
             grads = tree_grads(loss, d_params)
-        opt.update(d_opt_state, d_params, grads)
         with torch.no_grad():
             stats = {"dis_loss": loss.detach(),
-                     "real_acc": discriminator_accuracy(real_logits, 1.0),
-                     "fake_acc": discriminator_accuracy(fake_logits, 0.0)}
+                     "real_acc": discriminator_accuracy(real_logits, 1.0) / n_dev,
+                     "fake_acc": discriminator_accuracy(fake_logits, 0.0) / n_dev}
+        grads, stats = _summed_over(mesh, grads, stats)
+        opt.update(d_opt_state, d_params, grads)
         return d_params, d_opt_state, stats
 
     return opt, step
-

@@ -58,18 +58,24 @@ def _init_trunk(gen: torch.Generator, cfg: GenConfig, noise_ch: int, out_dim: Op
     return params, state
 
 
-def _trunk_apply(params: Dict, state: Dict, noise: torch.Tensor,
-                 train: bool) -> Tuple[torch.Tensor, Dict]:
+def _block_apply(p: Dict, s: Dict, y: torch.Tensor, train: bool,
+                 mesh=None) -> Tuple[torch.Tensor, Dict]:
+    """One stage: [Linear + BN + LReLU] x 2."""
+    y, s1 = batchnorm(p["bn1"], s["bn1"], linear(p["w1"], y), train, mesh=mesh)
+    y = leaky_relu(y)
+    y, s2 = batchnorm(p["bn2"], s["bn2"], linear(p["w2"], y), train, mesh=mesh)
+    return leaky_relu(y), {"bn1": s1, "bn2": s2}
+
+
+def _trunk_apply(params: Dict, state: Dict, noise: torch.Tensor, train: bool,
+                 mesh=None) -> Tuple[torch.Tensor, Dict]:
     y = linear(params["w_in"], noise)
-    y, s_in = batchnorm(params["bn_in"], state["bn_in"], y, train)
+    y, s_in = batchnorm(params["bn_in"], state["bn_in"], y, train, mesh=mesh)
     y = leaky_relu(y)
     new_state = {"bn_in": s_in, "stages": []}
     for p, s in zip(params["stages"], state["stages"]):
-        y, s1 = batchnorm(p["bn1"], s["bn1"], linear(p["w1"], y), train)
-        y = leaky_relu(y)
-        y, s2 = batchnorm(p["bn2"], s["bn2"], linear(p["w2"], y), train)
-        y = leaky_relu(y)
-        new_state["stages"].append({"bn1": s1, "bn2": s2})
+        y, s_blk = _block_apply(p, s, y, train, mesh)
+        new_state["stages"].append(s_blk)
     if "w_out" in params:
         y = linear(params["w_out"], y)
     return y, new_state
@@ -102,12 +108,12 @@ def _normalized(v: torch.Tensor) -> torch.Tensor:
 def ba_generator_apply(
     params: Dict, state: Dict, gen: Optional[torch.Generator], batch: int,
     cfg: GenConfig = GenConfig(), train: bool = True,
-    noise: Optional[torch.Tensor] = None,
+    noise: Optional[torch.Tensor] = None, mesh=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """noise -> axis-angle bones (B, J, 3) (reference BAGenerator.forward)."""
     if noise is None:
         noise = torch.randn((batch, cfg.noise_ch), generator=gen, device=gen.device)
-    y, new_state = _trunk_apply(params, state, noise, train)
+    y, new_state = _trunk_apply(params, state, noise, train, mesh)
     y = y.reshape(batch, cfg.n_joints, 4)
     out = _normalized(y[..., :3]) * y[..., 3:4]
     # the reference scales the root theta by literally 3.14 * 2, not 2 pi
@@ -122,6 +128,7 @@ def rt_generator_apply(
     noise_r: Optional[torch.Tensor] = None,
     noise_t: Optional[torch.Tensor] = None,
     eps_axis: Optional[torch.Tensor] = None,
+    mesh=None,
 ):
     """noise -> (R (B, 3, 3), T (B, 3), transformed pose (B, J, 3)), new
     states (reference RTGenerator.forward, run_gan.py:944-980)."""
@@ -133,11 +140,11 @@ def rt_generator_apply(
     if noise_t is None:
         noise_t = torch.randn((B, cfg.rt_noise_ch), generator=gen, device=gen.device)
 
-    r_feat, ns_r = _trunk_apply(params_r, state_r, noise_r, train)
+    r_feat, ns_r = _trunk_apply(params_r, state_r, noise_r, train, mesh)
     r_mean, r_std, r_scale = r_feat[:, :3], r_feat[:, 3:6] ** 2, r_feat[:, 6:7]
     R = axisang_to_rot(_normalized(r_mean + r_std * eps_axis) * r_scale)
 
-    t_feat, ns_t = _trunk_apply(params_t, state_t, noise_t, train)
+    t_feat, ns_t = _trunk_apply(params_t, state_t, noise_t, train, mesh)
     T = torch.cat([t_feat[:, :2], t_feat[:, 2:3] ** 2], dim=-1)
 
     centered = kp3d - kp3d[:, :1]
@@ -150,17 +157,21 @@ def pose_generator_apply(
     params: Dict, state: Dict, gen: Optional[torch.Generator], kp3d: torch.Tensor,
     cfg: GenConfig = GenConfig(), train: bool = True,
     noises: Optional[Dict[str, torch.Tensor]] = None,
+    mesh=None,
 ) -> Tuple[Dict, Dict]:
     """The full generator (reference PoseGenerator.forward, run_gan.py:
     799-816). kp3d: (B, J, 3) real poses (the batch size and the RT
     branch's input). Returns ({'pose_ba', 'R', 'T', 'pose_rt'}, new_state).
-    noises: {'ba', 'r', 'eps', 't'}, each drawn from `gen` when absent."""
+    noises: {'ba', 'r', 'eps', 't'}, each drawn from `gen` when absent.
+    mesh: sync-BN over its ranks (`nn.layers.batchnorm`), each rank on its
+    rows of the batch."""
     noises = noises or {}
     pose_ba, ns_ba = ba_generator_apply(params["ba"], state["ba"], gen, kp3d.shape[0], cfg,
-                                        train, noise=noises.get("ba"))
+                                        train, noise=noises.get("ba"), mesh=mesh)
     R, T, pose_rt, ns_r, ns_t = rt_generator_apply(
         params["r"], params["t"], state["r"], state["t"], gen, kp3d, cfg, train,
-        noise_r=noises.get("r"), noise_t=noises.get("t"), eps_axis=noises.get("eps"))
+        noise_r=noises.get("r"), noise_t=noises.get("t"), eps_axis=noises.get("eps"),
+        mesh=mesh)
     return ({"pose_ba": pose_ba, "R": R, "T": T, "pose_rt": pose_rt},
             {"ba": ns_ba, "r": ns_r, "t": ns_t})
 

@@ -39,6 +39,7 @@ from posegen_tpu_torch.gen.generators import (
     GenConfig, draw_noises, init_pose_generator, pose_generator_apply,
 )
 from posegen_tpu_torch.gen.hmr import hmr_apply
+from posegen_tpu_torch.parallel.mesh import Mesh, auto_render_fn
 from posegen_tpu_torch.render.image import _upload, render_images_pipelined
 from posegen_tpu_torch.render.raycast import PoseCtx, RaycastConfig
 from posegen_tpu_torch.skeleton.cameras import nerf_extrinsic_to_c2w
@@ -100,8 +101,11 @@ def fk_joints(bones: torch.Tensor, scale: float = 0.4) -> torch.Tensor:
 class NeRFRenderer:
     """The feedback renderer: the NeRF's variables stay on their device, and
     every call renders all its frames through `render_images_pipelined`
-    (on one GPU, its own device-raygen render: the eval kernels), with
-    float16 readback."""
+    with float16 readback, on the render `parallel.mesh.auto_render_fn`
+    picks (JAX loop.py:98-107): on one rank its own device-raygen render
+    (the eval kernels), on a world of ranks the cam render over all of them
+    (each rank renders its share of every chunk; every rank gets the
+    frames)."""
 
     def __init__(self, cfg: RaycastConfig, params: Dict[str, Any], hw: int = 512,
                  focal: float = 1000.0, pose_scale: float = 0.4, chunk: int = 8192,
@@ -111,9 +115,9 @@ class NeRFRenderer:
         self.hw = hw
         self.focal = focal
         self.pose_scale = pose_scale
-        self.chunk = chunk
         self.white_bkgd = white_bkgd  # reference run_gan --white_bkgd
         self.device = param_leaves(params)[0].device
+        self._render_fn, self.chunk = auto_render_fn(cfg, chunk, half_readback=True)
 
     def render_poses(self, bones, c2ws: np.ndarray, window=None) -> np.ndarray:
         """One image per pose -> (K, H, W, 3) float32 in [0, 1] on the host
@@ -131,7 +135,8 @@ class NeRFRenderer:
                         cyls=cyls_dev[k:k + 1]) for k in range(bones.shape[0])]
         return render_images_pipelined(
             self.cfg, self.params, self.hw, self.hw, self.focal, c2ws, ctxs, cyls,
-            chunk=self.chunk, white_bkgd=self.white_bkgd, half_readback=True, window=window)
+            chunk=self.chunk, white_bkgd=self.white_bkgd, render_fn=self._render_fn,
+            half_readback=True, window=window)
 
 
 def prepare_spin_input(imgs: np.ndarray, crop: Tuple[int, int] = (100, 412),
@@ -198,7 +203,16 @@ class GanTrainer:
     seeded `seed` (the discriminator's `seed + 1`), so a seed gives the same
     weights on every device; the noises from `self.generator` on the
     device; the render selection and the fake pool from numpy, as in the
-    JAX package."""
+    JAX package.
+
+    mesh: a `parallel.mesh.Mesh` of more than one rank runs the G and D
+    steps data-parallel over it (parallel/gan.py: sync-BN, summed
+    gradients; JAX loop.py:210-228), on the mesh's device. Every rank runs
+    this same loop on the same global pose batches: the noises, the render
+    selection, the fake pool and SPIN on the rendered frames are the same
+    on every rank, each rank trains on its rows of the batch, and only rank
+    0 writes the dataset sink. The pose batches must divide over the
+    ranks."""
 
     def __init__(
         self,
@@ -212,11 +226,11 @@ class GanTrainer:
         mesh=None,
         device="cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "GanTrainer(mesh=...): the data-parallel GAN steps (posegen_tpu/parallel/"
-                "gan.py) are not ported yet; ROADMAP.md Queue 1 item 10")
-        self.device = resolve_device(device)
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"GanTrainer(mesh=...): a parallel.mesh.Mesh, not "
+                            f"{type(mesh).__name__}")
+        self.device = resolve_device(device if mesh is None else mesh.device)
+        self.rank = 0 if mesh is None else mesh.rank
         self.cfg = loop_cfg
         self.gen_cfg = gen_cfg
         self.renderer = renderer
@@ -230,11 +244,20 @@ class GanTrainer:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
 
         fk = lambda b: fk_joints(b, loop_cfg.pose_scale)  # noqa: E731
-        self.g_opt, self.g_step = make_generator_step(
-            fk, gen_cfg, lr=loop_cfg.lr_g, n_epochs=loop_cfg.n_epochs,
-            steps_per_epoch=steps_per_epoch, spin_coef=loop_cfg.spin_coef)
-        self.d_opt, self.d_step = make_discriminator_step(
-            lr=loop_cfg.lr_d, n_epochs=loop_cfg.n_epochs, steps_per_epoch=steps_per_epoch)
+        g_kw = dict(lr=loop_cfg.lr_g, n_epochs=loop_cfg.n_epochs,
+                    steps_per_epoch=steps_per_epoch, spin_coef=loop_cfg.spin_coef)
+        d_kw = dict(lr=loop_cfg.lr_d, n_epochs=loop_cfg.n_epochs,
+                    steps_per_epoch=steps_per_epoch)
+        if mesh is not None and mesh.size > 1:
+            from posegen_tpu_torch.parallel.gan import (
+                make_parallel_discriminator_step, make_parallel_generator_step,
+            )
+
+            self.g_opt, self.g_step = make_parallel_generator_step(mesh, fk, gen_cfg, **g_kw)
+            self.d_opt, self.d_step = make_parallel_discriminator_step(mesh, **d_kw)
+        else:
+            self.g_opt, self.g_step = make_generator_step(fk, gen_cfg, **g_kw)
+            self.d_opt, self.d_step = make_discriminator_step(**d_kw)
         self.g_opt_state = self.g_opt.init(self.g_params)
         self.d_opt_state = self.d_opt.init(self.d_params)
         self.fake_pool = FakePool(seed=seed)
@@ -265,7 +288,11 @@ class GanTrainer:
         """(image, pose) dataset export (reference run_gan.py:2049-2059,
         2333-2337: render_output/{run}/image/%05d.png + poses npys), written
         by the port's own PNG codec (utils/png.py). The PNG encodes run on a
-        small writer pool (zlib releases the GIL); flush_sink joins it."""
+        small writer pool (zlib releases the GIL); flush_sink joins it. Under
+        a mesh only rank 0 writes; every rank counts the renders."""
+        if self.rank != 0:
+            self._render_count += len(imgs)
+            return
         img_dir = os.path.join(self.cfg.output_dir, "image")
         os.makedirs(img_dir, exist_ok=True)
         if self._png_pool is None:

@@ -46,11 +46,15 @@ def train_spin(
     seed: int = 0,
     mesh=None,
 ):
-    """Fine-tune SPIN; returns (params, opt metrics history)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "train_spin(mesh=...): the data-parallel fine-tune step (posegen_tpu/parallel/"
-            "gan.py) is not ported yet; ROADMAP.md Queue 1 item 10")
+    """Fine-tune SPIN; returns (params, opt metrics history).
+
+    mesh: data-parallel fine-tuning over a `parallel.mesh.Mesh`
+    (parallel/gan.make_parallel_spin_finetune_step): every rank reads the
+    same global batches and trains on its rows with dropout masks drawn per
+    rank; only rank 0 writes the checkpoints. batch_size must divide over
+    the ranks; both datasets yield whole batches only, so JAX's trim of
+    each batch to a multiple of the ranks (posegen_tpu/gen/spin_driver.py:
+    69-71) has nothing to cut."""
     nerf_ds = RenderedPoseDataset(render_dir, crop=crop, res=res, pose_scale=pose_scale)
     if len(nerf_ds) == 0:
         raise FileNotFoundError(f"no rendered (image, pose) pairs under {render_dir}")
@@ -59,8 +63,20 @@ def train_spin(
         if mpii_annot and mpii_img_dir
         else None
     )
-    opt_h, step_hinge = make_spin_finetune_step(lr=lr, pose_scale=pose_scale, hinge=hinge)
-    _, step_plain = make_spin_finetune_step(lr=lr, pose_scale=pose_scale, hinge=None)
+    parallel = mesh is not None and mesh.size > 1
+    if parallel:
+        from posegen_tpu_torch.parallel.gan import make_parallel_spin_finetune_step
+
+        if batch_size % mesh.size != 0:
+            raise ValueError(f"batch_size ({batch_size}) must divide over the "
+                             f"{mesh.size}-device mesh")
+        opt_h, step_hinge = make_parallel_spin_finetune_step(
+            mesh, lr=lr, pose_scale=pose_scale, hinge=hinge)
+        _, step_plain = make_parallel_spin_finetune_step(
+            mesh, lr=lr, pose_scale=pose_scale, hinge=None)
+    else:
+        opt_h, step_hinge = make_spin_finetune_step(lr=lr, pose_scale=pose_scale, hinge=hinge)
+        _, step_plain = make_spin_finetune_step(lr=lr, pose_scale=pose_scale, hinge=None)
     spin_params = trainable(spin_params)
     opt_state = opt_h.init(spin_params)
     dev = spin_params["conv1"]["w"].device
@@ -70,8 +86,8 @@ def train_spin(
         nonlocal opt_state
         images = torch.as_tensor(b["image"]).to(dev).permute(0, 3, 1, 2)
         gt = torch.as_tensor(b["pose"]).to(dev)
-        _, opt_state, stats = fn(spin_params, spin_state, opt_state, images, gt,
-                                 dropout_masks(gen, images.shape[0]))
+        key = gen if parallel else dropout_masks(gen, images.shape[0])
+        _, opt_state, stats = fn(spin_params, spin_state, opt_state, images, gt, key)
         return float(stats["spin_loss"])
 
     history = []
@@ -92,7 +108,7 @@ def train_spin(
         history.append(entry)
         print(f"spin epoch {epoch}: {entry}")
 
-        if ckpt_dir:  # per-epoch checkpoints (reference :1946-1951)
+        if ckpt_dir and (mesh is None or mesh.rank == 0):  # per epoch (reference :1946-1951)
             os.makedirs(ckpt_dir, exist_ok=True)
             # the JAX package's file: its keys, its (HWIO) conv layout
             p_np, s_np = hmr_to_numpy(spin_params, spin_state)

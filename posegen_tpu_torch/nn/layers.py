@@ -59,6 +59,7 @@ def batchnorm(
     train: bool,
     momentum: float = 0.1,
     eps: float = 1e-5,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict]:
     """Normalise over every axis but the channel axis (axis 1: (B, C) or
     NCHW). Returns (y, new_state).
@@ -68,16 +69,45 @@ def batchnorm(
     unbiased (the JAX package's and PyTorch's rule, F.batch_norm's own);
     train=False normalises with the stored stats and returns the state
     unchanged (SPIN's BN-frozen fine-tuning, reference run_gan.py:1860-1869).
+
+    mesh: sync-BN over the ranks of a `parallel.mesh.Mesh` (the JAX
+    package's axis_name, posegen_tpu/nn/layers.py:53-80): the mean and the
+    mean of squares are averaged over the ranks (one differentiable
+    all-reduce), var = msq - mean^2, and the unbiased correction counts n x
+    size rows; with equal shards every rank normalises with the global
+    batch's moments and returns the same state.
     """
     if not train:
         y = F.batch_norm(x, state["mean"], state["var"], params["scale"], params["bias"],
                          training=False, eps=eps)
         return y, state
+    if mesh is not None:
+        return _synced_batchnorm(params, state, x, momentum, eps, mesh)
     mean, var = state["mean"].clone(), state["var"].clone()
     # F.batch_norm updates the running buffers it is given in place
     y = F.batch_norm(x, mean, var, params["scale"], params["bias"], training=True,
                      momentum=momentum, eps=eps)
     return y, {"mean": mean, "var": var}
+
+
+def _synced_batchnorm(params: Dict, state: Dict, x: torch.Tensor, momentum: float, eps: float,
+                      mesh) -> Tuple[torch.Tensor, Dict]:
+    from posegen_tpu_torch.parallel.mesh import sync_sum
+
+    axes = [0] + list(range(2, x.dim()))
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    moments = sync_sum(mesh, torch.stack([x.mean(axes), (x * x).mean(axes)])) / mesh.size
+    mean, msq = moments[0], moments[1]
+    var = msq - mean * mean
+    n = x.numel() // x.shape[1] * mesh.size
+    y = ((x - mean.view(shape)) * torch.rsqrt(var + eps).view(shape) * params["scale"].view(shape)
+         + params["bias"].view(shape))
+    with torch.no_grad():
+        new_state = {
+            "mean": (1 - momentum) * state["mean"] + momentum * mean,
+            "var": (1 - momentum) * state["var"] + momentum * (var * n / max(n - 1, 1)),
+        }
+    return y, new_state
 
 
 # ---------------------------------------------------------------------------

@@ -301,7 +301,7 @@ def _fix_layer(tcfg: TrainConfig, params: Dict) -> None:
 def make_train_step(cfg: RaycastConfig, tcfg: TrainConfig,
                     pcfg: Optional[PoseOptConfig] = None, skel: Skeleton = SMPL_SKELETON,
                     rest_pose: Optional[torch.Tensor] = None,
-                    kp_map: Optional[torch.Tensor] = None, n_frames: int = 0):
+                    kp_map: Optional[torch.Tensor] = None, n_frames: int = 0, mesh=None):
     """-> train_step(state, batch, generator=None) -> (state, stats).
 
     batch: rays_o, rays_d, target_s (N, 3); cyls (1, G or N, 5); optional
@@ -312,7 +312,15 @@ def make_train_step(cfg: RaycastConfig, tcfg: TrainConfig,
     24, 3), the dataset's joints, for the mpjpc stat; temp_val (G,) for the
     temporal loss), with rest_pose (24, 3), kp_map for multiview params and
     n_frames > 1 to turn the temporal loss on. generator draws the
-    stratified and density noise when the config perturbs."""
+    stratified and density noise when the config perturbs.
+
+    mesh: the step of one rank of a `parallel.mesh.Mesh` on its shard of the
+    batch (`parallel.mesh.make_shardmap_train_step`): the NeRF and pose
+    gradients and the stats are averaged over the ranks (one collective)
+    before fix_layer, the norms and both Adam updates (JAX's pmean,
+    posegen_tpu/train/trainer.py:350), so the replicated state stays equal
+    on every rank. The kernels' route stays per rank: each rank's stash
+    and backward kernels run on its own shard."""
     pcfg = pcfg or PoseOptConfig()
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -367,6 +375,16 @@ def make_train_step(cfg: RaycastConfig, tcfg: TrainConfig,
         for p in leaves + list(pose_leaves.values()):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if mesh is not None:
+            from posegen_tpu_torch.parallel.mesh import all_reduce_mean
+
+            synced = leaves + list(pose_leaves.values())
+            red = all_reduce_mean(mesh, [p.grad for p in synced] + list(stats.values())
+                                  + [total])
+            for p, g in zip(synced, red):
+                p.grad = g
+            stats = dict(zip(stats, red[len(synced):]))
+            total = red[-1]
         _fix_layer(tcfg, state.params)
         with torch.no_grad():
             stats["total_loss"] = total

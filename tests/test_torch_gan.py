@@ -693,14 +693,23 @@ def test_probe_hardness_matches_jax():
 
 def test_trainer_without_feedback_and_mesh_refusal(monkeypatch):
     """No renderer: no feedback, spin_loss a structural 0, the noises from
-    the trainer's own generator; a mesh is refused with the roadmap item;
-    the trainer and prepare_spin_input default to the card."""
+    the trainer's own generator; a parallel.mesh.Mesh is accepted (one rank:
+    the single-device steps, on the mesh's device) and any other mesh object
+    is refused by type; the trainer and prepare_spin_input default to the
+    card."""
+    from posegen_tpu_torch.parallel.mesh import Mesh
+
     trainer = tloop.GanTrainer(tloop.GanLoopConfig(rpi=2, df=1), None, gen_cfg=TINY_GEN,
                                steps_per_epoch=4, device="cpu")
     stats = trainer.train_epoch(_epoch_poses()[:2])
     assert stats["n_feedback_iters"] == 0.0 and "dis_loss" in stats
     assert np.isfinite(stats["gen_loss"]) and trainer.epoch == 1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+    one_rank = Mesh(None, 0, 1, torch.device("cpu"), "gloo")
+    meshed = tloop.GanTrainer(tloop.GanLoopConfig(rpi=2, df=1), None, gen_cfg=TINY_GEN,
+                              steps_per_epoch=4, mesh=one_rank)
+    assert meshed.device == torch.device("cpu") and meshed.rank == 0
+    assert meshed.train_epoch(_epoch_poses()[:2]) == stats
+    with pytest.raises(TypeError, match="a parallel.mesh.Mesh, not object"):
         tloop.GanTrainer(tloop.GanLoopConfig(), None, mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

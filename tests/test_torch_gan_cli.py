@@ -378,8 +378,8 @@ def _gan_runs(tmp: str, demo: str):
         # the same trees from the port's inits (tests/test_torch_gen.py holds
         # their layouts); its SPIN step -> a recorder (train_spin takes none
         # of its 32 on the 4 sink rows); one device: the tests' 8 virtual
-        # devices would take run_gan's data-parallel branch (not ported)
-        # and shard the render
+        # devices would take JAX's run_gan data-parallel branch and shard
+        # the render
         jloop.init_pose_generator = lambda key, cfg: t2n(
             pgen.init_pose_generator(torch.Generator().manual_seed(0), cfg, device="cpu"))
         jloop.init_pos3d_discriminator = lambda key: t2n(
