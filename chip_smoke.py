@@ -13,9 +13,11 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               the stash, grouped full and density-only, and the ray
               ladder) and of kernel 4's passes (a), (b) and (c)'s
               products holds wgmma (HGMMA) and TMA (UTMALDG; UTMASTG in pass
-              (a) and pass (c)'s products) by cuobjdump, and the library's plans equal their Python
-              mirrors: the shared memory of the eval kernels, the stash
-              kernel, passes (a) and (c) and the variant kernel, the eval
+              (a) and pass (c)'s products) by cuobjdump, as do the A/B
+              harness's variants of the eval kernel but its probes, and no
+              WMMA variant kernel is left; the library's plans equal their
+              Python mirrors: the shared memory of the eval kernels, the
+              stash kernel, passes (a) and (c), the eval
               kernels' scratch slot and persistent grid, pass (b)'s split,
               the backward's workspace (its bytes and every region's
               offset, with input gradients and without);
@@ -103,15 +105,20 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
   9. variants the field kernel's A/B harness (posegen_tpu_torch/tools/
               exp_kernel_variants.py, the port of tools/exp_kernel_variants.py)
               on its problem (8192 rays x 80 samples = 655,360 points, one
-              pose): every case and probe of variant_field at tile 64, and
-              at each tile on a ragged grouped problem (3 groups x 7 rays x
-              80 samples; a tile may straddle groups), against variant_plain
-              with bf16 operands to the elementwise rule of phase 2 (the
-              encode probe also to relative L2 <= ENC_SUM_TOL), and base at
-              tile 64 against fused_field by the same rule; then the
-              harness's sweep over tiles 32, 64 and 128 from launch counts
-              of 0: every (case, tile) that fits launched chain + 3 times,
-              with its time beside its bound; and the plain version's time;
+              pose) and on a ragged grouped problem (3 groups x 7 rays x 80
+              samples; a tile may straddle groups): every case and probe of
+              variant_field that the kernel takes, at its 128-point tile,
+              against variant_plain with bf16 operands to the elementwise
+              rule of phase 2 (the encode probe also to relative L2 <=
+              ENC_SUM_TOL); base bit-equal to fused_field and dens_base to
+              its density_only call on the harness's problem, both to
+              fused_field on the ragged problem's pose table
+              (posegen_field_grouped), pipe2 to bf16enc; base and fused_field,
+              dens_base and density-only fused_field timed in turns; then
+              the harness's sweep from launch counts of 0: every case the
+              kernel takes launched chain + 3 times, with its time beside its
+              bound, and the probes' share of base's time; and the plain
+              version's time;
  10. whole images  the feedback renderer's path on RaycastConfig() with the
               seed-1 weights: a train state through save_checkpoint /
               load_checkpoint and its render variables through
@@ -372,7 +379,7 @@ GRAD_TOL = 1e-2  # training kernel vs plain: relative L2 per gradient tensor
 STEP_GRAD_TOL = 5e-2  # train step, kernels vs plain f32 pipeline: relative L2, all gradients
 TRAIN_ITERS = 20
 VARIANT_CHAIN = 10  # launches per timed chain of the harness's sweep (phase 9)
-VARIANT_TILE = 64  # kernel 2's tile: the harness's cases are held at it
+VARIANT_TILE = 128  # the eval kernel's tile, the variants' only one
 # the encode probe, kernel vs plain, relative L2 over all points (not the
 # elementwise rule: a point's sum of ~1,080 channels may cancel to near 0):
 # an ulp between the card's and PyTorch's f32 sin / cos, or the FMA
@@ -386,13 +393,18 @@ TRAIN_STEPS = 5
 # the Hopper kernels (by a part of their mangled names: the eval kernel's
 # seven modes, kernel 4's passes (a) and (b) and pass (c)'s products) and the
 # instructions their SASS must hold
-SM90_KERNELS = {"eval_sm90_kernelILi0E": ("HGMMA", "UTMALDG"),
-                "eval_sm90_kernelILi1E": ("HGMMA", "UTMALDG"),
-                "eval_sm90_kernelILi2E": ("HGMMA", "UTMALDG"),
-                "eval_sm90_kernelILi3E": ("HGMMA", "UTMALDG"),
-                "eval_sm90_kernelILi4E": ("HGMMA", "UTMALDG"),
-                "eval_sm90_kernelILi5E": ("HGMMA", "UTMALDG"),
-                "eval_sm90_kernelILi6E": ("HGMMA", "UTMALDG"),
+SM90_KERNELS = {"eval_sm90_kernelILi0ELi0EE": ("HGMMA", "UTMALDG"),
+                "eval_sm90_kernelILi1ELi0EE": ("HGMMA", "UTMALDG"),
+                "eval_sm90_kernelILi2ELi0EE": ("HGMMA", "UTMALDG"),
+                "eval_sm90_kernelILi3ELi0EE": ("HGMMA", "UTMALDG"),
+                "eval_sm90_kernelILi4ELi0EE": ("HGMMA", "UTMALDG"),
+                "eval_sm90_kernelILi5ELi0EE": ("HGMMA", "UTMALDG"),
+                "eval_sm90_kernelILi6ELi0EE": ("HGMMA", "UTMALDG"),
+                # the A/B harness's variants (VAR: bf16enc 1, pipe2 17, mxenc 2)
+                "eval_sm90_kernelILi4ELi1EE": ("HGMMA", "UTMALDG"),
+                "eval_sm90_kernelILi4ELi17EE": ("HGMMA", "UTMALDG"),
+                "eval_sm90_kernelILi4ELi2EE": ("HGMMA", "UTMALDG", "HMMA"),
+                "eval_sm90_kernelILi5ELi2EE": ("HGMMA", "UTMALDG", "HMMA"),
                 "field_bwd_sm90_kernel": ("HGMMA", "UTMALDG", "UTMASTG"),
                 "wgrad_sm90_kernel": ("HGMMA", "UTMALDG"),
                 "input_sm90_kernel": ("HGMMA", "UTMALDG", "UTMASTG")}
@@ -710,6 +722,8 @@ def check_build(build) -> None:
         print(f"  ptxas: {regs} registers, spills {st} / {ld} bytes: {name}")
     spill = [name for name, (_, st, ld) in got.items() if st or ld]
     check(not spill, f"ptxas: {spill} spill registers")
+    wmma = [name for name in got if "field_variant_kernel" in name]
+    check(not wmma, f"build: the WMMA variant kernel is still built ({wmma})")
     cob = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
     out = subprocess.run([cob, "-sass", str(build.library_path())], capture_output=True,
@@ -730,12 +744,10 @@ def check_build(build) -> None:
 
 def check_plans(lib, F, FG) -> None:
     """The library's plans against their Python mirrors: the shared memory
-    of the eval kernels (the same at every layout), the stash kernel,
-    passes (a) and (c) and the variant kernel at each tile, the eval
-    kernels' scratch slot, at several depths and multires; the eval
-    kernels' persistent grid; the backward's workspace (WS_PLANS)."""
-    from posegen_tpu_torch.kernels import variants as V
-
+    of the eval kernels (the same at every layout), the stash kernel and
+    passes (a) and (c), the eval kernels' scratch slot, at several depths
+    and multires; the eval kernels' persistent grid; the backward's
+    workspace (WS_PLANS)."""
     for depth, mr, mv in ((8, 7, 4), (9, 7, 4), (16, 7, 4), (1, 7, 0), (8, 4, 2), (8, 7, 7),
                           (8, 15, 4)):
         L0 = F.net_layout(depth, mr, mv)
@@ -747,9 +759,7 @@ def check_plans(lib, F, FG) -> None:
             ("pass (a) shared memory", lib.posegen_field_bwd_smem(*args), FG.bwd_smem_bytes(L0)),
             ("pass (c) shared memory", lib.posegen_field_bwd_input_smem(*args),
              FG.input_smem_bytes()),
-        ) + tuple((f"variant shared memory at tile {t}{' density_only' if d else ''}",
-                   lib.posegen_field_variant_smem(t, int(d), *args),
-                   V.variant_smem_bytes(L0, t, d)) for t in V.TILES for d in (False, True)):
+        ):
             check(got == want, f"{name} at depth {depth}, multires {mr} / {mv}: library {got}, "
                                f"Python {want}")
     for n_pts, n_slots in EVAL_WALKS:
@@ -831,7 +841,7 @@ def run(torch) -> int:
         check((splits, chunk.value) == FG.wgrad_split_plan(n_pts),
               f"pass (b)'s split of {n_pts} points: library {(splits, chunk.value)}, "
               f"field_grad.py {FG.wgrad_split_plan(n_pts)}")
-    print("  the plans: shared memory of the eval, stash, pass (a), pass (c) and variant kernels, "
+    print("  the plans: shared memory of the eval, stash, pass (a) and pass (c) kernels, "
           "the eval kernels' slot and grid, pass (b)'s split, the backward's workspace: "
           "library == Python")
 
@@ -1077,13 +1087,14 @@ def run(torch) -> int:
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None, "design_floor_ms": floor_ms,
         "input_sm90_ms": each["input_sm90_kernel"], "input_chain_ms": each["input_chain_kernel"],
     })
-    k_ms, p_ms, b_ms, b_by = variant_row
+    k_ms, p_ms, b_ms, b_by, enc_ms, gates_ms = variant_row
     kernels.append({
         "name": "variant_field", "route": "cuda",
         "source": "posegen_tpu_torch/kernels/csrc/field_variants.cu",
         "replaces": "tools/exp_kernel_variants.py:269",
         "launches": variant_launches, "max_abs_err": variant_err, "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "enc_probe_ms": enc_ms, "gates_probe_ms": gates_ms,
     })
     kernels += grouped_rows
     print("timing phases (host clock, s): " + ", ".join(
@@ -1773,10 +1784,11 @@ def pose_phases(torch, card: str):
 
 
 def variant_phases(torch, card: str):
-    """Phase 9 (the field kernel's variants vs plain, then the A/B harness's
-    sweep) -> ((ms, plain ms, bound ms, bound by) of base at VARIANT_TILE on
-    the harness's problem, max|diff| against plain over every case, the
-    sweep's launches)."""
+    """Phase 9 (the field kernel's variants vs plain and vs the main path's
+    kernel, then the A/B harness's sweep) -> ((ms, plain ms, bound ms, bound
+    by, the enc and gates probes' ms) of base at VARIANT_TILE on the
+    harness's problem, max|diff| against plain over every case, the sweep's
+    launches)."""
     from posegen_tpu_torch.kernels import field as F
     from posegen_tpu_torch.kernels import variants as V
     from posegen_tpu_torch.tools import exp_kernel_variants as H
@@ -1786,51 +1798,73 @@ def variant_phases(torch, card: str):
     ragged = H.make_inputs(RAGGED_GROUPS * RAGGED_RPG, DEVICE, n_groups=RAGGED_GROUPS)
     L = prob.net.layout
     cases = H.CASES + H.PROBES
+    refused = {name: V.variant_refusal(L, VARIANT_TILE, encode_only=kw.get("encode_only", False),
+                                       bf16enc=kw.get("bf16enc", False),
+                                       halves=kw.get("halves", 1), mxenc=kw.get("mxenc", False),
+                                       density_only=kw.get("density_only", False))
+               for name, kw in cases}
     err = 0.0
+    outs = {}
     with torch.no_grad():
         for name, kw in cases:
-            dens = kw.get("density_only", False)
-            fits = [t for t in V.TILES
-                    if V.variant_refusal(L, t, bf16enc=kw.get("bf16enc", False),
-                                         halves=kw.get("halves", 1),
-                                         mxenc=kw.get("mxenc", False)) is None
-                    and V.variant_blocks_per_sm(L, t, dens) > 0]
+            if refused[name] is not None:
+                print(f"kernel variant_field {name}: refused ({refused[name]})")
+                continue
             msg = []
-            for tag, pr, tiles in (("flagship", prob, [VARIANT_TILE]), ("ragged", ragged, fits)):
+            for tag, pr in (("flagship", prob), ("ragged", ragged)):
                 p = V.variant_plain(*pr, mm_dtype=bf16, **kw)
-                for tile in tiles:
-                    k = V.variant_field(*pr, tile=tile, **kw)
-                    torch.cuda.synchronize()
-                    what = f"variant {name} {tag} tile {tile}"
-                    if kw.get("encode_only") is True:  # sums that may cancel: relative L2
-                        check(bool(torch.isfinite(k).all()), f"{what}: kernel output not finite")
-                        e_l2 = rel_l2(k, p)
-                        check(e_l2 <= ENC_SUM_TOL, f"{what}: relative L2 {e_l2:.3e} > {ENC_SUM_TOL}")
-                        e = float((k - p).abs().max())
-                        msg.append(f"{tag}@{tile} {e:.3e} (relative L2 {e_l2:.3e})")
-                    else:
-                        e = compare(what, k, p)
-                        msg.append(f"{tag}@{tile} {e:.3e}")
-                    if dens and not kw.get("encode_only"):
-                        check(float(k[:, :3].abs().max()) == 0.0, f"{what}: rgb rows not zero")
-                    err = max(err, e)
+                k = outs[(name, tag)] = V.variant_field(*pr, tile=VARIANT_TILE, **kw)
+                torch.cuda.synchronize()
+                what = f"variant {name} {tag} tile {VARIANT_TILE}"
+                if kw.get("encode_only") is True:  # sums that may cancel: relative L2
+                    check(bool(torch.isfinite(k).all()), f"{what}: kernel output not finite")
+                    e_l2 = rel_l2(k, p)
+                    check(e_l2 <= ENC_SUM_TOL, f"{what}: relative L2 {e_l2:.3e} > {ENC_SUM_TOL}")
+                    e = float((k - p).abs().max())
+                    msg.append(f"{tag} {e:.3e} (relative L2 {e_l2:.3e})")
+                else:
+                    e = compare(what, k, p)
+                    msg.append(f"{tag} {e:.3e}")
+                if kw.get("density_only") and not kw.get("encode_only"):
+                    check(float(k[:, :3].abs().max()) == 0.0, f"{what}: rgb rows not zero")
+                err = max(err, e)
             print(f"kernel variant_field {name} vs variant_plain ({prob.pts.shape[0]} / "
                   f"{ragged.pts.shape[0]} points, {ragged.poses.shape[0]} groups): max|diff| "
                   + ", ".join(msg))
 
-        # base at kernel 2's tile is kernel 2's function on the WMMA body:
-        # on the harness's problem, given one direction per ray of S points,
-        # fused_field (the wgmma body) computes it in another summation
-        # order; their times, taken in turns
+        # base and dens_base are the main path's kernel: on the harness's
+        # problem (one direction per ray of S points) fused_field on the one
+        # pose, on the ragged problem fused_field on its pose table
+        # (posegen_field_grouped), bit for bit; pipe2 is bf16enc's function
         S = prob.pts.shape[0] // N_RAYS
         ray_dirs = prob.dirs[::S].contiguous()
-        field2 = lambda: F.fused_field(prob.pts, ray_dirs, S, prob.poses[0], prob.net)
-        base64 = lambda: V.variant_field(*prob, tile=VARIANT_TILE)
-        e_base = compare(f"variant base at tile {VARIANT_TILE} vs fused_field", base64(), field2())
-        turns = [cuda_ms(f, VARIANT_CHAIN) for f in (field2, base64, base64, field2)]
-        print(f"variant base at tile {VARIANT_TILE} vs fused_field on the harness's problem: "
-              f"max|diff| {e_base:.3e}; ms in turns (field, variant, variant, field): "
-              f"{', '.join(f'{t:.3f}' for t in turns)} [{card}]")
+        bview = ragged.net.b[L.b_view:L.b_view + F.VIEW_WIDTH].reshape(1, -1).contiguous()
+        field = {dens: (lambda dens=dens: F.fused_field(prob.pts, ray_dirs, S, prob.poses[0],
+                                                        prob.net, density_only=dens))
+                 for dens in (False, True)}
+        for what, got, want in (
+            ("base vs fused_field", outs[("base", "flagship")], field[False]()),
+            ("dens_base vs fused_field(density_only=True)", outs[("dens_base", "flagship")],
+             field[True]()),
+            (f"base vs posegen_field_grouped ({RAGGED_GROUPS} groups)", outs[("base", "ragged")],
+             F.fused_field(ragged.pts, ragged.dirs, 1, ragged.poses, ragged.net, bview=bview)),
+            (f"dens_base vs posegen_field_grouped ({RAGGED_GROUPS} groups)",
+             outs[("dens_base", "ragged")],
+             F.fused_field(ragged.pts, ragged.dirs, 1, ragged.poses, ragged.net,
+                           density_only=True, bview=bview)),
+            ("pipe2 vs bf16enc", outs[("pipe2", "flagship")], outs[("bf16enc", "flagship")]),
+            (f"pipe2 vs bf16enc ({RAGGED_GROUPS} groups)", outs[("pipe2", "ragged")],
+             outs[("bf16enc", "ragged")]),
+        ):
+            d = float((got - want).abs().max())
+            check(torch.equal(got, want), f"variant {what}: not bit-equal (max|diff| {d:.3e})")
+            print(f"variant {what}: bit-equal")
+        for name, dens in (("base", False), ("dens_base", True)):
+            var = lambda dens=dens: V.variant_field(*prob, tile=VARIANT_TILE, density_only=dens)
+            turns = [cuda_ms(f, VARIANT_CHAIN) for f in (field[dens], var, var, field[dens])]
+            print(f"variant {name} vs fused_field{'(density_only=True)' if dens else ''} on the "
+                  f"harness's problem, ms in turns (field, variant, variant, field): "
+                  f"{', '.join(f'{t:.3f}' for t in turns)} [{card}]")
 
         # the harness's sweep: the main path of this phase
         print(f"harness sweep (posegen_tpu_torch.tools.exp_kernel_variants, {N_RAYS} rays x "
@@ -1843,20 +1877,22 @@ def variant_phases(torch, card: str):
         want["variant"] = len(rows) * (VARIANT_CHAIN + 3)
         check(launches == want, f"harness sweep: launches {launches} != {want}")
         ran = {(r["name"], r["tile"]) for r in rows}
-        check({(n, VARIANT_TILE) for n, _ in cases} <= ran,
-              f"harness sweep: cases missing at tile {VARIANT_TILE}")
-        check({("base", 32), ("dens_base", 32), ("dens_base", 128)} <= ran,
-              "harness sweep: base / dens_base missing at tiles 32 / 128")
+        check(ran == {(n, VARIANT_TILE) for n, _ in cases if refused[n] is None},
+              f"harness sweep: ran {sorted(ran)}, not every case the kernel takes")
         print(f"harness sweep: {len(rows)} (case, tile) pairs ran, launches {launches}")
 
-        base = next(r for r in rows if (r["name"], r["tile"]) == ("base", VARIANT_TILE))
+        ms = {r["name"]: r["ms"] for r in rows}
+        base = next(r for r in rows if r["name"] == "base")
+        print(f"probes' share of base at tile {VARIANT_TILE}: enc {ms['enc']:.3f} ms "
+              f"({ms['enc'] / ms['base']:.1%}), gates {ms['gates']:.3f} ms "
+              f"({ms['gates'] / ms['base']:.1%}) of base's {ms['base']:.3f} ms [{card}]")
         p_ms = cuda_ms(lambda: V.variant_plain(*prob, mm_dtype=bf16), 3, warmup=1)
         P = prob.pts.shape[0]
         b_ms, b_by = base["bound"]
         print(f"timing kernel variant_field base tile {VARIANT_TILE} ({P} points): "
               f"{base['ms']:.3f} ms, bound {b_ms:.3f} ms ({b_by}, {b_ms / base['ms']:.1%} of it), "
               f"plain {p_ms:.3f} ms [{card}]")
-    return (base["ms"], p_ms, b_ms, b_by), err, launches["variant"]
+    return (base["ms"], p_ms, b_ms, b_by, ms["enc"], ms["gates"]), err, launches["variant"]
 
 
 def check_pipelined_frames(torch, F, IMG, cfg, variables, frames, plain, focal, c2ws, ctxs,
@@ -2448,7 +2484,7 @@ def gan_phases(torch, card: str, variables):
               f"{GAN_RPI / statistics.median(render_s):.3f} frames/s [{card}]")
         wall, dev_ms, kern = profile_calls(torch, lambda: trainer.train_step(real), 1)
         # the eval kernel's modes by the profiler's (demangled) name:
-        # eval_sm90_kernel<2> the dual, <0> the full field
+        # eval_sm90_kernel<2, 0> the dual, <0, 0> the full field
         mode_ms = lambda m: sum(k[1] for k in kern if re.search(  # noqa: E731
             rf"eval_sm90_kernel(<|ILi){m}(?![0-9])", k[0]))
         dual_ms, field_ms = mode_ms(2), mode_ms(0)
@@ -4335,7 +4371,7 @@ def tooling_phases(torch, card: str, runs):
             launches[k] += got[k]
         with open(tr.path) as f:
             names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
-        kern = {k: sorted(x for x in names if f"eval_sm90_kernel<{i}>" in x)
+        kern = {k: sorted(x for x in names if f"eval_sm90_kernel<{i}, 0>" in x)
                 for k, i in (("dual", 2), ("field", 0))}
         check(all(kern.values()) and "render" in names,
               f"trace {tr.path}: eval kernels {kern}, 'render' {'render' in names}")

@@ -24,7 +24,7 @@ from typing import Dict, Optional, Tuple
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "posegen_tpu_torch"
 SOURCES = ("field.cu", "field_grad.cu", "field_variants.cu")
-HEADERS = ("field.cuh", "sm90.cuh", "sm90_tile.cuh")
+HEADERS = ("field.cuh", "field_eval.cuh", "sm90.cuh", "sm90_tile.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -117,8 +117,6 @@ def load() -> ctypes.CDLL:
         getattr(lib, name).restype = LL
     lib.posegen_field_eval_grid.argtypes = [I, I]
     lib.posegen_field_eval_grid.restype = I
-    lib.posegen_field_variant_smem.argtypes = [I, I, IA, I]
-    lib.posegen_field_variant_smem.restype = LL
     lib.posegen_field_stash.argtypes = [P, P, I, I, P, I, I, IA, I, P, P, P, I, I, P, P, P, P]
     lib.posegen_field_stash.restype = I
     lib.posegen_field_bwd_workspace.argtypes = [I, IA, I, I, I, I,
@@ -132,10 +130,9 @@ def load() -> ctypes.CDLL:
     for name in ("posegen_field_bwd_smem", "posegen_field_bwd_input_smem"):
         getattr(lib, name).argtypes = [IA, I]
         getattr(lib, name).restype = LL
-    lib.posegen_field_variant.argtypes = [P, P, I, P, I, I, IA, I, P, P, P, I, I, I, I, I, P]
+    lib.posegen_field_variant.argtypes = [P, P, I, P, I, I, IA, I, P, P, P, I, I, I, I, I, P,
+                                          LL, P]
     lib.posegen_field_variant.restype = I
-    lib.posegen_field_variant_blocks.argtypes = [I, I, IA, I, ctypes.POINTER(ctypes.c_int)]
-    lib.posegen_field_variant_blocks.restype = I
     lib.posegen_error_string.argtypes = [I]
     lib.posegen_error_string.restype = ctypes.c_char_p
     _LIB = lib

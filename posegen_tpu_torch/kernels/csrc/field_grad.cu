@@ -838,7 +838,7 @@ __host__ __device__ inline size_t input_smem_bytes() {
   return a > b ? a : b;
 }
 
-// The encode of point gp at joint j, as encode_tile computes it (f32).
+// The encode of point gp at joint j, as encode_slot (field_eval.cuh) computes it (f32).
 struct JointFrame {
   float X, Y, Z, v, sig, w, inv_v;
 };

@@ -29,10 +29,14 @@ constexpr uint32_t kRingW = 4 * kBlockBytes;             // offset of the weight
 constexpr size_t kSmemLimit = 232448;                    // an H100 block's shared memory
 
 // The two rings: ws weight stages and kEStages encoding stages, each with a
-// full and an empty mbarrier; `it` and `ie` count their chunks.
+// full and an empty mbarrier; `it` and `ie` count their chunks. e1: a ring
+// whose encoding stages fill in two 64-row halves (the eval kernel's split
+// variant) keeps warpgroup 1's full barriers there, and its slot barrier
+// after them.
 struct Ring {
   uint32_t w, e, bars;  // shared addresses: weight slabs, encoding slabs, barriers
   int ws;
+  uint32_t e1 = 0;
   __device__ uint32_t wslab(int s) const { return w + s * kSlabW; }
   __device__ uint32_t eslab(int s) const { return e + s * kSlabE; }
   __device__ uint32_t wfull(int s) const { return bars + 8 * s; }
@@ -43,14 +47,15 @@ struct Ring {
 
 // acc (+)= the next nk chunks of the ring: A from the encoding slab (enc) or
 // from tile blocks at a0, a0 + 1 block, ...; B the chunk's weights, K-major
-// or (TB) MN-major. zero: the first chunk overwrites acc.
-template <int N, int TB>
+// or (TB) MN-major. zero: the first chunk overwrites acc. SPLIT: warpgroup
+// 1 waits for its half of an encoding stage on R.e1's barriers.
+template <int N, int TB, bool SPLIT = false>
 __device__ __forceinline__ void consume(float (&acc)[128], int nk, bool enc, uint32_t a0,
                                         bool zero, int& it, int& ie, const Ring& R, int wg) {
   for (int c = 0; c < nk; ++c) {
     const int s = it % R.ws, se = ie % kEStages;
     sm90::mbar_wait(R.wfull(s), (it / R.ws) & 1);
-    if (enc) sm90::mbar_wait(R.efull(se), (ie / kEStages) & 1);
+    if (enc) sm90::mbar_wait(SPLIT && wg ? R.e1 + 8 * se : R.efull(se), (ie / kEStages) & 1);
     const uint32_t a = (enc ? R.eslab(se) : a0 + c * kBlockBytes) + wg * kHalfBlock;
     sm90::fence_acc<N / 2>(acc);
     sm90::wgmma_fence();

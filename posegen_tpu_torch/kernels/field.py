@@ -385,16 +385,6 @@ def eval_tile_walk(n_pts: int, n_slots: int) -> List[List[range]]:
              for t in range(b, n_tiles, grid)] for b in range(grid)]
 
 
-def body_smem_bytes(layout: NetLayout, tile: int, with_view: bool) -> int:
-    """Dynamic shared memory of one block of the WMMA body (csrc/field.cuh
-    smem_bytes; the variant kernel): the pose row, tile rows of
-    x_pts, x_views (with_view) and the activations, all bf16 and padded by
-    8, and 8 warps' f32 scratch: 184,832 bytes at the flagship and tile 64."""
-    L = layout
-    row = (L.pc + 8) + (L.vcp + 8 if with_view else 0) + (WIDTH + 8)
-    return _POSE_BYTES + 2 * tile * row + 4 * 8 * 256
-
-
 class FieldNet(NamedTuple):
     """One net packed for the kernels (see `prepare_net`)."""
 

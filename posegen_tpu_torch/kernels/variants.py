@@ -1,12 +1,19 @@
 """The field kernel's A/B variants: the kernel wrapper, its plain version and
-the shared-memory rule (port of tools/exp_kernel_variants.py::variant_field).
+the rules of what the kernel takes (port of
+tools/exp_kernel_variants.py::variant_field).
 
-One CUDA kernel (csrc/field_variants.cu) replaces the harness's Pallas
-kernel:
+The eval kernel's grouped modes (csrc/field_eval.cuh, instantiated in
+csrc/field_variants.cu) replace the harness's Pallas kernel:
 
   variant_field  <- tools/exp_kernel_variants.py::variant_field (:269):
                     kernel 2's encode + MLP on points grouped by pose, with
                     one direction per point, under the harness's flags
+
+base and dens_base launch the main path's kernel itself
+(`fused_field` on a pose table: posegen_field_grouped), the other cases and
+the probes its variants on the same 128-point tile, rings and slots; only
+the harness's cases and probes are built (`BUILT`). Every variant takes the
+eval kernels' shared-memory plan (`field.eval_smem_bytes`).
 
 The flags that change the function:
   density_only        trunk + alpha head, rgb columns zero;
@@ -20,8 +27,10 @@ The flags that change the function:
                       x_views rounded before the view layer;
   mxenc               the joint transforms as one float32 product (in the
                       kernel, TF32 in three passes on the tensor cores);
-  halves (bf16enc)    the MLP over tile / halves-row sub-tiles after one
-                      encode of the tile: the function of bf16enc.
+  halves (bf16enc)    2: each consumer warpgroup's 64 rows pass to the
+                      products as soon as it has encoded them (the function
+                      of bf16enc); 4 is refused (32-row parts, and wgmma's M
+                      is 64 rows).
 skipsplit, viewsplit and bf16act pick how the TPU lays out its operands; at
 bf16 matmul operands they change nothing. `variant_plain` models each flag's
 rounding, bf16act's too (x_pts, every ReLU output and the feature rounded to
@@ -42,52 +51,46 @@ from typing import Optional, Sequence, Union
 import torch
 
 from posegen_tpu_torch.kernels.field import (
+    EVAL_TILE,
     LAUNCHES,
     N_JOINTS,
     POSE_FLOATS,
-    SMEM_LIMIT,
     FieldNet,
     NetLayout,
     _check_operands,
+    _eval_launch_operands,
     _layout_arg,
     _no_grad_operands,
     _ptr,
     bf16_round,
-    body_smem_bytes,
     encode_plain,
     mlp_plain,
 )
 
-TILES = (32, 64, 128)  # points per block the kernel is built for
+TILES = (EVAL_TILE,)  # points per tile: the eval kernel's
+WGMMA_ROWS = 64  # wgmma's M: a consumer warpgroup's rows of the tile
 
 EncodeOnly = Union[bool, str]
 
+# (density_only, encode_only, encode, halves) of the variants the kernel is
+# built for (csrc/field_variants.cu): the harness's cases and probes
+BUILT = frozenset({
+    (False, False, "base", 1), (True, False, "base", 1),
+    (False, False, "bf16enc", 1), (False, False, "bf16enc", 2),
+    (False, False, "mxenc", 1), (True, False, "mxenc", 1),
+    (False, True, "base", 1), (False, "gates", "base", 1),
+})
 
-def variant_smem_bytes(layout: NetLayout, tile: int, density_only: bool = False) -> int:
-    """Dynamic shared memory of one block (csrc/field_variants.cu
-    posegen_field_variant_smem, `field.body_smem_bytes`): the pose row, tile
-    rows of x_pts, x_views (unless density_only) and the activations, all
-    bf16 and padded by 8, and 8 warps' f32 scratch. At the flagship widths:
-    184,832 bytes at tile 64, 97,280 at 32, 359,936 at 128 (189,952
-    density-only)."""
-    return body_smem_bytes(layout, tile, not density_only)
 
-
-def variant_smem_refusal(layout: NetLayout, tile: int,
-                         density_only: bool = False) -> Optional[str]:
-    """Why the kernel at this tile does not fit one block's shared memory at
-    this layout, or None (at the flagship widths, tile 128 with the view is
-    refused)."""
-    need = variant_smem_bytes(layout, tile, density_only)
-    if need > SMEM_LIMIT:
-        return (f"tile={tile}: needs {need:,} bytes of shared memory per block, more than the "
-                f"{SMEM_LIMIT:,} an H100 block can take")
-    return None
+def encode_of(bf16enc: bool = False, mxenc: bool = False) -> str:
+    """The encode a case runs: mxenc takes precedence over bf16enc."""
+    return "mxenc" if mxenc else ("bf16enc" if bf16enc else "base")
 
 
 def variant_refusal(layout: NetLayout, tile: int, skips: Sequence[int] = (4,),
                     encode_only: EncodeOnly = False, bf16enc: bool = False,
-                    halves: int = 1, mxenc: bool = False) -> Optional[str]:
+                    halves: int = 1, mxenc: bool = False,
+                    density_only: bool = False) -> Optional[str]:
     """Why the variant kernel does not take these arguments, or None."""
     skips = tuple(skips)
     if len(skips) > 1:
@@ -95,15 +98,22 @@ def variant_refusal(layout: NetLayout, tile: int, skips: Sequence[int] = (4,),
     if skips != ((layout.skip,) if layout.skip >= 0 else ()):
         return f"skips={skips} but the packed net's skip is {layout.skip}"
     if tile not in TILES:
-        return f"tile={tile}: the kernel is built for {TILES} points per block"
+        return (f"tile={tile}: the kernel runs the eval kernel's tile of {EVAL_TILE} points, two "
+                f"consumer warpgroups of {WGMMA_ROWS} rows")
     if encode_only not in (False, True, "gates"):
         return f"encode_only={encode_only!r}: False, True or 'gates'"
     if halves not in (1, 2, 4):
         return f"halves={halves}: 1, 2 or 4"
     if halves > 1 and (not bf16enc or mxenc):
         return "halves > 1 requires bf16enc (and not mxenc)"
-    if tile % (16 * halves):
-        return f"tile={tile} is not a multiple of 16 x halves={halves} (one MMA row tile)"
+    if tile // halves < WGMMA_ROWS:
+        return (f"tile={tile} / halves={halves}: parts of {tile // halves} rows, and wgmma's M is "
+                f"{WGMMA_ROWS} rows")
+    enc = encode_of(bf16enc, mxenc)
+    if (density_only, encode_only, enc, halves) not in BUILT:
+        return (f"density_only={density_only}, encode_only={encode_only!r}, {enc}, "
+                f"halves={halves}: not built (the kernel instantiates the harness's cases and "
+                "probes)")
     return None
 
 
@@ -233,7 +243,7 @@ def variant_plain(pts: torch.Tensor, dirs: torch.Tensor, poses: torch.Tensor, ne
 
 
 def variant_field(pts: torch.Tensor, dirs: torch.Tensor, poses: torch.Tensor, net: FieldNet,
-                  *, tile: int = 64, skips: Sequence[int] = (4,), density_only: bool = False,
+                  *, tile: int = EVAL_TILE, skips: Sequence[int] = (4,), density_only: bool = False,
                   encode_only: EncodeOnly = False, skipsplit: bool = False,
                   bf16act: bool = False, viewsplit: bool = False, bf16enc: bool = False,
                   halves: int = 1, mxenc: bool = False) -> torch.Tensor:
@@ -241,9 +251,10 @@ def variant_field(pts: torch.Tensor, dirs: torch.Tensor, poses: torch.Tensor, ne
     density_only) or a probe's per-point sum in every column. pts and dirs
     (P, 3) f32, one direction per point; poses (G, n_pose) from `pack_poses`,
     the points contiguous per group; net from `prepare_net`; tile: points
-    per block (32, 64 or 128); skips as the JAX harness names them (the
-    packed net's one skip)."""
-    reason = variant_refusal(net.layout, tile, skips, encode_only, bf16enc, halves, mxenc)
+    per tile (TILES); skips as the JAX harness names them (the packed net's
+    one skip)."""
+    reason = variant_refusal(net.layout, tile, skips, encode_only, bf16enc, halves, mxenc,
+                             density_only)
     if reason is not None:
         raise ValueError(f"variant_field: {reason}")
     if poses.dim() != 2 or poses.shape[0] < 1:
@@ -259,9 +270,6 @@ def variant_field(pts: torch.Tensor, dirs: torch.Tensor, poses: torch.Tensor, ne
                  mxenc=mxenc)
     if not pts.is_cuda:
         return variant_plain(pts, dirs, poses, net, **flags)
-    reason = variant_smem_refusal(net.layout, tile, density_only)
-    if reason is not None:
-        raise ValueError(f"variant_field: {reason}")
     from posegen_tpu_torch.kernels import build
 
     lib = build.load()
@@ -269,30 +277,16 @@ def variant_field(pts: torch.Tensor, dirs: torch.Tensor, poses: torch.Tensor, ne
     if pts.shape[0] == 0:
         return out
     layout, n_layout = _layout_arg(net.layout)
-    enc = 2 if mxenc else (1 if bf16enc else 0)
+    enc = ("base", "bf16enc", "mxenc").index(encode_of(bf16enc, mxenc))
     probe = 2 if encode_only == "gates" else int(bool(encode_only))
     with torch.cuda.device(pts.device):
+        scratch, n_scratch = _eval_launch_operands("variant_field", net.layout, pts.device)
         rc = lib.posegen_field_variant(
             _ptr(pts), _ptr(dirs), pts.shape[0], _ptr(poses), poses.shape[0], poses.shape[1],
             layout, n_layout, _ptr(net.w), _ptr(net.b), _ptr(out), tile, int(density_only),
-            enc, probe, halves, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
+            enc, probe, halves, _ptr(scratch), n_scratch,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream),
         )
     build.check(lib, rc, "field variant")
     LAUNCHES["variant"] += 1
     return out
-
-
-def variant_blocks_per_sm(layout: NetLayout, tile: int, density_only: bool,
-                          device=None) -> int:
-    """Resident blocks per SM of the (tile, density_only) kernel on the
-    current card; 0 when its shared memory exceeds the per-block limit."""
-    from posegen_tpu_torch.kernels import build
-
-    lib = build.load()
-    ints, n = _layout_arg(layout)
-    blocks = ctypes.c_int(0)
-    with torch.cuda.device(device):
-        rc = lib.posegen_field_variant_blocks(tile, int(density_only), ints, n,
-                                              ctypes.byref(blocks))
-    build.check(lib, rc, "field variant occupancy")
-    return blocks.value

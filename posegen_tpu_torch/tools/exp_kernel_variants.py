@@ -2,7 +2,7 @@
 tools/exp_kernel_variants.py's main(), the harness of kernel 2).
 
     python -m posegen_tpu_torch.tools.exp_kernel_variants [--n_rays 8192]
-        [--chain 10] [--tiles 32,64,128]
+        [--chain 10] [--tiles 128]
     python -m posegen_tpu_torch.tools.exp_kernel_variants --cpu --n_rays 4
 
 The problem is the JAX harness's: make_problem(RaycastConfig()) with
@@ -10,13 +10,15 @@ n_rays rays, 80 samples per ray at z = linspace(0.1, 4.0, 80), one
 direction per point, the first pose (one pose group) and the coarse net:
 655,360 points at 8192 rays. Each case of the JAX harness, in its order,
 then two probes (the encode alone, and the transforms and gates alone),
-runs at each tile (points per block): on the card a chain of --chain
+runs at each tile (points per tile): on the card a chain of --chain
 launches after two warm-ups, timed with CUDA events, with its share of the
 bf16 tensor-core bound and max|d| against the first output of the same
-function (base's at the first tile for the full field). A (case, tile) the
-kernel does not take, or whose shared memory exceeds the card's limit, is
-printed as skipped. --cpu runs the plain versions on the host: the numeric
-check alone, no times.
+function (base's at the first tile for the full field). The kernel is the
+eval kernel (kernels/variants.py): base and dens_base are the main path's
+kernel, the other cases and the probes its variants, all on its 128-point
+tile. A (case, tile) the kernel does not take is printed as skipped, with
+the reason. --cpu runs the plain versions on the host: the numeric check
+alone, no times.
 """
 
 from __future__ import annotations
@@ -33,7 +35,6 @@ from posegen_tpu_torch.kernels import variants as V
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
-SMEM_OPTIN_H100 = 232_448  # bytes a block may opt in to (the --cpu run's rule)
 
 # tools/exp_kernel_variants.py main(): the same cases in the same order
 CASES: Tuple[Tuple[str, Dict], ...] = (
@@ -89,7 +90,7 @@ def make_inputs(n_rays: int, device="cuda", seed: int = 0, n_groups: int = 1) ->
 def code_of(kw: Dict) -> Tuple:
     """The kernel arguments a case launches with: cases with one value run
     the same code."""
-    enc = "mxenc" if kw.get("mxenc") else ("bf16enc" if kw.get("bf16enc") else "base")
+    enc = V.encode_of(kw.get("bf16enc", False), kw.get("mxenc", False))
     return (kw.get("density_only", False), kw.get("encode_only", False), enc,
             kw.get("halves", 1))
 
@@ -147,9 +148,9 @@ def sweep(prob: Problem, tiles: Sequence[int], chain: int,
           cases: Sequence[Tuple[str, Dict]] = CASES + PROBES, timed: bool = True,
           log: Callable[[str], None] = print) -> List[Dict]:
     """Run every (case, tile) -> one row per pair that ran: name, tile, ms
-    (None untimed), bound (see `bound`), blocks per SM, shared-memory bytes, max|d|
-    against the first output of the same function and which one that was.
-    timed False: the plain versions on the host, no times."""
+    (None untimed), bound (see `bound`), shared-memory bytes, max|d| against
+    the first output of the same function and which one that was. timed
+    False: the plain versions on the host, no times."""
     L = prob.net.layout
     P = prob.pts.shape[0]
     rows: List[Dict] = []
@@ -160,18 +161,12 @@ def sweep(prob: Problem, tiles: Sequence[int], chain: int,
             head = f"{name:10s} tile={tile:4d}:"
             reason = V.variant_refusal(L, tile, encode_only=kw.get("encode_only", False),
                                        bf16enc=kw.get("bf16enc", False),
-                                       halves=kw.get("halves", 1), mxenc=kw.get("mxenc", False))
+                                       halves=kw.get("halves", 1), mxenc=kw.get("mxenc", False),
+                                       density_only=dens)
             if reason is not None:
                 log(f"{head} skipped ({reason})")
                 continue
-            smem = V.variant_smem_bytes(L, tile, dens)
-            if timed:
-                blocks = V.variant_blocks_per_sm(L, tile, dens, prob.pts.device)
-            else:
-                blocks = int(smem <= SMEM_OPTIN_H100)  # an H100's limit, the count unknown
-            if blocks == 0:
-                log(f"{head} skipped (needs {smem:,} bytes of shared memory per block)")
-                continue
+            smem = F.eval_smem_bytes(L)  # every variant's plan
 
             def run(tile=tile, kw=kw):
                 return V.variant_field(prob.pts, prob.dirs, prob.poses, prob.net, tile=tile, **kw)
@@ -182,8 +177,8 @@ def sweep(prob: Problem, tiles: Sequence[int], chain: int,
             ref_name, ref = refs.setdefault(fn_name, (f"{name}@{tile}", out))
             err = float((out - ref).abs().max())
             b = bound(prob, kw)
-            rows.append(dict(name=name, tile=tile, ms=ms, bound=b, blocks=blocks,
-                             smem=smem, err=err, ref=ref_name, code=code_of(kw)))
+            rows.append(dict(name=name, tile=tile, ms=ms, bound=b, smem=smem, err=err,
+                             ref=ref_name, code=code_of(kw)))
             d = f"max|d| vs {ref_name} {err:.2e}"
             if ms is None:
                 log(f"{head} {d}")
@@ -191,7 +186,7 @@ def sweep(prob: Problem, tiles: Sequence[int], chain: int,
             rate = f"{ms:8.3f} ms ({P / ms / 1e3:7.1f} Mpts/s)"
             share = ("bound none (probe)" if b is None
                      else f"{b[0] / ms:6.1%} of bound {b[0]:.3f} ms ({b[1]})")
-            log(f"{head} {rate}, {share}, {blocks} block(s)/SM of {smem:,} B, {d}")
+            log(f"{head} {rate}, {share}, {smem:,} B of shared memory, {d}")
     same: Dict[Tuple, List[str]] = {}
     for name, kw in cases:
         if name not in same.setdefault(code_of(kw), []):
@@ -206,7 +201,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n_rays", type=int, default=8192)
     ap.add_argument("--chain", type=int, default=10)
-    ap.add_argument("--tiles", type=str, default="32,64,128")
+    ap.add_argument("--tiles", type=str, default=",".join(map(str, V.TILES)))
     ap.add_argument("--cpu", action="store_true",
                     help="plain versions on the host: numeric check only, no times")
     args = ap.parse_args(argv)

@@ -5,8 +5,8 @@ formulas, and the persistent grid's walk over the tiles.
 
 The kernels run only on the card; there chip_smoke.py holds each plan here
 against the library's export (posegen_field_eval_smem, ..._slot_bytes,
-..._eval_grid, posegen_field_stash_smem, posegen_field_bwd_input_smem,
-posegen_field_variant_smem)."""
+..._eval_grid, posegen_field_stash_smem, posegen_field_bwd_input_smem); the
+A/B harness's variants run on the eval kernels' plan."""
 
 import dataclasses
 import functools
@@ -25,6 +25,7 @@ from posegen_tpu_torch.kernels import field as tfield
 from posegen_tpu_torch.kernels import field_grad as tgrad
 from posegen_tpu_torch.kernels import variants as tvar
 from posegen_tpu_torch.render import raycast as tr
+from posegen_tpu_torch.tools import exp_kernel_variants as harness
 from posegen_tpu_torch.train import trainer as tt
 from posegen_tpu_torch.utils.convert import params_from_numpy
 
@@ -196,13 +197,21 @@ def test_eval_tile_walk_covers_every_point_once(n_pts, n_slots):
 
 
 def test_variant_plan_and_refusal():
-    """The variant kernel's plan is the WMMA body's; tile 128 with the view
-    is refused with its size, as the harness skips it."""
+    """The variant kernel is the eval kernel: the harness reports the eval
+    plan's 201,304 bytes for every case, with the view and without; it runs
+    only the eval tile, and halves=4's 32-row parts are refused since
+    wgmma's M is 64 rows."""
+    assert tvar.TILES == (tfield.EVAL_TILE,) == (128,)
+    with torch.no_grad():
+        rows = harness.sweep(harness.make_inputs(1, "cpu"), tvar.TILES, 0, timed=False,
+                             log=lambda line: None)
+    assert {r["smem"] for r in rows} == {FLAGSHIP_SMEM}
+    assert {"base", "dens_base", "dens_mxenc", "enc", "gates"} <= {r["name"] for r in rows}
     L = tfield.net_layout(8, 7, 4)
-    for tile in tvar.TILES:
-        for dens in (False, True):
-            assert tvar.variant_smem_bytes(L, tile, dens) == tfield.body_smem_bytes(
-                L, tile, not dens)
-    assert "359,936 bytes" in tvar.variant_smem_refusal(L, 128)
-    assert tvar.variant_smem_refusal(L, 128, density_only=True) is None
-    assert tvar.variant_smem_refusal(L, 64) is None
+    for tile in (32, 64, 256):
+        reason = tvar.variant_refusal(L, tile)
+        assert f"tile={tile}" in reason and "128 points" in reason
+    reason = tvar.variant_refusal(L, 128, bf16enc=True, halves=4)
+    assert "parts of 32 rows" in reason and "wgmma's M is 64 rows" in reason
+    assert tvar.variant_refusal(L, 128, bf16enc=True, halves=2) is None
+    assert tvar.variant_refusal(L, 128, density_only=True) is None

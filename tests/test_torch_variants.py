@@ -6,8 +6,9 @@ run in interpret mode at MM_DTYPE = float32, for each case of the harness,
 both probes and a two-group problem: make_problem's 4 rays x 32 samples,
 one direction per point, the coarse net through params_from_numpy (bf16
 weights on both sides). Also: the wrapper contract on the CPU, the
-shared-memory rule and the ported harness's --cpu run. The CUDA kernel
-itself runs in chip_smoke.py phase 9 on the card.
+kernel's rules (its tile, halves, the built cases) and the ported
+harness's --cpu run. The CUDA kernel itself runs in chip_smoke.py phase 9
+on the card.
 
 The JAX tool is imported by path: tools/ is not a package. Its jit does not
 key on F.MM_DTYPE, so every call clears its cache before and after.
@@ -99,10 +100,22 @@ def _jax_out(name, n_groups=1, tile=128):
         jvar.variant_field.clear_cache()
 
 
-def _port_out(name, n_groups=1, tile=64):
+def _refusal(kw, tile=tvar.TILES[0]):
+    """variant_refusal for a case's flags at the flagship layout."""
+    L = tfield.net_layout(8, 7, 4)
+    keys = ("encode_only", "bf16enc", "halves", "mxenc", "density_only")
+    return tvar.variant_refusal(L, tile, **{k: kw[k] for k in keys if k in kw})
+
+
+def _port_out(name, n_groups=1, tile=tvar.TILES[0]):
+    """The wrapper's output (on the CPU, the plain version); for a case the
+    kernel refuses (pipe4), the plain version's."""
     _, prob = _problem(n_groups)
+    kw = ALL_CASES[name]
     with torch.no_grad():
-        return tvar.variant_field(*prob, tile=tile, **ALL_CASES[name]).numpy()
+        if _refusal(kw, tile) is not None:
+            return tvar.variant_plain(*prob, **kw).numpy()
+        return tvar.variant_field(*prob, tile=tile, **kw).numpy()
 
 
 def _assert_close(name, got, ref):
@@ -145,15 +158,17 @@ def test_plain_matches_jax_variant_two_groups(name):
 
 
 def test_plain_is_tile_independent():
-    """The JAX kernel at tiles 32, 64 and 128 and the port at its tiles
-    compute one function."""
+    """The JAX kernel at tiles 32, 64 and 128 computes one function, which
+    the port computes at its one tile; the wrapper refuses the JAX tiles it
+    does not run, naming its own."""
     refs = [_jax_out("base", tile=t) for t in (32, 64, 128)]
     for r in refs[1:]:
         np.testing.assert_allclose(r, refs[0], atol=F32_TOL, rtol=0)
-    outs = [_port_out("base", tile=t) for t in tvar.TILES]
-    for o in outs:
-        np.testing.assert_array_equal(o, outs[0])
-        np.testing.assert_allclose(o, refs[0], atol=F32_TOL, rtol=0)
+    np.testing.assert_allclose(_port_out("base"), refs[0], atol=F32_TOL, rtol=0)
+    _, prob = _problem(1)
+    for tile in (32, 64):
+        with pytest.raises(ValueError, match=f"tile={tile}: .* tile of 128 points"):
+            tvar.variant_field(*prob, tile=tile)
 
 
 def test_wrapper_contract_on_cpu():
@@ -169,8 +184,10 @@ def test_wrapper_contract_on_cpu():
     assert set(tfield.LAUNCHES.values()) == {0} and "variant" in tfield.LAUNCHES
     for kw, match in ((dict(halves=2), "bf16enc"), (dict(halves=2, bf16enc=True, mxenc=True),
                                                     "bf16enc"),
-                      (dict(tile=48), "tile=48"), (dict(tile=32, bf16enc=True, halves=4),
-                                                   "multiple of 16"),
+                      (dict(tile=48), "tile=48"), (dict(bf16enc=True, halves=4),
+                                                   "wgmma's M is 64 rows"),
+                      (dict(encode_only=True, bf16enc=True), "not built"),
+                      (dict(density_only=True, bf16enc=True), "not built"),
                       (dict(skips=(2, 4)), "one skip"), (dict(skips=(3,)), "skip is 4"),
                       (dict(encode_only="all"), "encode_only")):
         with pytest.raises(ValueError, match=match):
@@ -185,29 +202,28 @@ def test_wrapper_contract_on_cpu():
 
 
 def test_smem_bytes_and_fit():
-    """The shared-memory rule at the flagship widths: tile 128 fits only
-    density-only; tile 32 leaves room for two blocks on one SM."""
+    """The shared-memory rule at the flagship widths: every case and probe
+    takes the eval kernels' 201,304 bytes, one block an SM; every case of
+    the harness is built but pipe4."""
     L = tfield.net_layout(8, 7, 4)
-    got = {(t, d): tvar.variant_smem_bytes(L, t, d) for t in tvar.TILES for d in (False, True)}
-    assert got[(64, False)] == 184_832 and got[(32, False)] == 97_280
-    assert got[(128, False)] == 359_936 and got[(128, True)] == 189_952
-    fits = {k for k, v in got.items() if v <= harness.SMEM_OPTIN_H100}
-    assert fits == set(got) - {(128, False)}
-    assert 2 * (got[(32, False)] + 1024) <= 233_472  # an H100 SM: 228 KB, 1 KB per block
+    assert tfield.eval_smem_bytes(L) == 201_304 <= tfield.SMEM_LIMIT < 2 * 201_304
+    assert {name for name, kw in ALL_CASES.items() if _refusal(kw) is not None} == {"pipe4"}
     assert tfield.field_flops(L, False) == 1_723_648
     assert tfield.field_flops(L, True) == 1_360_384
 
 
 def test_harness_cpu_run(capsys):
-    """The ported harness's --cpu run: every case and probe at tiles 32 and
-    64, which cases share code, the pairs that do not fit skipped."""
-    assert harness.main(["--cpu", "--n_rays", "2", "--tiles", "32,64,128"]) == 0
+    """The ported harness's --cpu run: every case and probe the kernel takes
+    at tile 128, which cases share code, tile 64 and pipe4 skipped with
+    their reasons."""
+    assert harness.main(["--cpu", "--n_rays", "2", "--tiles", "64,128"]) == 0
     out = capsys.readouterr().out
     assert "2 rays x 80 samples = 160 pts" in out
     for name in ALL_CASES:
-        assert f"{name:10s} tile=  64: max|d|" in out
-    assert "base       tile= 128: skipped (needs 359,936 bytes" in out
-    assert "pipe4      tile=  32: skipped" in out
+        assert f"{name:10s} tile=  64: skipped (tile=64: the kernel runs" in out
+        if name != "pipe4":
+            assert f"{name:10s} tile= 128: max|d|" in out
+    assert "pipe4      tile= 128: skipped (tile=128 / halves=4: parts of 32 rows" in out
     assert "same code: base = skipsplit = bf16act = both = viewsplit" in out
     for line in out.splitlines():
         if line.startswith(("skipsplit", "viewsplit")) and "max|d|" in line:
