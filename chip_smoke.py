@@ -1035,12 +1035,17 @@ def run(torch) -> int:
         marks.append(("17", time.perf_counter()))
         par_launches = parallel_phases(torch, card)
         marks.append(("18", time.perf_counter()))
+        single_launches, single_err = single_net_phases(torch, card)
+        marks.append(("19", time.perf_counter()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in launches:
         launches[k] += cli_launches[k] + ingest_launches[k] + par_launches[k]
+    launches["field"] += single_launches["field"]
+    err_field = max(err_field, single_err)
     for k in ("field_stash", "field_bwd"):
-        train_launches[k] += cli_launches[k] + ingest_launches[k] + par_launches[k]
+        train_launches[k] += (cli_launches[k] + ingest_launches[k] + par_launches[k]
+                              + single_launches[k])
     pose_launches += cli_launches["field_bwd_inputs"]
 
     by_name = {(r[0], r[1]): r for r in rows}
@@ -4995,6 +5000,200 @@ def parallel_phases(torch, card: str):
             for k, v in r[part].items():
                 launches[k] += v
     return launches
+
+
+# phase 19: configs/surreal/surreal_single.txt's layout (one net, no view
+# octaves, 96 + 48 samples) through the eval and training kernels
+SINGLE_CONFIG = os.path.join("configs", "surreal", "surreal_single.txt")
+SINGLE_RAYS = 8192  # the eval render's rays
+SINGLE_STEPS = 2  # train steps on each route
+SINGLE_TIMED = 10  # CUDA-event renders, steps and launches timed
+
+
+def single_net_phases(torch, card: str):
+    """Phase 19 -> (launches by kernel on its main paths, max|diff| of the
+    field launches against their plain version)."""
+    import dataclasses
+
+    from posegen_tpu_torch.cli.config import (
+        args_to_raycast_config, args_to_train_config, nerf_config_parser, parse_with_config,
+    )
+    from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.kernels import field_grad as FG
+    from posegen_tpu_torch.models.nerf import nerf_apply
+    from posegen_tpu_torch.ops import sampling as samp
+    from posegen_tpu_torch.render.raycast import encode_inputs, init_raycaster, render_rays
+    from posegen_tpu_torch.train.trainer import (
+        create_train_state, make_train_step, param_leaves, tree_map,
+    )
+    from posegen_tpu_torch.utils.fixtures import make_problem
+
+    t_phase = time.perf_counter()
+    bf16 = torch.bfloat16
+    root = os.path.dirname(os.path.abspath(__file__))
+    args = parse_with_config(nerf_config_parser(), ["--config", os.path.join(root, SINGLE_CONFIG)])
+    cfg = args_to_raycast_config(args)
+    tcfg = args_to_train_config(args)
+    check(cfg.single_net and cfg.multires_views == 0
+          and (cfg.N_samples, cfg.N_importance) == (96, 48),
+          f"phase 19: {SINGLE_CONFIG} is not the single-net layout: {cfg}")
+    reason = F.fused_config_disqualification(cfg)
+    check(reason is None, f"phase 19: the gate refuses {SINGLE_CONFIG}: {reason}")
+    L = F.net_layout(cfg.netdepth, cfg.multires, cfg.multires_views)
+    print(f"phase 19: {SINGLE_CONFIG}: single_net, multires {L.nf_kp} / {L.nf_view} (view "
+          f"channels {L.vc}, padded to {L.vcp}), {cfg.N_samples} + {cfg.N_importance} samples, "
+          f"N_rand {args.N_rand} as {args.N_sample_images} images x {tcfg.rays_per_image} rays")
+
+    # 19a. the eval render: both passes run posegen_field in full mode on the
+    # one net, and the importance raws merge by sort order
+    cfg, params, ctx, rays_o, rays_d = make_problem(cfg, n_rays=SINGLE_RAYS, seed=SEED,
+                                                    device=DEVICE)
+    check("fine" not in params, "phase 19: a single-net config built a fine net")
+    want = {"dual": 0, "field": 2, "field_grouped": 0, "field_ray_ladder": 0,
+            "field_stash": 0, "field_bwd": 0, "field_bwd_inputs": 0, "variant": 0}
+    calls, original = [], F.fused_field
+
+    def recorded(*a, **k):
+        out = original(*a, **k)
+        calls.append((a, k, out))
+        return out
+
+    def render(use_fused):
+        return render_rays(cfg, params, rays_o, rays_d, ctx, perturb=0.0, raw_noise_std=0.0,
+                           use_fused=use_fused)
+
+    with torch.no_grad():
+        near, far = samp.get_near_far_in_cylinder(
+            rays_o, rays_d, ctx.cyls.expand(SINGLE_RAYS, 5), near=cfg.near, far=cfg.far)
+        pose = F.pack_pose(ctx.skts[0], params["embed_kp"], cfg.multires, cfg.multires_views)
+        net = F.prepare_net(params["coarse"], L)
+        far_pts = (rays_o + rays_d * far).contiguous()
+        x_pts, x_views, _ = encode_inputs(cfg, params, far_pts[:, None], rays_d, ctx)
+        sig_ref = nerf_apply(cfg.nerf_cfg, params["coarse"], x_pts, x_views)[:, 0, 3]
+        sig_ker = F.fused_field(far_pts, rays_d, 1, pose, net, density_only=True)[:, 3]
+        straddles = (sig_ref > 0) != (sig_ker > 0)
+        F.fused_field = recorded
+        try:
+            F.reset_launches()
+            out = render(True)
+            torch.cuda.synchronize()
+            got = dict(F.LAUNCHES)
+        finally:
+            F.fused_field = original
+        check(got == want, f"phase 19 render: launches {got} != {want}")
+        sizes = [a[0].shape[0] for a, _, _ in calls]
+        check(sizes == [SINGLE_RAYS * cfg.N_samples, SINGLE_RAYS * cfg.N_importance],
+              f"phase 19 render: field launches on {sizes} points")
+        err_field, launch_rows = 0.0, []
+        for (a, k, raw), tag in zip(calls, ("coarse", "importance")):
+            check(not k.get("density_only", a[5] if len(a) > 5 else False),
+                  f"phase 19 render: the {tag} launch is density-only")
+            pts, dirs, spr, pose_t, net_t = a[:5]
+            plain = F.field_plain(pts, dirs, spr, pose_t, net_t, mm_dtype=bf16)
+            err_field = max(err_field, compare(f"phase 19 field {tag}", raw, plain))
+            launch_rows.append((tag, a[:5]))
+        calls.clear()
+        rgb = out["rgb_map"]
+        check(tuple(rgb.shape) == (SINGLE_RAYS, 3) and bool(torch.isfinite(rgb).all()),
+              f"phase 19 render: rgb_map {tuple(rgb.shape)} not finite or misshapen")
+        ref = render(False)
+        acc = float(out["acc_map"].mean())
+        check(0.0 < acc and float(rgb.abs().max()) > 0.0,
+              f"phase 19 render: empty image (mean acc {acc})")
+        d_rgb = (rgb - ref["rgb_map"]).abs().amax(-1)
+        flipped = (out["acc_map"] - ref["acc_map"]).abs() > 0.5
+        n_flip = int(flipped.sum())
+        err = float(d_rgb[~flipped].max())
+        check(n_flip <= MAX_FLIP_FRAC * SINGLE_RAYS, f"phase 19 render: {n_flip} rays flipped")
+        check(bool(straddles[flipped].all()),
+              f"phase 19 render: {int((~straddles[flipped]).sum())} rays flipped opacity with "
+              "no sign change of their far sigma")
+        check(err <= RENDER_TOL, f"phase 19 render: rgb_map vs plain {err:.3e} > {RENDER_TOL}")
+        print(f"phase 19 render: launches {got}, field on {sizes} points, each raw vs plain "
+              f"max|diff| {err_field:.3e}; rgb_map vs plain pipeline {err:.3e} on "
+              f"{SINGLE_RAYS - n_flip} rays, {n_flip} flipped opacity (far sigma changes sign "
+              f"on each); mean acc {acc:.4f}")
+
+        ms = cuda_ms(lambda: render(True), SINGLE_TIMED)
+        print(f"timing phase 19 render: {ms:.3f} ms per {SINGLE_RAYS} rays, "
+              f"{SINGLE_RAYS / ms * 1e3:.1f} rays/s [{card}]")
+        w_bytes = net.w.numel() * 2 + net.b.numel() * 4
+        for tag, (pts, dirs, spr, pose_t, net_t) in launch_rows:
+            P = pts.shape[0]
+            k_ms = cuda_ms(lambda: F.fused_field(pts, dirs, spr, pose_t, net_t), SINGLE_TIMED)
+            p_ms = cuda_ms(lambda: F.field_plain(pts, dirs, spr, pose_t, net_t, mm_dtype=bf16),
+                           3, warmup=1)
+            b_ms, b_by = bound(F.field_flops(L, False) * P,
+                               12 * P + 12 * dirs.shape[0] + pose_t.numel() * 4 + w_bytes + 16 * P)
+            print(f"timing phase 19 kernel field {tag} ({P} points): {k_ms:.3f} ms, bound "
+                  f"{b_ms:.3f} ms ({b_by}, {b_ms / k_ms:.1%} of it), plain {p_ms:.3f} ms [{card}]")
+
+    # 19b. the train step: the stash and the backward run twice on the one
+    # net, and both passes' gradients sum into its weights
+    rpg = tcfg.rays_per_image
+    n_groups = args.N_rand // rpg
+    batch = train_batch(torch, n_groups, rpg, SEED)
+    variables = init_raycaster(cfg, torch.Generator().manual_seed(SEED), device=DEVICE)
+    tcfg_k = dataclasses.replace(tcfg, fused_train=True)
+    tcfg_p = dataclasses.replace(tcfg, fused_train=False)
+    step_k, step_p = make_train_step(cfg, tcfg_k), make_train_step(cfg, tcfg_p)
+    state_k = create_train_state(variables, tcfg_k)
+    gen_k = torch.Generator(device=DEVICE).manual_seed(SEED)
+    gen_p = torch.Generator(device=DEVICE).manual_seed(SEED)
+    want = {"dual": 0, "field": 0, "field_grouped": 0, "field_ray_ladder": 0,
+            "field_stash": 2, "field_bwd": 2, "field_bwd_inputs": 0, "variant": 0}
+    launches = {"field": got["field"], "field_stash": 0, "field_bwd": 0}
+    stash_sizes, stash = [], FG.fused_field_stash
+
+    def stash_recorded(pts, *a, **k):
+        stash_sizes.append(pts.shape[0])
+        return stash(pts, *a, **k)
+
+    for i in range(SINGLE_STEPS):
+        # the plain route's step from the kernel route's parameters and step
+        # count, so that both take their gradients at one point
+        state_p = create_train_state(
+            {**tree_map(lambda t: t.detach().clone(), state_k.params), **state_k.embeds},
+            tcfg_p)._replace(step=state_k.step)
+        FG.fused_field_stash = stash_recorded
+        try:
+            F.reset_launches()
+            state_k, stats_k = step_k(state_k, batch, gen_k)
+            torch.cuda.synchronize()
+            got = dict(F.LAUNCHES)
+        finally:
+            FG.fused_field_stash = stash
+        check(got == want, f"phase 19 train step {i}: launches {got} != {want}")
+        for k in ("field_stash", "field_bwd"):
+            launches[k] += got[k]
+        state_p, stats_p = step_p(state_p, batch, gen_p)
+        torch.cuda.synchronize()
+        for k in ("total_loss", "rgb_loss", "rgb0_loss", "grad_norm"):
+            check(bool(torch.isfinite(stats_k[k])), f"phase 19 train step {i}: {k} not finite")
+        gk = [p.grad for p in param_leaves(state_k.params)]
+        gp = [p.grad for p in param_leaves(state_p.params)]
+        check(list(state_k.params) == ["coarse"] and all(g is not None for g in gk),
+              f"phase 19 train step {i}: nets {list(state_k.params)}, a gradient missing")
+        all_l2 = rel_l2(torch.cat([a.reshape(-1) for a in gk]),
+                        torch.cat([b.reshape(-1) for b in gp]))
+        per = sorted(rel_l2(a, b) for a, b in zip(gk, gp))
+        check(all_l2 <= STEP_GRAD_TOL, f"phase 19 train step {i}: gradients vs plain f32 "
+                                       f"pipeline: relative L2 {all_l2:.3e} > {STEP_GRAD_TOL}")
+        print(f"phase 19 train step {i}: launches {got}, stash on {stash_sizes} points; "
+              f"total_loss {float(stats_k['total_loss']):.6f} (plain f32 "
+              f"{float(stats_p['total_loss']):.6f}); gradients vs plain: relative L2 "
+              f"{all_l2:.3e} over all {len(gk)} tensors, per tensor median "
+              f"{per[len(per) // 2]:.3e}, max {per[-1]:.3e}")
+        check(sorted(stash_sizes) == sorted([args.N_rand * cfg.N_samples,
+                                             args.N_rand * cfg.N_importance]),
+              f"phase 19 train step {i}: stash launches on {stash_sizes} points")
+        stash_sizes.clear()
+
+    ms = cuda_ms(lambda: step_k(state_k, batch, gen_k), SINGLE_TIMED)
+    print(f"timing phase 19 train step: {ms:.3f} ms per {args.N_rand} rays, "
+          f"{args.N_rand / ms * 1e3:.1f} trained rays/s [{card}]")
+    print(f"timing phase 19: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches, err_field
 
 
 def _same_near_far(torch, one, idx):

@@ -12,5 +12,14 @@ points default to the CUDA device and raise when none is present; pass
 """
 
 from posegen_tpu_torch.device import resolve_device
+from posegen_tpu_torch.lazy import exports, table
 
-__all__ = ["resolve_device"]
+_EXPORTS = table(
+    ("posegen_tpu_torch.skeleton.skeleton", (
+        "Skeleton",
+        "SMPL_SKELETON",
+        "SMPL_REST_POSE",
+    )),
+)
+__all__ = ["resolve_device", *_EXPORTS]
+__getattr__, __dir__ = exports(__name__, _EXPORTS)

@@ -1,1 +1,9 @@
 """The NeRF field and its compositor."""
+
+from posegen_tpu_torch.lazy import exports, table
+
+_EXPORTS = table(
+    ("posegen_tpu_torch.models.nerf", ("nerf",)),
+)
+__all__ = list(_EXPORTS)
+__getattr__, __dir__ = exports(__name__, _EXPORTS)

@@ -72,6 +72,12 @@ def smpl_l2ws(pose: torch.Tensor, rest_pose: Optional[torch.Tensor] = None,
     return fk_l2ws(axisang_to_rot(pose), rest_pose, skel)
 
 
+def batched_smpl_l2ws(pose: torch.Tensor, rest_pose: torch.Tensor,
+                      skel: Skeleton = SMPL_SKELETON) -> torch.Tensor:
+    """`smpl_l2ws` under the JAX package's batched name (there a jitted alias)."""
+    return smpl_l2ws(pose, rest_pose, skel=skel)
+
+
 def invert_rigid(tf: torch.Tensor) -> torch.Tensor:
     """Closed-form inverse of rigid 4x4 transforms: [R|t]^-1 = [R^T | -R^T t]."""
     Rt = tf[..., :3, :3].transpose(-1, -2)

@@ -75,6 +75,28 @@ SMPL_SKELETON = Skeleton(
     end_effectors=(10, 11, 15, 22, 23),
 )
 
+SMPL_SKELETON_EXTENDED = Skeleton(
+    joint_names=(
+        "pelvis", "left_hip", "right_hip", "spine1",
+        "left_knee", "right_knee", "spine2", "left_ankle",
+        "right_ankle", "spine3", "left_foot", "right_foot",
+        "neck", "left_collar", "right_collar", "head",
+        "left_shoulder", "right_shoulder", "left_upper_arm", "right_upper_arm",
+        "left_elbow", "right_elbow", "left_lower_arm", "right_lower_arm",
+        "left_wrist", "right_wrist", "left_hand", "right_hand",
+    ),
+    joint_trees=(
+        0, 0, 0, 0,
+        1, 2, 3, 4,
+        5, 6, 7, 8,
+        9, 9, 9, 12,
+        13, 14, 16, 17,
+        18, 19, 20, 21,
+        22, 23, 24, 25,
+    ),
+    root_id=0,
+)
+
 CANONICAL_SKELETON = Skeleton(
     joint_names=(
         "head_top", "neck", "right_shoulder", "right_elbow", "right_wrist",
@@ -167,3 +189,16 @@ def topological_levels(skel: Skeleton) -> Tuple[Tuple[int, ...], ...]:
         tuple(j for j in range(skel.n_joints) if depth[j] == d)
         for d in range(max_d + 1)
     )
+
+
+def per_joint_cutoffs(skel: Skeleton, ext_scale: float, default_mm: float = 500.0) -> np.ndarray:
+    """Per-joint cutoff distances (world units): the first family of
+    `skel.cutoffs` whose name is in the joint's name, else `default_mm`,
+    times `ext_scale`."""
+    out = np.full((skel.n_joints,), default_mm, dtype=np.float32)
+    for i, name in enumerate(skel.joint_names):
+        for fam, mm in skel.cutoff_dict.items():
+            if fam in name:
+                out[i] = float(mm)
+                break
+    return out * ext_scale

@@ -14,9 +14,11 @@ from posegen_tpu_torch.skeleton.rotations import axisang_to_rot
 from posegen_tpu_torch.utils.fixtures import make_pose_ctx
 
 
-@pytest.mark.parametrize(
-    "name", ["SMPL_SKELETON", "CANONICAL_SKELETON", "MPI_3DHP_SKELETON"]
-)
+SKELETONS = ["SMPL_SKELETON", "SMPL_SKELETON_EXTENDED", "CANONICAL_SKELETON",
+             "MPI_3DHP_SKELETON"]
+
+
+@pytest.mark.parametrize("name", SKELETONS)
 def test_skeleton_tables_match(name):
     a, b = getattr(jsk, name), getattr(tsk, name)
     assert dataclass_fields(a) == dataclass_fields(b)
@@ -29,6 +31,33 @@ def test_skeleton_tables_match(name):
 def dataclass_fields(s):
     return (s.joint_names, s.joint_trees, s.root_id, s.cutoffs, s.end_effectors,
             s.n_joints, s.nonroot_id)
+
+
+@pytest.mark.parametrize("name", SKELETONS)
+def test_per_joint_cutoffs_match(name):
+    """Bit-equal, at two scales and two defaults (SMPL_SKELETON has a
+    family table; the others take the default everywhere)."""
+    a, b = getattr(jsk, name), getattr(tsk, name)
+    for ext_scale in (1.0, 0.001):
+        for default_mm in (500.0, 37.5):
+            ref = jsk.per_joint_cutoffs(a, ext_scale, default_mm)
+            got = tsk.per_joint_cutoffs(b, ext_scale, default_mm)
+            assert got.dtype == ref.dtype == np.float32
+            np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(tsk.per_joint_cutoffs(b, 0.5), jsk.per_joint_cutoffs(a, 0.5))
+
+
+def test_batched_smpl_l2ws_matches():
+    from posegen_tpu.skeleton.kinematics import batched_smpl_l2ws as j_batched
+    from posegen_tpu_torch.skeleton.kinematics import batched_smpl_l2ws
+
+    rng = np.random.default_rng(6)
+    pose = (0.5 * rng.standard_normal((5, 24, 3))).astype(np.float32)
+    rest = (tsk.SMPL_REST_POSE + 0.01 * rng.standard_normal((24, 3))).astype(np.float32)
+    ref = np.asarray(j_batched(jnp.asarray(pose), jnp.asarray(rest)))
+    got = batched_smpl_l2ws(torch.as_tensor(pose), torch.as_tensor(rest)).numpy()
+    assert got.shape == ref.shape == (5, 24, 4, 4)
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=0)
 
 
 def test_rest_pose_matches():

@@ -150,6 +150,7 @@ STEP_CASES = {
     "flagship": ({}, {}),
     "fix_layer": ({}, dict(fix_layer=3)),
     "framecode": (dict(opt_framecode=True, n_framecodes=4), {}),
+    "single_net": (dict(single_net=True, multires_views=0), {}),
 }
 
 
@@ -221,7 +222,8 @@ def _assert_step_matches(name, use_fused, start):
         np.testing.assert_allclose(stats[k], ref_stats[k], rtol=LOSS_RTOL, err_msg=k)
     got = tt.param_leaves(state.params)
     want = tt.param_leaves(params_from_numpy(ref.params, "cpu"))
-    assert len(got) == len(want) >= 40
+    n_nets = 1 if STEP_CASES[name][0].get("single_net") else 2
+    assert len(got) == len(want) >= 20 * n_nets
     moved = 0
     for a, b in zip(got, want):
         err = float((a.detach() - b).abs().max())
@@ -252,7 +254,7 @@ def test_carried_state_step_matches_jax(use_fused):
     assert float(state.opt_state.state[p]["step"]) == 3
 
 
-@pytest.mark.parametrize("name", ["fix_layer", "framecode"])
+@pytest.mark.parametrize("name", ["fix_layer", "framecode", "single_net"])
 def test_train_step_variants_match_jax(name):
     state, states = _assert_step_matches(name, True, 0)
     if name == "fix_layer":
@@ -260,6 +262,14 @@ def test_train_step_variants_match_jax(name):
             for i, layer in enumerate(state.params[net]["pts_linears"]):
                 before = states[0].params[net]["pts_linears"][i]["w"]
                 assert np.array_equal(layer["w"].detach().numpy(), before) == (i < 3)
+    elif name == "single_net":
+        # one net takes both passes' gradients: no fine net, and the coarse
+        # net's weights (its view layer's too, at view_ch 72) moved
+        assert "fine" not in state.params and "fine" not in states[0].params
+        for key in ("pts_linears", "views_linears"):
+            for layer, before in zip(state.params["coarse"][key],
+                                     states[0].params["coarse"][key]):
+                assert not np.array_equal(layer["w"].detach().numpy(), before["w"])
     else:
         assert "framecodes" in state.params["coarse"]
         assert not np.array_equal(state.params["coarse"]["framecodes"].detach().numpy(),
