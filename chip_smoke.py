@@ -339,6 +339,34 @@ and PyTorch built for CUDA. Phases, each of which fails the run:
               make_mesh equal to the plain step bit for bit; host-clock
               times of each arm (median of 5) beside the single process's.
 
+ 19. single   configs/surreal/surreal_single.txt as shipped: an 8192-ray
+              render (two posegen_field launches) and two train steps
+              through the eval and training kernels, against the plain
+              pipeline.
+
+ 20. proofs   the purpose experiments of posegen_tpu_torch/tools/, each
+              through its entry point at a reduced budget: the flagship
+              demo NeRF (flagship_demo, PROOF_FLAGSHIP_ITERS steps of
+              run_nerf); exp_bf16_delta at 512^2 (the kernels' frame and
+              the plain f32 frame, their PSNR printed); exp_poseopt
+              prepare (the JAX tool's 264-image 256^2 scene), soak
+              (PROOF_SOAK_ITERS h36m_prot2 steps), evalpose and testopt
+              (PROOF_TESTOPT_ITERS iterations at one tol); exp_mining
+              (32 pretraining renders, one GAN epoch ON and OFF, 32 mined
+              frames); run_gan with the pretrained SPIN, then
+              exp_capstone_ft on its sink. Each JSON holds the JAX tool's
+              keys, all finite; dual, field, stash, passes (a) / (b) and
+              pass (c) each launch at least once across the phase. Then
+              the routes, kernels against the plain f32 pipeline:
+              exp_bf16_delta's frame by phase 3's flip rule (each flip a
+              far-sigma sign change) and to PROOF_FRAME_PSNR off the
+              pixels whose opacity differs; testopt's pose params after
+              PROOF_K steps to STEP_GRAD_TOL (phase 8's rule); and
+              exp_mining's probe within the move that the rgb_map rule's
+              allowance gives the plain frames (every pixel shifted by
+              RENDER_TOL, MAX_FLIP_FRAC flipped), each arm's launches
+              checked.
+
 Before phase 1 it prints whether h5py, imageio, cv2, PIL and tensorboard import
 (information only).
 The last two lines of standard output are one JSON object of per-kernel
@@ -1037,16 +1065,20 @@ def run(torch) -> int:
         marks.append(("18", time.perf_counter()))
         single_launches, single_err = single_net_phases(torch, card)
         marks.append(("19", time.perf_counter()))
+        proof_launches = proof_phases(torch, card, tmp)
+        marks.append(("20", time.perf_counter()))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for k in launches:
         launches[k] += cli_launches[k] + ingest_launches[k] + par_launches[k]
     launches["field"] += single_launches["field"]
+    for k in ("dual", "field"):
+        launches[k] += proof_launches[k]
     err_field = max(err_field, single_err)
     for k in ("field_stash", "field_bwd"):
         train_launches[k] += (cli_launches[k] + ingest_launches[k] + par_launches[k]
-                              + single_launches[k])
-    pose_launches += cli_launches["field_bwd_inputs"]
+                              + single_launches[k] + proof_launches[k])
+    pose_launches += cli_launches["field_bwd_inputs"] + proof_launches["field_bwd_inputs"]
 
     by_name = {(r[0], r[1]): r for r in rows}
     kernels = []
@@ -5231,6 +5263,364 @@ def _same_near_far(torch, one, idx):
     with torch.no_grad():
         a, b = near_far(FRAME_CHUNK, False), near_far(FRAME_CHUNK // PAR_RANKS, True)
     return (a == b).all(-1).cpu().numpy()
+
+
+# phase 20: the purpose experiments (posegen_tpu_torch/tools/) at a reduced
+# budget: the flagship demo NeRF, exp_bf16_delta, exp_poseopt, exp_mining,
+# and run_gan + exp_capstone_ft, each through its entry point
+PROOF_FLAGSHIP_ITERS = 300  # the flagship demo's steps (the JAX run: 1500)
+PROOF_HW = 512  # exp_bf16_delta's frame
+# exp_bf16_delta's frame, the kernels' against the plain f32 pipeline's, by
+# phase 3's flip rule: at most MAX_FLIP_FRAC of the box's pixels have
+# opacities more than 0.01 apart, every flip (more than 0.5 apart) is a
+# sign change of the ray's far sigma, and the other pixels hold to
+# PROOF_FRAME_PSNR dB (read: 74.21 dB on the 1500-step demo NeRF off its 73
+# such pixels, RESULTS.md's JAX pair 78.2 dB)
+PROOF_FRAME_PSNR = 60.0
+PROOF_SCENE = ("264", "256", "320")  # prepare's images, size and focal: the JAX tool's
+PROOF_SOAK_ITERS = 100  # h36m_prot2 steps (the JAX tool's soak: 30,000-100,000)
+PROOF_SOAK_FLAGS = "--num_workers 0 --i_pose_weights 50"
+PROOF_TESTOPT_ITERS = 24  # testopt iterations (the JAX tool's 1500), at one tol
+PROOF_TESTOPT_TOL = "0.01"
+PROOF_K = 5  # testopt steps held, kernel route against plain
+PROOF_MINING = ("--n_pretrain", "32", "--n_eval", "4", "--pretrain_epochs", "2",
+                "--finetune_epochs", "1", "--gan_epochs", "1", "--batch_size", "64",
+                "--pool_n", "128", "--rpi", "16", "--probe_every", "1", "--probe_n", "4",
+                "--ft_n", "32", "--feedback_every", "1", "--pose_std", "0.15")
+PROOF_GAN = ("--epochs", "1", "--batch_size", "1024", "--rpi", "8", "--feedback_every", "1",
+             "--feedback_start_epoch", "-1")
+PROOF_CAPSTONE = ("--ft_n", "32", "--finetune_epochs", "1", "--n_eval", "4", "--n_pretrain",
+                  "32", "--pose_std", "0.15")
+# the probe route's floor: a float32 mean of 56 joint distances out of
+# ResNet-50's float32 reductions resolves about 2^-20 of its value; where
+# the rgb_map rule's allowance moves the probe by less (a SPIN of a few
+# steps barely reads its frames), the route is held to this
+PROBE_F32_FLOOR = 2.0 ** -20
+# the JAX tools' JSON keys (tools/exp_poseopt.py, exp_mining.py, exp_capstone_ft.py)
+SOAK_KEYS = ("gt_meta", "rows")
+TESTOPT_KEYS = ("ckpt", "n_iters", "bone_std", "pelvis_std", "sweeps")
+SWEEP_KEYS = ("tol", "mpjpe_before", "mpjpe_after", "mpjpe_rc_before", "mpjpe_rc_after",
+              "val_psnr_before", "val_psnr_after", "traj")
+MINING_KEYS = ("args", "spin_eval_mpjpe_random_init", "spin_eval_mpjpe_pretrained",
+               "probe_curves", "n_mined", "n_ft", "mined_set_mpjpe_pretrained",
+               "control_set_mpjpe_pretrained", "pretrained_eval", "finetune_eval_mpjpe")
+CAPSTONE_KEYS = ("args", "sink_size", "gan_ckpt", "mined_set_mpjpe_pretrained",
+                 "control_set_mpjpe_pretrained", "pretrained_eval", "finetune_eval_mpjpe")
+PROOF_KERNELS = ("dual", "field", "field_stash", "field_bwd", "field_bwd_inputs")
+
+
+def _all_finite(tree) -> bool:
+    if isinstance(tree, dict):
+        return all(_all_finite(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(_all_finite(v) for v in tree)
+    return not isinstance(tree, float) or math.isfinite(tree)
+
+
+def _check_json(tag: str, path: str, keys) -> dict:
+    with open(path) as f:
+        out = json.load(f)
+    missing = [k for k in keys if k not in out]
+    check(not missing, f"phase 20 {tag}: {path} lacks the JAX tool's keys {missing}")
+    check(_all_finite(out), f"phase 20 {tag}: {path} holds a value that is not finite")
+    return out
+
+
+def proof_phases(torch, card: str, tmp: str):
+    """Phase 20 -> launches by kernel on its main paths (every tool's run)."""
+    import numpy as np
+
+    from posegen_tpu_torch.cli import run_gan
+    from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.tools import exp_bf16_delta, exp_capstone_ft, exp_mining, exp_poseopt
+    from posegen_tpu_torch.tools.flagship_demo import train_flagship
+
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "proofs")
+    marks = []
+
+    def mark(name):
+        torch.cuda.synchronize()
+        marks.append((name, time.perf_counter(), dict(F.LAUNCHES)))
+
+    F.reset_launches()
+    mark("start")
+    # 20a. the flagship demo NeRF, through run_nerf
+    (nerf_args, ckpt), _ = _quiet(train_flagship, os.path.join(root, "logs"),
+                                  os.path.join(root, "data"), PROOF_FLAGSHIP_ITERS, 0,
+                                  device=DEVICE)
+    check(ckpt is not None and ckpt.endswith(f"{PROOF_FLAGSHIP_ITERS:08d}.ckpt.npz"),
+          f"phase 20 flagship: checkpoint {ckpt}")
+    nerf = ["--nerf_args", nerf_args, "--ckptpath", ckpt]
+    mark("flagship")
+    # 20b. exp_bf16_delta: the kernels' frame and the plain f32 frame
+    bf16_out = os.path.join(root, "bf16ab")
+    bf16, _ = _quiet(exp_bf16_delta.main, nerf + ["--hw", str(PROOF_HW), "--out", bf16_out],
+                     device=DEVICE)
+    psnr = bf16["psnr"]["fused|xla32"]
+    frame = np.load(os.path.join(bf16_out, "fused.npy"))
+    check(frame.shape == (PROOF_HW, PROOF_HW, 3) and bool(np.isfinite(frame).all()),
+          f"phase 20 exp_bf16_delta: fused frame {frame.shape}")
+    mark("exp_bf16_delta")
+    # 20c. exp_poseopt: prepare, soak, evalpose, testopt
+    common = ["--data_dir", os.path.join(root, "data_poseopt"), "--out_dir",
+              os.path.join(root, "poseopt"), "--basedir", os.path.join(root, "logs")]
+    _quiet(exp_poseopt.main, ["prepare", "--n_images", PROOF_SCENE[0], "--hw", PROOF_SCENE[1],
+                              "--focal", PROOF_SCENE[2]] + common)
+    soak_dir, _ = _quiet(exp_poseopt.main, ["soak", "--n_iters", str(PROOF_SOAK_ITERS),
+                                            "--nerf_flags", PROOF_SOAK_FLAGS] + common,
+                         device=DEVICE)
+    mark("soak")
+    soak_json, _ = _quiet(exp_poseopt.main, ["evalpose"] + common)
+    soak = _check_json("evalpose", soak_json, SOAK_KEYS)
+    check([r["step"] for r in soak["rows"]] == list(range(0, PROOF_SOAK_ITERS + 1, 50)),
+          f"phase 20 evalpose: rows at steps {[r['step'] for r in soak['rows']]}")
+    _quiet(exp_poseopt.main, ["testopt", "--n_iters", str(PROOF_TESTOPT_ITERS), "--tols",
+                              PROOF_TESTOPT_TOL, "--nerf_flags", PROOF_SOAK_FLAGS] + common,
+           device=DEVICE)
+    testopt = _check_json("testopt", os.path.join(root, "poseopt", "testopt_recovery.json"),
+                          TESTOPT_KEYS)
+    (sweep,) = testopt["sweeps"]
+    check(all(k in sweep for k in SWEEP_KEYS), f"phase 20 testopt: sweep keys {sorted(sweep)}")
+    mark("testopt")
+    # 20d. exp_mining: splits, HMR pretrain, GAN feedback ON / OFF, fine-tune
+    mining_out = os.path.join(root, "mining")
+    _quiet(exp_mining.main, nerf + ["--out", mining_out, *PROOF_MINING], device=DEVICE)
+    mining = _check_json("exp_mining", os.path.join(mining_out, "summary.json"), MINING_KEYS)
+    mark("exp_mining")
+    # 20e. run_gan on the demo NeRF with the pretrained SPIN -> its sink ->
+    # exp_capstone_ft, reusing exp_mining's splits
+    spin_npz = os.path.join(mining_out, "spin_pretrained.npz")
+    _quiet(run_gan.main, nerf + ["--spin_ckpt", spin_npz, "--outputdir",
+                                 os.path.join(root, "render_output"), "--runname", "capstone",
+                                 *PROOF_GAN], device=DEVICE)
+    cap_out = os.path.join(root, "capstone_finetune.json")
+    _quiet(exp_capstone_ft.main, nerf + [
+        "--sink", os.path.join(root, "render_output", "capstone"), "--pretrained", spin_npz,
+        "--splits_dir", mining_out, "--out", cap_out, *PROOF_CAPSTONE], device=DEVICE)
+    capstone = _check_json("exp_capstone_ft", cap_out, CAPSTONE_KEYS)
+    mark("exp_capstone_ft")
+
+    launches = {k: marks[-1][2][k] - marks[0][2][k] for k in marks[0][2]}
+    for (name, t0, l0), (tag, t1, l1) in zip(marks, marks[1:]):
+        got = {k: l1[k] - l0[k] for k in PROOF_KERNELS if l1[k] - l0[k]}
+        print(f"phase 20 {tag}: {t1 - t0:.1f} s, launches {got}")
+    for k in PROOF_KERNELS:
+        check(launches[k] > 0, f"phase 20: no {k} launch across the purpose experiments")
+    print(f"phase 20 results: flagship {PROOF_FLAGSHIP_ITERS} steps; PSNR(fused, xla32) "
+          f"{psnr:.2f} dB at {PROOF_HW}^2 ({bf16['diff']['fused|xla32']}); soak "
+          f"{PROOF_SOAK_ITERS} steps, MPJPE "
+          f"{soak['rows'][0]['mpjpe']:.4f} -> {soak['rows'][-1]['mpjpe']:.4f}; testopt "
+          f"tol {sweep['tol']} x {PROOF_TESTOPT_ITERS}: MPJPE {sweep['mpjpe_before']:.4f} -> "
+          f"{sweep['mpjpe_after']:.4f}, val PSNR {sweep['val_psnr_before']:.2f} -> "
+          f"{sweep['val_psnr_after']:.2f}; mining probe ON "
+          f"{[round(v, 4) for _, v in mining['probe_curves']['feedback_on']]}, OFF "
+          f"{[round(v, 4) for _, v in mining['probe_curves']['feedback_off']]}, fine-tuned "
+          f"{mining['finetune_eval_mpjpe']}; capstone sink {capstone['sink_size']}, fine-tuned "
+          f"{capstone['finetune_eval_mpjpe']}")
+
+    # 20f. the kernel route against the plain one (these launches are not
+    # the main path's): exp_bf16_delta's frame by the flip rule, testopt's
+    # pose params after PROOF_K steps from the soak's checkpoint, and
+    # exp_mining's probe on one generator state
+    _bf16_frame_rule(torch, nerf_args, ckpt, bf16_out, bf16["diff"]["fused|xla32"])
+    _testopt_routes(torch, root, soak_dir)
+    _probe_routes(torch, nerf_args, ckpt, spin_npz)
+    print(f"timing phase 20: {time.perf_counter() - t_phase:.1f} s [{card}]")
+    return launches
+
+
+def _bf16_frame_rule(torch, nerf_args: str, ckpt: str, out: str, diff: dict) -> None:
+    """exp_bf16_delta's two card frames (fused, xla32) by phase 3's flip
+    rule, within the frame's box; the background must be equal."""
+    import numpy as np
+
+    from posegen_tpu_torch.cli.run_render import load_trained
+    from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.render import image as IMG
+    from posegen_tpu_torch.tools.exp_bf16_delta import load_frame
+
+    targs, cfg, variables = load_trained(nerf_args, ckpt, device=DEVICE)
+    ctx, c2w, focal, src_h = load_frame(targs, 0, torch.device(DEVICE))
+    H = PROOF_HW
+    focal = focal * H / src_h
+    tl, br, idx = IMG.valid_box_for_pose(H, H, focal, c2w, ctx.cyls[0].cpu().numpy())
+    got, want = (np.load(os.path.join(out, f"{t}.npy")).reshape(-1, 3)
+                 for t in ("fused", "xla32"))
+    acc = [np.load(os.path.join(out, f"{t}_acc.npy")).reshape(-1) for t in ("fused", "xla32")]
+    rest = np.ones(H * H, bool)
+    rest[idx] = False
+    check(np.array_equal(got[rest], want[rest]), "phase 20 exp_bf16_delta: background differs")
+    d_acc = np.abs(acc[0] - acc[1])[idx]
+    flipped, moved = d_acc > 0.5, d_acc > 0.01
+    cam = {k: torch.as_tensor(v).to(DEVICE)
+           for k, v in IMG.make_cam(H, H, focal, c2w, tl, br).items()}
+    with torch.no_grad():
+        straddles = far_sigma_straddles(torch, F, cfg, variables, ctx, cam, len(idx),
+                                        32768)[0].cpu().numpy()
+    psnr = diff["psnr_opacity_within_0.01"]
+    print(f"phase 20 exp_bf16_delta frame: PSNR(fused, xla32) {diff['psnr']:.2f} dB over the "
+          f"frame, {psnr:.2f} dB (bound {PROOF_FRAME_PSNR}) off the {int(moved.sum())} of "
+          f"{len(idx)} box pixels whose opacities are more than 0.01 apart; {int(flipped.sum())} "
+          f"flips, each a far-sigma sign change ({int(straddles.sum())} far samples change "
+          "sign)")
+    check(int(moved.sum()) <= MAX_FLIP_FRAC * len(idx),
+          f"phase 20 exp_bf16_delta: {int(moved.sum())} of {len(idx)} pixels' opacities "
+          "more than 0.01 apart")
+    check(bool(straddles[flipped].all()),
+          f"phase 20 exp_bf16_delta: {int((~straddles[flipped]).sum())} pixels flipped "
+          "opacity with no sign change of their far sigma")
+    check(psnr >= PROOF_FRAME_PSNR,
+          f"phase 20 exp_bf16_delta: PSNR(fused, xla32) {psnr:.2f} dB off the "
+          f"{int(moved.sum())} pixels whose opacities differ, < {PROOF_FRAME_PSNR}")
+
+
+def _testopt_routes(torch, root: str, soak_dir: str) -> None:
+    """PROOF_K testopt steps on the same batches through the kernels and
+    through the plain f32 pipeline (perturb 0, no raw noise), from one
+    fresh state of the soak's checkpoint: the pose params' displacement to
+    phase 8's rule (STEP_GRAD_TOL relative L2), each step's pose gradient
+    printed beside it."""
+    import dataclasses
+    import types
+
+    import numpy as np
+
+    from posegen_tpu_torch.cli.config import (
+        args_to_data_config, args_to_raycast_config, args_to_train_config,
+    )
+    from posegen_tpu_torch.data.catalog import load_data
+    from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.pose.opt import PoseOptConfig, init_pose_params
+    from posegen_tpu_torch.tools import exp_poseopt as P
+    from posegen_tpu_torch.train.checkpoints import latest_checkpoint
+    from posegen_tpu_torch.train.trainer import make_train_step
+
+    data_dir = os.path.join(root, "data_poseopt")
+    args = types.SimpleNamespace(data_dir=data_dir, basedir=os.path.join(root, "logs"),
+                                 nerf_flags=PROOF_SOAK_FLAGS, n_iters=PROOF_K)
+    cli, cli_load = P.testopt_cli(args)
+    gt = dict(np.load(P.gt_path(data_dir)))
+    b_n, kp_n, _, _ = P.perturb(gt["gt_bones"], gt["gt_kp3d"], 7, 0.08, 0.02)
+    loader, _, attrs = load_data(args_to_data_config(cli))
+    try:
+        it = iter(loader)
+        batches = [next(it) for _ in range(PROOF_K)]
+    finally:
+        loader.close()
+    cfg = dataclasses.replace(args_to_raycast_config(cli, n_framecodes=attrs["n_framecodes"]),
+                              perturb=0.0, raw_noise_std=0.0)
+    pcfg = PoseOptConfig(use_rot6d=True, opt_pose_tol=float(PROOF_TESTOPT_TOL))
+    rest = torch.as_tensor(attrs["rest_pose"], device=DEVICE)
+    ckpt = latest_checkpoint(soak_dir)
+    out, grads = {}, {}
+    for tag, fused in (("kernels", None), ("plain", False)):
+        tcfg = dataclasses.replace(args_to_train_config(cli), fused_train=fused)
+        pose, anchors = init_pose_params(pcfg, b_n, kp_n, device=DEVICE)
+        state = P.testopt_state(ckpt, cfg, args_to_train_config(cli_load), tcfg, pose, anchors,
+                                torch.device(DEVICE))
+        step = make_train_step(cfg, tcfg, pcfg, rest_pose=rest, n_frames=attrs["n_kps"])
+        grads[tag] = []
+
+        def recorded(state, batch, gen, step=step, tag=tag):
+            before = dict(F.LAUNCHES)
+            state, stats = step(state, batch, gen)
+            got = {k: F.LAUNCHES[k] - before[k] for k in before}
+            if tag == "kernels":
+                check(got["field_bwd_inputs"] == 2 and got["field_stash"] == 2,
+                      f"phase 20 testopt route: launches {got}")
+            grads[tag].append(torch.cat([p.grad.reshape(-1)
+                                         for p in state.pose_params.values()]).clone())
+            return state, stats
+
+        start = {k: v.detach().clone() for k, v in state.pose_params.items()}
+        state, _, _ = P.testopt_loop(recorded, state, iter(batches), PROOF_K, gt, DEVICE,
+                                     log=None)
+        out[tag] = torch.cat([(v.detach() - start[k]).reshape(-1)
+                              for k, v in state.pose_params.items()])
+    e_move = rel_l2(out["kernels"], out["plain"])
+    e_grads = [rel_l2(a, b) for a, b in zip(grads["kernels"], grads["plain"])]
+    # Adam's first updates are about lr * sign(g) a component: a component
+    # whose gradient lies within the kernels' error of 0 moves the other way
+    same = torch.sign(out["kernels"]) == torch.sign(out["plain"])
+    e_same = rel_l2(out["kernels"][same], out["plain"][same])
+    check(float(out["plain"].norm()) > 0.0, "phase 20 testopt route: the pose did not move")
+    check(e_move <= STEP_GRAD_TOL, f"phase 20 testopt route: the pose params' displacement "
+                                   f"over {PROOF_K} steps, kernels vs plain f32, relative L2 "
+                                   f"{e_move:.3e} > {STEP_GRAD_TOL}")
+    print(f"phase 20 testopt route: {PROOF_K} steps, the pose params' displacement kernels vs "
+          f"plain f32 relative L2 {e_move:.3e} (bound {STEP_GRAD_TOL}); each step's pose "
+          f"gradient {', '.join(f'{e:.3e}' for e in e_grads)}; {int((~same).sum())} of "
+          f"{same.numel()} components moved the other way, the rest {e_same:.3e}")
+
+
+def _probe_routes(torch, nerf_args: str, ckpt: str, spin_npz: str) -> None:
+    """exp_mining's probe (fixed inputs and noises, whole frames, the
+    pretrained SPIN) on the seed-0 generator, rendered by the eval kernels
+    and by the plain f32 pipeline, each arm's launches checked (dual and
+    field in the first, none in the second). The bound is the rgb_map rule's
+    allowance carried through SPIN, read in the same run: the probe of the
+    plain frames with every pixel shifted by RENDER_TOL (a shared shift
+    passes the crop's resize and SPIN's convolutions undiminished) and
+    MAX_FLIP_FRAC of the pixels, drawn from a seeded generator, flipped to
+    1 - v. The kernels' probe must sit within it of the plain probe, or
+    within PROBE_F32_FLOOR where the allowance moves it less, and the
+    allowance must move the probe at all."""
+    import numpy as np
+
+    from posegen_tpu_torch.cli.run_render import load_trained
+    from posegen_tpu_torch.gen.generators import GenConfig, draw_noises
+    from posegen_tpu_torch.gen.hmr import init_hmr
+    from posegen_tpu_torch.gen.loop import GanLoopConfig, GanTrainer, NeRFRenderer
+    from posegen_tpu_torch.kernels import field as F
+    from posegen_tpu_torch.render import image as IMG
+    from posegen_tpu_torch.tools import exp_mining as M
+
+    _, cfg, variables = load_trained(nerf_args, ckpt, device=DEVICE)
+    spin_params, spin_state = init_hmr(torch.Generator().manual_seed(2), device=DEVICE)
+    spin_params, spin_state = M.load_spin(spin_npz, spin_params, spin_state)
+    real = M.draw(300, 4, 0.15)
+    noises = draw_noises(torch.Generator(device=DEVICE).manual_seed(777), 4, GenConfig())
+    values, launches = {}, {}
+    for tag in ("kernels", "plain", "allowance"):
+        renderer = NeRFRenderer(cfg, variables, hw=PROOF_HW, chunk=32768)
+        if tag != "kernels":
+            renderer._render_fn, renderer.chunk = IMG._raygen_render_fn(cfg, False), 8192
+        if tag == "allowance":
+            plain_frames, rng = renderer.render_poses, np.random.default_rng(SEED)
+
+            def allowed(bones, c2ws, window=None, f=plain_frames, rng=rng):
+                imgs = f(bones, c2ws, window) + RENDER_TOL
+                flip = rng.random(imgs.shape[:3]) < MAX_FLIP_FRAC
+                imgs[flip] = 1.0 - imgs[flip]
+                return imgs
+
+            renderer.render_poses = allowed
+        trainer = GanTrainer(GanLoopConfig(), renderer, spin_params, spin_state, seed=0,
+                             device=DEVICE)
+        F.reset_launches()
+        values[tag] = M.probe(trainer, real, noises)
+        torch.cuda.synchronize()
+        launches[tag] = {k: v for k, v in F.LAUNCHES.items() if v}
+    moved = {t: abs(values[t] - values["plain"]) for t in ("kernels", "allowance")}
+    rel = {t: v / max(abs(values["plain"]), 1e-12) for t, v in moved.items()}
+    print(f"phase 20 probe route: exp_mining's probe (4 frames of {PROOF_HW}^2) kernels "
+          f"{values['kernels']:.9f} vs plain f32 {values['plain']:.9f}, relative "
+          f"{rel['kernels']:.3e}; the bound, the plain frames shifted by {RENDER_TOL} with "
+          f"{MAX_FLIP_FRAC:.0%} of pixels flipped: {values['allowance']:.9f}, relative "
+          f"{rel['allowance']:.3e}; launches kernels {launches['kernels']}, plain "
+          f"{launches['plain']}, allowance {launches['allowance']}")
+    check(launches["kernels"].get("dual", 0) > 0 and launches["kernels"].get("field", 0) > 0,
+          f"phase 20 probe route: the kernels arm launched {launches['kernels']}")
+    for tag in ("plain", "allowance"):
+        check(not launches[tag], f"phase 20 probe route: the {tag} arm launched {launches[tag]}")
+    check(moved["allowance"] > 0.0, "phase 20 probe route: the rgb_map rule's allowance did "
+                                    "not move the probe")
+    check(math.isfinite(values["kernels"])
+          and rel["kernels"] <= max(rel["allowance"], PROBE_F32_FLOOR),
+          f"phase 20 probe route: kernels {values['kernels']:.9f} vs plain "
+          f"{values['plain']:.9f}, relative {rel['kernels']:.3e} > the allowance's "
+          f"{rel['allowance']:.3e} and the float32 floor {PROBE_F32_FLOOR:.3e}")
 
 
 def _glob(d: str, pattern: str):

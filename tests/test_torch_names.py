@@ -180,3 +180,84 @@ def test_each_package_imports_first_in_a_fresh_interpreter():
                          timeout=120)
     assert out.returncode == 0, out.stdout[-4000:]
     assert "failed: []" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the repository's tools/: the experiments that show the system does its job
+# ---------------------------------------------------------------------------
+
+TOOLS = ROOT / "tools"
+# JAX tools with no port yet, each with what covers it meanwhile
+TOOLS_LEFT = {
+    "bench_train_step.py": "measurement: the port's benchmark PR (chip_smoke phases 6 and 8 "
+                           "time the train and pose steps)",
+    "profile_render.py": "measurement: the port's benchmark PR (chip_smoke phases 4 and 10)",
+    "profile_feedback.py": "measurement: the port's benchmark PR (chip_smoke phase 11)",
+    "exp_dual_eval.py": "measurement: the port's benchmark PR (chip_smoke phases 2-4 time "
+                        "the dual kernel against two field launches)",
+    "exp_ray_ladder.py": "measurement: the port's benchmark PR (chip_smoke phase 17d)",
+    "exp_ab.py": "drives the reference implementation, which the repository does not hold",
+    "bench_reference_cpu.py": "drives the reference implementation, which the repository does "
+                              "not hold",
+}
+# (JAX tool, its public function or name) -> (the port tool's names, reason)
+TOOL_MAPPED = {
+    ("exp_kernel_variants.py", "encode_bf16"): (
+        (), "a Pallas encode body; the CUDA variants are if-constexpr branches of field_eval.cuh"),
+    ("exp_kernel_variants.py", "encode_mx"): ((), "a Pallas encode body, as encode_bf16"),
+    ("exp_kernel_variants.py", "make_variant_kernel"): (
+        (), "builds the Pallas kernel; the CUDA one is built with the library"),
+    ("exp_kernel_variants.py", "variant_field"): (
+        (), "the harness's kernel wrapper is kernels/variants.variant_field"),
+    ("exp_poseopt.py", "ROOT"): (("checkout_path",), "the checkout's paths, None outside one"),
+    ("exp_capstone_ft.py", "ROOT"): (("checkout_path",), "the checkout's paths, None outside one"),
+    ("exp_capstone_ft.py", "load_images"): (
+        ("_prepared",), "exp_mining's _prepared (PNGs -> SPIN crops on the host), imported"),
+    ("exp_capstone_ft.py", "mpjpe_batched"): (
+        ("mpjpe_prepared",), "exp_mining's mpjpe_prepared (the batched mean), imported"),
+    ("exp_bf16_delta.py", "mk"): (("render_frame",), "the render of one route"),
+    ("exp_bf16_delta.py", "fn"): (("render_frame",), "the render of one route"),
+    ("exp_bf16_delta.py", "run"): (
+        ("render_frame",), "render, time and save one frame: a closure of main around it"),
+}
+
+
+def _tool_names(tree: ast.Module):
+    """A tool's public names: the module's (as _defined), and every public
+    function defined inside its main() (the closures that hold its work)."""
+    out = _defined(tree)
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and node.name == "main":
+            out |= {n.name for n in ast.walk(node)
+                    if isinstance(n, ast.FunctionDef) and n is not node
+                    and not n.name.startswith("_")}
+    return out
+
+
+def test_every_tool_is_ported_or_listed():
+    """Each JAX tool has a twin in posegen_tpu_torch/tools/ or a reason in
+    TOOLS_LEFT; an entry whose twin now exists, or whose tool is gone, fails."""
+    for path in sorted(TOOLS.glob("*.py")):
+        ported = (PORT / "tools" / path.name).exists()
+        assert ported != (path.name in TOOLS_LEFT), (
+            f"tools/{path.name}: {'ported and listed' if ported else 'neither ported nor listed'}")
+    for name, reason in TOOLS_LEFT.items():
+        assert reason and (TOOLS / name).exists(), f"TOOLS_LEFT lists tools/{name}"
+
+
+@pytest.mark.parametrize("tool", sorted(p.name for p in TOOLS.glob("*.py")
+                                        if (PORT / "tools" / p.name).exists()))
+def test_tool_names_have_counterparts(tool):
+    """A public function of a ported JAX tool (main's closures included) has
+    a counterpart in the port's tool, by name or in TOOL_MAPPED."""
+    jax_names = _tool_names(_parse(TOOLS / tool))
+    port_names = _bound(_parse(PORT / "tools" / tool))
+    missing = sorted(n for n in jax_names - port_names if (tool, n) not in TOOL_MAPPED)
+    assert not missing, f"tools/{tool}: no counterpart for {missing}"
+    for (mod, name), (counterparts, reason) in TOOL_MAPPED.items():
+        if mod != tool:
+            continue
+        assert reason and name in jax_names, f"{mod}::{name} is mapped but not defined there"
+        assert name not in port_names, f"{mod}::{name} is mapped but the twin defines it"
+        for c in counterparts:
+            assert c in port_names, f"{mod}::{name} maps to {c}, which the twin lacks"
